@@ -14,7 +14,10 @@ failure:
    window) and at B = 32: sweep inputs recorded from a witness run on
    the bench history, plus random tables that die mid-block, start
    past 0, or end in padding.  States, alive and death must match
-   exactly.  Times the kernel (CUDA events) and the plain version.
+   exactly.  Times the kernel (CUDA events) and the plain version, and
+   sets the kernel's time beside its byte bound and beside the floor
+   of its serial chain (the library's chain probe: the per-barrier
+   model step, ballot and commit with no loads, times the barriers).
 2. The main path: `Linearizable(cas_register(), "wgl-tpu").check` on
    the 100k-op, 5%-info, 16-process cas-register history (seed 45100),
    warmed up first; median of 3 wall times, with the kernel's launch
@@ -78,13 +81,31 @@ def wall_ms(fn, reps: int) -> float:
 def sweep_bytes(start_k: int, death: int, K: int, cols: list,
                 B: int, SW: int) -> int:
     """Bytes the sweep must move for this input: the bars columns it
-    reads (start_k .. death, 6 words each), each distinct member word
-    those barriers name, the states and alive read once, and the
-    outputs written once."""
+    reads (start_k .. death, 5 words each: window column, real, f, a0,
+    a1; the ret row is never read), each distinct member word those
+    barriers name, the states and alive read once, and the outputs
+    written once."""
     last = min(death, K - 1)
     n = max(0, last - start_k + 1)
     distinct = len(set(cols[start_k:last + 1])) if n else 0
-    return 4 * (6 * n + distinct + 2 * (SW * B + B) + 1)
+    return 4 * (5 * n + distinct + 2 * (SW * B + B) + 1)
+
+
+def chain_step_ns(torch) -> float:
+    """Nanoseconds per step of the sweep's serial chain with no loads
+    (the kernel library's chain probe: model step, death ballot and
+    commit), from CUDA events around probes of N and 2N steps, so the
+    launch cost cancels."""
+    from jepsen_tpu_torch.ops import kernels
+
+    dev = torch.device("cuda")
+    n = 1 << 20
+    t_n = cuda_ms(lambda: kernels.sweep_chain_probe(n, dev), reps=5)
+    t_2n = cuda_ms(lambda: kernels.sweep_chain_probe(2 * n, dev), reps=5)
+    out = kernels.sweep_chain_probe(n, dev)
+    if int(out[32].item()) != n:
+        raise AssertionError(f"chain probe stopped at {int(out[32])}")
+    return (t_2n - t_n) * 1e6 / n
 
 
 def phase_kernel(torch, packed, pm, W, seed: int) -> dict:
@@ -190,10 +211,15 @@ def phase_kernel(torch, packed, pm, W, seed: int) -> dict:
         log(f"phase1: {name:>20} start={start_k:5d} death={kd:5d} "
             f"B={member.shape[1]:2d} match")
 
+    step_ns = chain_step_ns(torch)
+    log(f"phase1: serial chain floor {step_ns:.4f} ns per barrier "
+        f"(register step + ballot + commit, no loads)")
+
     def timed(name):
-        """(barriers swept, kernel ms, plain ms, bytes, bound ms) of one
-        case: the kernel alone (CUDA events over many launches), the
-        plain version, and the byte bound for this input."""
+        """(barriers swept, kernel ms, plain ms, bytes, bound ms, chain
+        floor ms) of one case: the kernel alone (CUDA events over many
+        launches), the plain version, the byte bound for this input,
+        and its barriers times the serial chain's step."""
         start_k, bars, member, states, alive = dict(cases)[name]
         mbits = pack_member_bits(member)
         st_t = states.T.contiguous()
@@ -208,15 +234,16 @@ def phase_kernel(torch, packed, pm, W, seed: int) -> dict:
         nbytes = sweep_bytes(start_k, death, K, bars[0].tolist(),
                              member.shape[1], states.shape[1])
         bound = nbytes / HBM_BYTES_PER_S * 1e3
+        floor = swept * step_ns / 1e6
         log(f"phase1: timing {name}: {swept} barriers, kernel {ms:.6f} ms "
             f"({ms * 1e3 / swept:.4f} us/barrier), plain {plain:.3f} ms, "
             f"bound {bound:.9f} ms ({nbytes} B at {HBM_BYTES_PER_S:.3g} "
-            f"B/s)")
-        return swept, ms, plain, nbytes, bound
+            f"B/s), serial chain floor {floor:.6f} ms")
+        return swept, ms, plain, nbytes, bound, floor
 
     # The JSON line reports the longest real sweep of the main path; the
     # full random block (K barriers) is printed beside it.
-    swept, ms, plain_ms, _, bound_ms = timed("bench-longest")
+    swept, ms, plain_ms, _, bound_ms, floor_ms = timed("bench-longest")
     timed("rand8-clean")
     log("phase1: library_ms null: no single PyTorch call computes an "
         "early-exit serial sweep")
@@ -232,6 +259,8 @@ def phase_kernel(torch, packed, pm, W, seed: int) -> dict:
         "bound_ms": bound_ms,
         "bound_by": "bytes",
         "library_ms": None,
+        "chain_floor_ms": floor_ms,
+        "chain_step_ns": step_ns,
         "barriers_timed": swept,
         "cases_matched": len(cases),
     }
@@ -396,11 +425,10 @@ def main() -> int:
         f"{torch.version.cuda}); nvidia-smi: {smi}")
 
     t0 = time.perf_counter()
-    kernels.build(["witness_sweep"])
+    kernels.sweep_lib()
     log(f"build: {time.perf_counter() - t0:.3f} s")
-    for kname, text in kernels.build_logs.items():
-        for line in text.strip().splitlines():
-            log(f"build[{kname}]: {line}")
+    for line in kernels.build_log.strip().splitlines():
+        log(f"build[witness_sweep]: {line}")
 
     t0 = time.perf_counter()
     history = random_register_history(BENCH_OPS, procs=BENCH_PROCS,

@@ -112,22 +112,13 @@ class Linearizable:
         except Exception as e:
             if not degrade.is_resource_error(e):
                 raise
-            # The card ran out of memory: retry the device search once
-            # at half size, then settle on the exact CPU engine.
+            # The device ran out of memory: retry the search once at half
+            # size on the same device.  A second failure raises — the
+            # verdict never silently moves to the CPU engines.
             degrade.record("dispatch", "retry-halved", e)
-            try:
-                res = _device_search(max(self.beam // 2, 64),
-                                     max(self.max_beam // 2, 64),
-                                     max(self.block // 2, 32), _budget_now())
-            except Exception as e2:
-                if not degrade.is_resource_error(e2):
-                    raise
-                degrade.record("dispatch", "fall-through", e2)
-                res, engine = self._cpu_exact(
-                    packed, pm, time_limit_s=_budget_now()
-                    if self.time_limit_s is not None
-                    else DEFAULT_SETTLE_BUDGET_S)
-                return self._render(res, packed, f"{engine}-degraded", pm)
+            res = _device_search(max(self.beam // 2, 64),
+                                 max(self.max_beam // 2, 64),
+                                 max(self.block // 2, 32), _budget_now())
         used = "wgl-tpu"
         if res.valid is False and not res.final_configs:
             # The device BFS settles the verdict but carries no

@@ -18,19 +18,25 @@
 //   alive_in    (B,)     0/1
 //   states_out  (SW, B), alive_out (B,), death_out (1,)
 //
-// What bounds it on this card: not bytes -- it reads 28 B per barrier
-// (six bars words and one member word) -- but the serial chain of K
-// dependent barrier steps: whether barrier k + 1 runs at all depends on
-// the warp-wide death test at k, and each step waits on two dependent
-// loads (the window column, then its member word).  Only the B beam lanes
-// are parallel.  The design follows from that: ONE warp per launch, lane
-// = beam lane, so the death test is a single __ballot_sync with no shared
-// memory or block barrier; states and alive stay in registers for the
-// whole sweep and are written back once; the kernel allocates nothing and
-// launches on the caller's stream.  The bars are read straight from global
-// memory through the read-only path (__ldg); staging them in shared memory
-// ((6, 2048) i32 plus the window is past the 48 KB static limit, so it
-// needs dynamic shared memory) is left for a later change.
+// What bounds it on this card: not bytes -- it reads 24 B per barrier
+// (five bars words and one member word; the ret row is not read) -- but
+// the serial chain of K dependent barrier steps: whether barrier k + 1
+// runs at all depends on the warp-wide death test at k, and each step
+// waits on two dependent loads (the window column, then its member word).
+// Only the B beam lanes are parallel.  The design follows from that: ONE
+// warp per launch, lane = beam lane, so the death test is a single
+// __ballot_sync with no shared memory or block barrier; states and alive
+// stay in registers for the whole sweep and are written back once; the
+// kernel allocates nothing and launches on the caller's stream.  The bars
+// are read straight from global memory through the read-only path
+// (__ldg); staging them in shared memory ((6, 2048) i32 plus the window is
+// past the 48 KB static limit, so it needs dynamic shared memory) or
+// prefetching the next barrier's words is left for a later change.
+//
+// witness_sweep_chain_probe times the part of each step no prefetch can
+// hide -- the model step, the ballot and the commit, with the barrier's
+// words already in registers -- so a caller can set the sweep's time
+// against that serial-chain floor.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -120,6 +126,52 @@ witness_sweep_kernel(int B, int K, int start,
   if (lane == 0) death_out[0] = death;
 }
 
+// The serial chain of the sweep with no loads: per step, the register
+// step, the death ballot and the commit.  The operands of 16 steps are
+// made in registers before the loop (from `steps`, so they are not
+// compile-time constants) and the loop is unrolled by 16, so each step
+// waits only on the previous step's state and alive.  Lane 0 passes every
+// step, but the compiler cannot know it, so every ballot and branch stays.
+// Writes each lane's state plus alive and the step count reached, so
+// nothing is dead code.
+constexpr int PROBE_UNROLL = 16;
+
+__global__ void __launch_bounds__(32)
+chain_probe_kernel(int steps, int32_t* __restrict__ out) {
+  const int lane = threadIdx.x;
+  int32_t f[PROBE_UNROLL], a0[PROBE_UNROLL], a1[PROBE_UNROLL];
+  int has[PROBE_UNROLL];
+#pragma unroll
+  for (int j = 0; j < PROBE_UNROLL; ++j) {
+    const uint32_t h = static_cast<uint32_t>(steps + j) * 2654435761u;
+    f[j] = static_cast<int32_t>(h >> 30) % 3;
+    a0[j] = static_cast<int32_t>(h >> 8) & 3;
+    a1[j] = static_cast<int32_t>(h >> 12) & 3;
+    has[j] = lane == 0 ? 1 : static_cast<int>((h >> lane) & 1u);
+  }
+  int32_t st = lane & 3;
+  int alive = 1;
+  int reached = steps;
+  for (int k = 0; k < steps; k += PROBE_UNROLL) {
+#pragma unroll
+    for (int j = 0; j < PROBE_UNROLL; ++j) {
+      int32_t nx;
+      const bool legal = register_step(st, f[j], a0[j], a1[j], &nx);
+      const int surv_dir = alive & (1 - has[j]) & (legal ? 1 : 0);
+      const int new_alive = (alive & has[j]) | surv_dir;
+      if (__ballot_sync(0xffffffffu, new_alive) == 0u) {
+        reached = k + j;
+        goto done;
+      }
+      if (surv_dir) st = nx;
+      alive = new_alive;
+    }
+  }
+done:
+  out[lane] = st + alive;
+  if (lane == 0) out[32] = reached;
+}
+
 }  // namespace
 
 extern "C" {
@@ -144,6 +196,17 @@ int witness_sweep_launch(int model, int sw, int B, int K, int start,
           static_cast<const int32_t*>(alive_in),
           static_cast<int32_t*>(states_out), static_cast<int32_t*>(alive_out),
           static_cast<int32_t*>(death_out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launches the serial-chain probe (one warp, `steps` steps, a multiple
+// of 16) on `stream`; `out` holds 33 int32.  Returns cudaGetLastError().
+int witness_sweep_chain_probe(int steps, void* out, void* stream) {
+  if (steps < 0 || steps % PROBE_UNROLL != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  chain_probe_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      steps, static_cast<int32_t*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 

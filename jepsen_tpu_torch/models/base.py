@@ -52,7 +52,8 @@ class PackedModel:
       a1 scalars), the layout of the witness sweep.
     - `kernel_model`: id of the device step compiled into the CUDA
       witness sweep (ops/kernels.py), or None when the sweep kernel
-      has no step for this model and the plain sweep runs instead.
+      has no step for this model: its witness then runs only on CPU
+      tensors, and a sweep on the card raises.
     - `interner`: maps packed value codes back to real values.
     """
 

@@ -6,8 +6,9 @@ The port's copy of `is_resource_error`, `record` and `capture` from
 as "the device ran out, not the search" — now including CUDA's
 out-of-memory errors — and `record` appends to the active capture so a
 checker can put the ladder's path in its result.  A kernel that fails
-to build or launch is not a resource error: it raises and fails the
-run.
+to build or launch is not a resource error, even when CUDA's message
+says "out of memory": it raises (a launch as `KernelLaunchError`) and
+fails the run.
 """
 
 from __future__ import annotations
@@ -16,6 +17,8 @@ import threading
 from typing import Any, Optional
 
 import torch
+
+from .kernels import KernelLaunchError
 
 #: Message fragments that mean "the device gave out", as opposed to a
 #: bug in the search itself, matched case-insensitively.
@@ -36,7 +39,7 @@ def is_resource_error(e: BaseException) -> bool:
     shape bug, kernel launch failure) must propagate."""
     if isinstance(e, (MemoryError, torch.cuda.OutOfMemoryError)):
         return True
-    if isinstance(e, (KeyboardInterrupt, SystemExit)):
+    if isinstance(e, (KeyboardInterrupt, SystemExit, KernelLaunchError)):
         return False
     msg = f"{type(e).__name__}: {e}".lower()
     return any(m in msg for m in _RESOURCE_MARKERS)

@@ -22,7 +22,6 @@ import shutil
 import subprocess
 from collections import Counter
 from pathlib import Path
-from typing import Iterable
 
 import torch
 
@@ -38,11 +37,18 @@ NVCC_FLAGS = (
 #: Kernel launches by kernel name.
 launches: Counter = Counter()
 
-#: Compiler output (with `-Xptxas -v`: registers, shared memory and
-#: spills) of the builds made by this process, by kernel name.
-build_logs: dict[str, str] = {}
+#: Compiler output of this process's kernel build (with `-Xptxas -v`:
+#: registers, shared memory and spills); empty when the library was
+#: already built.
+build_log = ""
 
-_libs: dict[str, ctypes.CDLL] = {}
+_sweep: ctypes.CDLL | None = None
+
+
+class KernelLaunchError(RuntimeError):
+    """A kernel failed to launch (a CUDA error came back).  Never a
+    resource error to the degradation ladder, whatever CUDA's message
+    says: a failing kernel fails the run."""
 
 
 def _nvcc() -> str:
@@ -55,55 +61,46 @@ def _nvcc() -> str:
     return nvcc
 
 
-def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + "\0".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
-
-
-def build(names: Iterable[str]) -> dict[str, Path]:
-    """Builds every named kernel whose library is missing, one `nvcc`
-    per source, all started together; returns each library's path.
-    Raises with the compiler's output if any build fails."""
-    out = {name: _target(name) for name in names}
-    todo = {name: lib for name, lib in out.items() if not lib.exists()}
-    if not todo:
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
-    procs = {}
-    for name, lib in todo.items():
-        tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
-        procs[name] = (tmp, subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-        ))
-    failed = []
-    for name, (tmp, proc) in procs.items():
-        log, _ = proc.communicate()
-        build_logs[name] = log
+def sweep_lib() -> ctypes.CDLL:
+    """The witness sweep library, built from csrc/witness_sweep.cu on
+    first use (keyed by a hash of the source and flags) and loaded.
+    Raises with the compiler's output if the build fails."""
+    global _sweep, build_log
+    if _sweep is not None:
+        return _sweep
+    src = CSRC / "witness_sweep.cu"
+    digest = hashlib.sha256(src.read_bytes()
+                            + "\0".join(NVCC_FLAGS).encode()).hexdigest()
+    lib_path = BUILD_DIR / f"libwitness_sweep-{digest[:16]}.so"
+    if not lib_path.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = lib_path.with_name(f"{lib_path.stem}.{os.getpid()}.tmp.so")
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                              capture_output=True, text=True)
+        build_log = proc.stdout + proc.stderr
         if proc.returncode != 0:
-            failed.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{log}")
-        else:
-            os.replace(tmp, todo[name])
-    if failed:
-        raise RuntimeError("CUDA kernel build failed: " + "\n".join(failed))
-    return out
-
-
-def _sweep_lib() -> ctypes.CDLL:
-    lib = _libs.get("witness_sweep")
-    if lib is None:
-        lib = ctypes.CDLL(str(build(["witness_sweep"])["witness_sweep"]))
-        # Every pointer and the stream as c_void_p: ctypes would pass a
-        # bare Python int as a 32-bit int and cut the pointer.
-        lib.witness_sweep_launch.argtypes = (
-            [ctypes.c_int] * 5 + [ctypes.c_void_p] * 8)
-        lib.witness_sweep_launch.restype = ctypes.c_int
-        lib.witness_sweep_error_string.argtypes = [ctypes.c_int]
-        lib.witness_sweep_error_string.restype = ctypes.c_char_p
-        _libs["witness_sweep"] = lib
+            raise RuntimeError(f"CUDA kernel build failed: witness_sweep.cu "
+                               f"(nvcc exit {proc.returncode}):\n{build_log}")
+        os.replace(tmp, lib_path)
+    lib = ctypes.CDLL(str(lib_path))
+    # Every pointer and the stream as c_void_p: ctypes would pass a bare
+    # Python int as a 32-bit int and cut the pointer.
+    lib.witness_sweep_launch.argtypes = (
+        [ctypes.c_int] * 5 + [ctypes.c_void_p] * 8)
+    lib.witness_sweep_launch.restype = ctypes.c_int
+    lib.witness_sweep_chain_probe.argtypes = (
+        [ctypes.c_int] + [ctypes.c_void_p] * 2)
+    lib.witness_sweep_chain_probe.restype = ctypes.c_int
+    lib.witness_sweep_error_string.argtypes = [ctypes.c_int]
+    lib.witness_sweep_error_string.restype = ctypes.c_char_p
+    _sweep = lib
     return lib
+
+
+def _check(lib: ctypes.CDLL, what: str, err: int) -> None:
+    if err != 0:
+        msg = lib.witness_sweep_error_string(err).decode()
+        raise KernelLaunchError(f"{what} launch failed: {msg} ({err})")
 
 
 def witness_sweep(model: int, start_k: int, bars: torch.Tensor,
@@ -134,7 +131,7 @@ def witness_sweep(model: int, start_k: int, bars: torch.Tensor,
             f"{tuple(states.shape)}, alive {tuple(alive.shape)}")
     if not 0 <= start_k <= k:
         raise ValueError(f"witness_sweep: start_k {start_k} outside [0, {k}]")
-    lib = _sweep_lib()
+    lib = sweep_lib()
     states_out = torch.empty_like(states)
     alive_out = torch.empty_like(alive)
     death = torch.empty(1, dtype=torch.int32, device=dev)
@@ -145,8 +142,23 @@ def witness_sweep(model: int, start_k: int, bars: torch.Tensor,
             mbits.data_ptr(), states.data_ptr(), alive.data_ptr(),
             states_out.data_ptr(), alive_out.data_ptr(), death.data_ptr(),
             stream)
-    if err != 0:
-        msg = lib.witness_sweep_error_string(err).decode()
-        raise RuntimeError(f"witness_sweep launch failed: {msg} ({err})")
+    _check(lib, "witness_sweep", err)
     launches["witness_sweep"] += 1
     return states_out, alive_out, death
+
+
+def sweep_chain_probe(steps: int, device: torch.device) -> torch.Tensor:
+    """Launches the sweep's serial-chain probe (csrc/witness_sweep.cu
+    `chain_probe_kernel`: `steps` register steps, ballots and commits
+    with no loads; a multiple of 16) on `device` -> its (33,) int32
+    output.  A measuring
+    aid, not a kernel of the checking path: it is not counted in
+    `launches`."""
+    lib = sweep_lib()
+    out = torch.empty(33, dtype=torch.int32, device=device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        _check(lib, "witness_sweep_chain_probe",
+               lib.witness_sweep_chain_probe(int(steps), out.data_ptr(),
+                                             stream))
+    return out

@@ -42,6 +42,12 @@ from ..models.base import PackedModel
 #: Python int so torch ops against int32 tensors stay int32.
 INF = 2**31 - 1
 
+#: Candidate (config, op) slots per beam row in each BFS level.
+CAND_FACTOR = 4
+
+#: Widest active window the BFS takes on; wider returns "unknown".
+MAX_WINDOW = 16384
+
 
 def _bucket(x: int, lo: int = 256) -> int:
     w = lo
@@ -251,8 +257,6 @@ def check_wgl_device(
     beam: int = 1024,
     max_beam: int = 4096,
     block: int = 256,
-    cand_factor: int = 4,
-    max_window: int = 16384,
     time_limit_s: Optional[float] = None,
     witness: bool = True,
     width_hint: int = 0,
@@ -265,7 +269,7 @@ def check_wgl_device(
     window, then — only when that plan dropped info columns — the wide
     one; each rung gets the budget that remains.  If no witness is
     found, the frontier BFS settles the verdict: exact until
-    `max_beam`/`max_window` overflow, after which invalid degrades to
+    `max_beam`/`MAX_WINDOW` overflow, after which invalid degrades to
     "unknown"."""
     dev = _device.resolve(device)
     t0 = time.monotonic()
@@ -311,7 +315,7 @@ def check_wgl_device(
     soft_incomplete = False  # gave up on exactness somewhere
 
     while n0 < N:
-        win = _window_tables(packed, n0, block, max_window)
+        win = _window_tables(packed, n0, block, MAX_WINDOW)
         if win is None:
             return WGLResult(valid="unknown", configs_explored=explored_total,
                              reason="window-overflow",
@@ -345,7 +349,7 @@ def check_wgl_device(
         while True:
             (member, states, alive, accepted, incomplete, explored,
              it_done) = _run_block(member, states, alive, iters, tables, B,
-                                   cand_factor * B, pm)
+                                   CAND_FACTOR * B, pm)
             if accepted:
                 return WGLResult(valid=True,
                                  configs_explored=explored_total + explored,

@@ -18,8 +18,8 @@ an event-walk form of Wing–Gong:
   lane) pair in one batched step, keeps <= B children deduplicated by
   model state, and the sweep resumes after the barrier.
 
-Execution is a host loop: blocks of `bars_per_block` barriers, their
-tables built on the host and uploaded `blocks_per_call` blocks at a
+Execution is a host loop: blocks of `BARS_PER_BLOCK` barriers, their
+tables built on the host and uploaded `BLOCKS_PER_CALL` blocks at a
 time; inside a block, sweep -> read the death barrier -> chain search
 -> resume.  Each read of a device value is a host sync
 (`device.counters["host_syncs"]`).
@@ -62,6 +62,15 @@ WIDE_INFO_WINDOW = 4096
 #: only at equal knobs.
 BARS_PER_BLOCK = 2048
 BLOCKS_PER_CALL = 32
+
+#: Beam lanes (B) of the witness search; the reference's default.
+BEAM = 8
+
+#: Chain-search rounds per barrier (helper ops linearized before it).
+CHAIN_DEPTH = 5
+
+#: Widest planned window the witness takes on; wider escalates.
+MAX_WINDOW = 32768
 
 #: Beams up to this width fit the sweep kernel's one-word member bits.
 MAX_KERNEL_BEAM = 32
@@ -212,16 +221,16 @@ def sweep(pm: PackedModel, start_k: int, bars: torch.Tensor,
     """The barrier sweep (see `sweep_plain` for the contract).
 
     CPU tensors take the plain version.  CUDA tensors launch the
-    csrc/witness_sweep.cu kernel — or raise: there is no fallback —
-    unless the model has no device step (`pm.kernel_model` None) or the
-    beam is wider than one member word, which route to the plain
-    version (the reference gates its Pallas kernel the same way).
+    csrc/witness_sweep.cu kernel or raise: a ValueError for a model
+    with no device step (`pm.kernel_model` None) or a beam wider than
+    one member word, the kernel's own error for a failed launch.
     Reading the death barrier back is the launch's one host sync."""
-    B = member.shape[1]
-    if (bars.device.type == "cpu" or pm.kernel_model is None
-            or B > MAX_KERNEL_BEAM):
+    if bars.device.type == "cpu":
         return sweep_plain(start_k, bars, member, states, alive,
                            pm.torch_step_rows)
+    if pm.kernel_model is None:
+        raise ValueError(
+            f"model {pm.name!r} has no device step in the sweep kernel")
     s2, al2, death = kernels.witness_sweep(
         pm.kernel_model, start_k, bars, pack_member_bits(member),
         states.T.contiguous(), alive.to(torch.int32))
@@ -233,13 +242,12 @@ class _Block:
     reference's `run_block` / `heavy`, as host-driven loops)."""
 
     def __init__(self, pm: PackedModel, tab: torch.Tensor, B: int,
-                 depth: int, compact: int, hv: torch.Tensor):
+                 compact: int, hv: torch.Tensor):
         self.pm = pm
         # tab (5, W): inv, f, a0, a1, bar_rank of the window rows.
         self.inv_w, self.f_w, self.a0_w, self.a1_w, self.rank_w = tab
         self.W = tab.shape[1]
         self.B = B
-        self.D = depth
         self.WC = compact if 0 < compact < self.W else 0
         self.hv = hv
         self.col = torch.arange(self.W, device=tab.device)
@@ -265,14 +273,14 @@ class _Block:
 
     def heavy(self, member, states, alive, a, r, bf, ba0, ba1, k_rank):
         """Chain search at one barrier: direct -> targeted h·a ->
-        expand-any, bounded by chain depth D.  Two host syncs per
+        expand-any, bounded by CHAIN_DEPTH rounds.  Two host syncs per
         round."""
         _device.counters["heavy_rounds"] += 1
         pm = self.pm
         # Membership of ops whose barrier already passed is implied.
         implied = self.rank_w < k_rank
         base_avail = (~implied & (self.inv_w < r) & (self.col != a))[:, None]
-        for _ in range(self.D):
+        for _ in range(CHAIN_DEPTH):
             # try_direct
             ns, legal = pm.torch_step(states, bf, ba0, ba1)
             has = member[a]
@@ -367,15 +375,9 @@ def check_wgl_witness(
     packed: PackedOps,
     pm: PackedModel,
     *,
-    beam: int = 8,
-    bars_per_block: int = BARS_PER_BLOCK,
-    blocks_per_call: int = BLOCKS_PER_CALL,
-    depth: int = 5,
     info_window: Optional[int] = NARROW_INFO_WINDOW,
-    max_window: int = 32768,
     width_hint: int = 0,
     time_limit_s: Optional[float] = None,
-    compact: int = -1,
     out_info: Optional[dict] = None,
     device: Union[str, torch.device, None] = "cuda",
 ) -> Optional[WGLResult]:
@@ -384,12 +386,11 @@ def check_wgl_witness(
 
     Returns an exact `WGLResult(valid=True)` when a witness
     linearization survives, or None when the search dies, overflows
-    `max_window` or times out — meaning "escalate", never "invalid".
+    `MAX_WINDOW` or times out — meaning "escalate", never "invalid".
 
-    `width_hint` forces at least that window width.  `compact` is the
-    chain-round candidate tile width: -1 picks max(64, min(W // 2,
-    info_window)) (or W // 8 without a window bound), 0 disables.
-    `out_info`, when given, receives "died_at_rank": the global rank of
+    `width_hint` forces at least that window width.  The chain rounds'
+    compact candidate tile is max(64, min(W // 2, info_window)) rows
+    wide (W // 8 without a window bound).  `out_info`, when given, receives "died_at_rank": the global rank of
     the first barrier the chain search could not linearize (None when
     the death was not localized)."""
     dev = _device.resolve(device)
@@ -400,21 +401,19 @@ def check_wgl_witness(
                          elapsed_s=time.monotonic() - t0)
     try:
         bars, bar_rank, inv32, ret32, blocks, _ = _plan_blocks(
-            packed, bars_per_block, info_window)
+            packed, BARS_PER_BLOCK, info_window)
     except OverflowError:
         return None  # the witness tier can't represent it: escalate
     widest = max(len(a) for _, _, a in blocks)
-    if widest > max_window:
+    if widest > MAX_WINDOW:
         return None
 
     SW = pm.state_width
-    B = _bucket(beam, lo=8)
-    K = bars_per_block
-    NB = blocks_per_call
+    B = BEAM
+    K = BARS_PER_BLOCK
     W = _bucket(max(widest, width_hint, 1))
-    if compact < 0:
-        compact = max(64, min(
-            W // 2, info_window if info_window is not None else W // 8))
+    compact = max(64, min(
+        W // 2, info_window if info_window is not None else W // 8))
     hv = torch.from_numpy(_state_hash_vec(SW)).to(dev)
 
     member = torch.zeros((W, B), dtype=torch.bool, device=dev)
@@ -425,8 +424,8 @@ def check_wgl_witness(
     rank32 = np.minimum(bar_rank, NO_BAR)
     prev_active: Optional[np.ndarray] = None
 
-    for c0 in range(0, len(blocks), NB):
-        chunk = blocks[c0 : c0 + NB]
+    for c0 in range(0, len(blocks), BLOCKS_PER_CALL):
+        chunk = blocks[c0 : c0 + BLOCKS_PER_CALL]
         nblk = len(chunk)
         # The chunk's tables, built on the host and uploaded together.
         bars_np = np.zeros((nblk, 6, K), dtype=np.int32)
@@ -464,7 +463,7 @@ def check_wgl_witness(
         for bi, (k0, _, _) in enumerate(chunk):
             # Re-lay the member window onto this block's rows.
             member = member[perm_d[bi]] & present_d[bi][:, None]
-            blk = _Block(pm, tab_d[bi], B, depth, compact, hv)
+            blk = _Block(pm, tab_d[bi], B, compact, hv)
             member, states, alive, failed, died = blk.run(
                 member, states, alive, bars_d[bi], bars_np[bi], k0)
             if failed:

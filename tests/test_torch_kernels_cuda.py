@@ -10,6 +10,8 @@ The `cuda`-marked tests skip without a card: a CUDA kernel has no CPU
 mode.  `sweep_tables` is shared with tests/test_torch_witness_sweep.py.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -77,6 +79,25 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     before = kernels.launches["witness_sweep"]
     with pytest.raises(ValueError, match="CUDA"):
         kernels.witness_sweep(1, 0, z, z[0], z[:1], z[0])
+    assert kernels.launches["witness_sweep"] == before
+
+
+def test_sweep_off_the_cpu_never_takes_the_plain_version():
+    """A tensor that is not on the CPU goes to the kernel or raises: a
+    model with no device step and a beam wider than one member word
+    are errors there, not a route to the plain sweep.  ("meta" tensors
+    stand in for the card: they reach the same checks.)"""
+    pm = cas_register().packed()
+    no_step = dataclasses.replace(pm, kernel_model=None)
+    before = kernels.launches["witness_sweep"]
+    for B, model, match in ((8, no_step, "no device step"),
+                            (33, pm, "one 32-bit member word")):
+        bars, member, states, alive = (
+            torch.from_numpy(a).to("meta")
+            for a in sweep_tables(min(B, 32), "clean", 2))
+        member = torch.zeros((W, B), dtype=torch.bool, device="meta")
+        with pytest.raises(ValueError, match=match):
+            sweep(model, 0, bars, member, states, alive)
     assert kernels.launches["witness_sweep"] == before
 
 

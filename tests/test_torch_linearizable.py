@@ -24,7 +24,8 @@ from jepsen_tpu_torch.checker import Linearizable
 from jepsen_tpu_torch.history.core import Op, history
 from jepsen_tpu_torch.history.packed import pack_history
 from jepsen_tpu_torch.models import cas_register
-from jepsen_tpu_torch.ops import degrade
+from jepsen_tpu_torch.ops import degrade, wgl, wgl_witness
+from jepsen_tpu_torch.ops.kernels import KernelLaunchError
 from jepsen_tpu_torch.ops.wgl import check_wgl_device, nonzero_static
 from jepsen_tpu_torch.ops.wgl_witness import check_wgl_witness
 from jepsen_tpu_torch.utils.histgen import random_register_history
@@ -152,6 +153,54 @@ def test_resource_errors():
         assert inner == [{"tier": "dispatch", "action": "retry-halved",
                           "error": "MemoryError: m"}]
     assert outer == inner
+
+
+def test_kernel_launch_error_is_never_a_resource_error():
+    """CUDA names cudaErrorMemoryAllocation "out of memory", and a sticky
+    error from an earlier call can read the same: a failed launch must
+    still fail the run, not step down the ladder."""
+    e = KernelLaunchError("witness_sweep launch failed: out of memory (2)")
+    assert not degrade.is_resource_error(e)
+
+
+def test_kernel_launch_error_propagates_through_the_checker(monkeypatch):
+    def failing_sweep(*a, **kw):
+        raise KernelLaunchError(
+            "witness_sweep launch failed: out of memory (2)")
+
+    monkeypatch.setattr(wgl_witness, "sweep", failing_sweep)
+    _, h = HISTORIES["valid"]()
+    with pytest.raises(KernelLaunchError):
+        Linearizable(cas_register(), device="cpu").check({}, h, {})
+
+
+def test_resource_error_retries_halved_on_the_device_then_raises(
+        monkeypatch):
+    """One out-of-memory error retries the device search at half size on
+    the same device; a second raises instead of settling the verdict on
+    the CPU engines."""
+    real = wgl.check_wgl_device
+    calls = []
+
+    def once(packed, pm, **kw):
+        calls.append((kw["beam"], kw["device"]))
+        if len(calls) == 1:
+            raise torch.cuda.OutOfMemoryError("CUDA out of memory")
+        return real(packed, pm, **kw)
+
+    monkeypatch.setattr(wgl, "check_wgl_device", once)
+    _, h = HISTORIES["valid"]()
+    out = Linearizable(cas_register(), device="cpu").check({}, h, {})
+    assert (out["valid"], out["algorithm"]) == (True, "wgl-tpu")
+    assert [s["action"] for s in out["degradations"]] == ["retry-halved"]
+    assert calls == [(1024, torch.device("cpu")), (512, torch.device("cpu"))]
+
+    def always(packed, pm, **kw):
+        raise torch.cuda.OutOfMemoryError("CUDA out of memory")
+
+    monkeypatch.setattr(wgl, "check_wgl_device", always)
+    with pytest.raises(torch.cuda.OutOfMemoryError):
+        Linearizable(cas_register(), device="cpu").check({}, h, {})
 
 
 @pytest.mark.parametrize("size", [1, 5, 8, 20])
