@@ -11,23 +11,37 @@ failure:
 
 1. The sweep kernel against its plain PyTorch version at the bench
    shapes (B = 8, SW = 1, K = 2048, W = the bench history's planned
-   window) and at B = 32: sweep inputs recorded from a witness run on
-   the bench history, plus random tables that die mid-block, start
-   past 0, or end in padding.  States, alive and death must match
-   exactly.  Times the kernel (CUDA events) and the plain version, and
-   sets the kernel's time beside its byte bound and beside the floor
-   of its serial chain (the library's chain probe: the per-barrier
-   model step, ballot and commit with no loads, times the barriers).
+   window) and at B = 1 and 32: sweep inputs recorded from a witness
+   run on the bench history, plus random tables that die mid-block,
+   start past 0, or end in padding, and the kernel's 32-barrier batch
+   edges (starts 31 and 33, deaths at batch offsets 0 and 31, B = 1),
+   recorded and random.  States, alive and death must match exactly.
+   Times the kernel on the card (torch.profiler), back-to-back launches
+   of its wrapper and the `sweep()` call the main path makes (wrapper,
+   kernel, death read), with CUDA events and the host clock; counts
+   the device operations of one `sweep()` call with torch.profiler;
+   sets the kernel's time beside its byte bound and beside its step
+   floor (the library's chain probe: one lane's dependent per-barrier
+   step with no loads and no vote, times the barriers).
 2. The main path: `Linearizable(cas_register(), "wgl-tpu").check` on
    the 100k-op, 5%-info, 16-process cas-register history (seed 45100),
    warmed up first; median of 3 wall times, with the kernel's launch
-   count, chain-search rounds and host syncs of those runs.
+   count, chain-search rounds and host syncs of those runs; then one
+   profiled device search: the card's busy time and idle share, its
+   kernel launches and copies, and the sweep kernel's device time.
 3. The invalid path: `check_wgl_device` on a 2k-op history with an
    impossible read — the witness must die, the frontier BFS runs on the
    card, and the verdict (False) must equal the exact CPU engine's.
 
 The last lines are the kernels JSON line, the card's name and power
 limit from nvidia-smi, and {"ok": true, "device": {...}}.
+
+    python3 chip_smoke.py --main-path-only ROOT
+
+runs phase 2 alone, with the port imported from the checkout at ROOT,
+and prints its JSON and the card's name and power limit: the same
+measurement for two commits on one card (run them in turns: parent,
+change, change, parent).
 """
 
 from __future__ import annotations
@@ -82,30 +96,49 @@ def sweep_bytes(start_k: int, death: int, K: int, cols: list,
                 B: int, SW: int) -> int:
     """Bytes the sweep must move for this input: the bars columns it
     reads (start_k .. death, 5 words each: window column, real, f, a0,
-    a1; the ret row is never read), each distinct member word those
-    barriers name, the states and alive read once, and the outputs
-    written once."""
+    a1; the ret row is never read), each distinct member row those
+    barriers name (B bool bytes), the states (int32) and alive (bool)
+    read once, and the outputs written once."""
     last = min(death, K - 1)
     n = max(0, last - start_k + 1)
     distinct = len(set(cols[start_k:last + 1])) if n else 0
-    return 4 * (5 * n + distinct + 2 * (SW * B + B) + 1)
+    return 4 * 5 * n + B * distinct + 2 * (4 * SW * B + B) + 4
 
 
 def chain_step_ns(torch) -> float:
-    """Nanoseconds per step of the sweep's serial chain with no loads
-    (the kernel library's chain probe: model step, death ballot and
-    commit), from CUDA events around probes of N and 2N steps, so the
-    launch cost cancels."""
+    """Nanoseconds per barrier of one lane's dependent step chain with
+    no loads and no vote (the kernel library's chain probe), from CUDA
+    events around probes of N and 2N steps, so the launch cost
+    cancels."""
     from jepsen_tpu_torch.ops import kernels
 
     dev = torch.device("cuda")
     n = 1 << 20
     t_n = cuda_ms(lambda: kernels.sweep_chain_probe(n, dev), reps=5)
     t_2n = cuda_ms(lambda: kernels.sweep_chain_probe(2 * n, dev), reps=5)
-    out = kernels.sweep_chain_probe(n, dev)
-    if int(out[32].item()) != n:
-        raise AssertionError(f"chain probe stopped at {int(out[32])}")
     return (t_2n - t_n) * 1e6 / n
+
+
+def profile_device(torch, fn, reps: int) -> dict:
+    """{name: (count, microseconds)} of the kernels and copies that
+    torch.profiler saw on the card over `reps` calls of `fn` (after a
+    warm-up call)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    seen = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            n, us = seen.get(e.key, (0, 0.0))
+            seen[e.key] = (n + e.count, us + e.self_device_time_total)
+    return seen
 
 
 def phase_kernel(torch, packed, pm, W, seed: int) -> dict:
@@ -114,10 +147,11 @@ def phase_kernel(torch, packed, pm, W, seed: int) -> dict:
     import numpy as np
 
     from jepsen_tpu_torch.ops import kernels, wgl_witness
-    from jepsen_tpu_torch.ops.wgl_witness import pack_member_bits, sweep_plain
+    from jepsen_tpu_torch.ops.wgl_witness import sweep, sweep_plain
 
     dev = torch.device("cuda")
     step_rows = pm.torch_step_rows
+    K = wgl_witness.BARS_PER_BLOCK
 
     # Record the sweep inputs of one witness run on the bench history.
     recorded = []
@@ -139,24 +173,52 @@ def phase_kernel(torch, packed, pm, W, seed: int) -> dict:
         f"witness (W={recorded[0][2].shape[0]}, B={recorded[0][2].shape[1]})")
 
     def run_kernel(start_k, bars, member, states, alive):
-        s, al, d = kernels.witness_sweep(
-            pm.kernel_model, start_k, bars, pack_member_bits(member),
-            states.T.contiguous(), alive.to(torch.int32))
-        return s.T, al != 0, int(d.item())
+        s, al, d = kernels.witness_sweep(pm.kernel_model, start_k, bars,
+                                         member, states, alive)
+        return s, al, int(d.item())
+
+    def lane0(r):
+        """A recorded input cut to its first beam lane (B = 1)."""
+        return (r[0], r[1], r[2][:, :1].contiguous(), r[3][:1], r[4][:1])
+
+    def at_offset(r, off):
+        """Recorded call `r` restarted at d - 32 - off (d its death), so
+        that d falls at offset `off` of the kernel's second 32-barrier
+        batch; the states and alive there are the plain sweep's from the
+        recorded start (run on the table cut short at the new start)."""
+        start_k, bars, member, states, alive, d = r
+        s2 = d - 32 - off
+        if not start_k <= s2 < d < bars.shape[1]:
+            raise AssertionError(f"recorded sweep {start_k}..{d} is too "
+                                 f"short for a death at offset {off}")
+        st, al, end = sweep_plain(start_k, bars[:, :s2].contiguous(),
+                                  member, states, alive, step_rows)
+        if end != s2:
+            raise AssertionError(f"recorded sweep died at {end} < {s2}")
+        return (s2, bars, member, st.contiguous(), al.contiguous())
 
     cases = []
-    # Recorded: the first call, the longest sweep, and calls that start
-    # mid-block (after a chain search).
+    # Recorded: the first call, the longest sweep, calls that start
+    # mid-block (after a chain search), the longest death's barrier moved
+    # to batch offsets 0 and 31, the first call started at 31 and 33,
+    # and lane 0 alone.
+    first = recorded[0]
     longest = max(recorded, key=lambda r: min(r[5], r[1].shape[1]) - r[0])
     mid = [r for r in recorded if r[0] > 0][:12]
-    for name, r in ([("bench-first", recorded[0]), ("bench-longest", longest)]
+    for name, r in ([("bench-first", first), ("bench-longest", longest)]
                     + [(f"bench-resume{i}", r) for i, r in enumerate(mid)]):
         cases.append((name, r[:5]))
+    dying = max((r for r in recorded if r[5] < K), key=lambda r: r[5] - r[0])
+    cases += [(f"bench-death@{off}", at_offset(dying, off))
+              for off in (0, 31)]
+    cases += [("bench-first-start31", (31,) + first[1:5]),
+              ("bench-first-start33", (33,) + first[1:5]),
+              ("bench-first-B1", lane0(first)),
+              ("bench-longest-B1", lane0(longest))]
 
-    # Random tables at B = 8 and B = 32 (bit 31 = lane 31).
+    # Random tables at B = 1, 8 and 32 (bit 31 = lane 31).
     rng = np.random.default_rng(seed)
-    K = wgl_witness.BARS_PER_BLOCK
-    for B in (8, 32):
+    for B in (1, 8, 32):
         member_np = rng.random((W, B)) < 0.3
         member_np[:, 0] = True  # lane 0 passes: the clean table runs to K
         member = torch.from_numpy(member_np).to(dev)
@@ -166,7 +228,9 @@ def phase_kernel(torch, packed, pm, W, seed: int) -> dict:
         alive_np[0] = True
         alive = torch.from_numpy(alive_np).to(dev)
         bars = np.zeros((6, K), dtype=np.int32)
-        bars[0] = rng.integers(0, W, size=K)
+        # Columns below W - 1: only the planted barriers name the
+        # empty row W - 1, so lane 0 dies nowhere else.
+        bars[0] = rng.integers(0, W - 1, size=K)
         bars[1] = np.arange(K)
         bars[2] = 1
         bars[3] = rng.integers(0, 3, size=K)
@@ -174,17 +238,22 @@ def phase_kernel(torch, packed, pm, W, seed: int) -> dict:
         bars[5] = rng.integers(0, 5, size=K)
         pad_from = K - 300
         bars[2, pad_from:] = 0  # a padding tail: nothing real to die on
-        clean = torch.from_numpy(bars.copy()).to(dev)
-        # A planted death at K/2: a read of a value nobody holds, at a
-        # window column with no member bits (lane 0 must step it too).
-        bars[0, K // 2] = W - 1
-        bars[3, K // 2] = 0
-        bars[4, K // 2] = 99
-        planted = torch.from_numpy(bars).to(dev)
+        clean_np = bars.copy()
+        clean = torch.from_numpy(clean_np).to(dev)
         member_p = member.clone()
         member_p[W - 1] = False
         if B == 32:
             member_p[: W - 1, 31] = True  # the sign bit in every word
+
+        def planted_at(k):
+            """The clean table with a read of a value nobody holds at
+            barrier k, at a window column with no member bits (lane 0
+            must step it too)."""
+            b = clean_np.copy()
+            b[0, k], b[3, k], b[4, k] = W - 1, 0, 99
+            return torch.from_numpy(b).to(dev)
+
+        planted = planted_at(K // 2)
         cases += [
             (f"rand{B}-clean", (0, clean, member, states, alive)),
             (f"rand{B}-death", (0, planted, member_p, states, alive)),
@@ -193,6 +262,12 @@ def phase_kernel(torch, packed, pm, W, seed: int) -> dict:
             (f"rand{B}-padding", (pad_from + 5, planted, member_p, states,
                                   alive)),
         ]
+        # Batch edges: starts 31 and 33, deaths at batch offsets 0 and 31.
+        for start in (31, 33):
+            for off in (0, 31):
+                cases.append((f"rand{B}-start{start}-death@{off}",
+                              (start, planted_at(start + 5 * 32 + off),
+                               member_p, states, alive)))
 
     max_err = 0
     for name, (start_k, bars, member, states, alive) in cases:
@@ -208,27 +283,43 @@ def phase_kernel(torch, packed, pm, W, seed: int) -> dict:
                 f"witness_sweep != sweep_plain on {name}: death {kd} vs "
                 f"{pd}, states equal {torch.equal(ks, ps)}, alive equal "
                 f"{torch.equal(ka, pa)}")
-        log(f"phase1: {name:>20} start={start_k:5d} death={kd:5d} "
+        want_off = name.rpartition("@")[2] if "@" in name else None
+        if want_off is not None and (kd >= K or (kd - start_k) % 32
+                                     != int(want_off)):
+            raise AssertionError(f"{name}: death {kd} from start {start_k} "
+                                 f"is not at batch offset {want_off}")
+        log(f"phase1: {name:>24} start={start_k:5d} death={kd:5d} "
             f"B={member.shape[1]:2d} match")
 
     step_ns = chain_step_ns(torch)
-    log(f"phase1: serial chain floor {step_ns:.4f} ns per barrier "
-        f"(register step + ballot + commit, no loads)")
+    log(f"phase1: per-lane step floor {step_ns:.4f} ns per barrier "
+        f"(dependent register step chain, no loads, no vote)")
 
     def timed(name):
-        """(barriers swept, kernel ms, plain ms, bytes, bound ms, chain
-        floor ms) of one case: the kernel alone (CUDA events over many
-        launches), the plain version, the byte bound for this input,
-        and its barriers times the serial chain's step."""
+        """One case's numbers: the kernel's device time (CUPTI, mean over
+        many launches), back-to-back launches of its wrapper (CUDA
+        events and host clock), the sweep() call as the main path makes
+        it (wrapper, kernel, death read; host clock and CUDA events),
+        the plain version, the byte bound for this input, and its
+        barriers times the step floor."""
         start_k, bars, member, states, alive = dict(cases)[name]
-        mbits = pack_member_bits(member)
-        st_t = states.T.contiguous()
-        al_i = alive.to(torch.int32)
         _, _, death = run_kernel(start_k, bars, member, states, alive)
-        K = bars.shape[1]
         swept = min(death, K - 1) - start_k + 1
-        ms = cuda_ms(lambda: kernels.witness_sweep(
-            pm.kernel_model, start_k, bars, mbits, st_t, al_i), reps=200)
+
+        def kernel():
+            kernels.witness_sweep(pm.kernel_model, start_k, bars, member,
+                                  states, alive)
+
+        def call():
+            sweep(pm, start_k, bars, member, states, alive)
+
+        seen = profile_device(torch, kernel, reps=200)
+        n, us = next(v for k, v in seen.items() if "witness_sweep" in k)
+        ms = us / n / 1e3
+        ms_events = cuda_ms(kernel, reps=200)
+        ms_host = wall_ms(kernel, reps=200)
+        call_ms = wall_ms(call, reps=200)
+        call_ms_events = cuda_ms(call, reps=200)
         plain = wall_ms(lambda: sweep_plain(
             start_k, bars, member, states, alive, step_rows), reps=3)
         nbytes = sweep_bytes(start_k, death, K, bars[0].tolist(),
@@ -236,15 +327,28 @@ def phase_kernel(torch, packed, pm, W, seed: int) -> dict:
         bound = nbytes / HBM_BYTES_PER_S * 1e3
         floor = swept * step_ns / 1e6
         log(f"phase1: timing {name}: {swept} barriers, kernel {ms:.6f} ms "
-            f"({ms * 1e3 / swept:.4f} us/barrier), plain {plain:.3f} ms, "
-            f"bound {bound:.9f} ms ({nbytes} B at {HBM_BYTES_PER_S:.3g} "
-            f"B/s), serial chain floor {floor:.6f} ms")
-        return swept, ms, plain, nbytes, bound, floor
+            f"on the card ({ms * 1e6 / swept:.4f} ns/barrier; wrapper "
+            f"back to back {ms_events:.6f} ms events / {ms_host:.6f} ms "
+            f"host clock), sweep() call {call_ms:.6f} ms host clock / "
+            f"{call_ms_events:.6f} ms events, plain {plain:.3f} ms, bound "
+            f"{bound:.9f} ms ({nbytes} B at {HBM_BYTES_PER_S:.3g} B/s), "
+            f"step floor {floor:.6f} ms (kernel {ms / floor:.3f}x)")
+        return dict(swept=swept, ms=ms, ms_events=ms_events, ms_host=ms_host,
+                    call_ms=call_ms, call_ms_events=call_ms_events,
+                    plain=plain, bound=bound, floor=floor, call=call)
 
     # The JSON line reports the longest real sweep of the main path; the
     # full random block (K barriers) is printed beside it.
-    swept, ms, plain_ms, _, bound_ms, floor_ms = timed("bench-longest")
+    t = timed("bench-longest")
     timed("rand8-clean")
+    seen = profile_device(torch, t["call"], reps=20)
+    ops_per_call = sum(n for n, _ in seen.values()) / 20
+    log(f"phase1: sweep() call: {ops_per_call:g} device operations per "
+        f"call ({sorted(seen)})")
+    if ops_per_call != 2:
+        raise AssertionError(
+            f"sweep() made {ops_per_call} device operations per call, "
+            f"not 2 (the kernel and the death copy): {sorted(seen)}")
     log("phase1: library_ms null: no single PyTorch call computes an "
         "early-exit serial sweep")
     return {
@@ -254,14 +358,19 @@ def phase_kernel(torch, packed, pm, W, seed: int) -> dict:
         "replaces": "jepsen_tpu/ops/wgl_witness.py:332",
         "launches": 0,
         "max_abs_err": max_err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
+        "ms": t["ms"],
+        "call_ms": t["call_ms"],
+        "plain_ms": t["plain"],
+        "bound_ms": t["bound"],
         "bound_by": "bytes",
         "library_ms": None,
-        "chain_floor_ms": floor_ms,
+        "ms_events": t["ms_events"],
+        "ms_host": t["ms_host"],
+        "call_ms_events": t["call_ms_events"],
+        "device_ops_per_call": ops_per_call,
+        "chain_floor_ms": t["floor"],
         "chain_step_ns": step_ns,
-        "barriers_timed": swept,
+        "barriers_timed": t["swept"],
         "cases_matched": len(cases),
     }
 
@@ -342,11 +451,18 @@ def breakdown(torch, history) -> dict:
         torch.cuda.synchronize()
         t_prof = time.perf_counter() - t0
     kernels_us = {}
+    n_kernels = n_copies = 0
     for e in prof.key_averages():
         if e.device_type == DeviceType.CUDA:
             kernels_us[e.key] = (kernels_us.get(e.key, 0.0)
                                  + e.self_device_time_total)
+            if e.key.startswith(("Memcpy", "Memset")):
+                n_copies += e.count
+            else:
+                n_kernels += e.count
     busy_s = sum(kernels_us.values()) / 1e6
+    sweep_us = sum(us for k, us in kernels_us.items()
+                   if "witness_sweep" in k)
     top = sorted(kernels_us.items(), key=lambda kv: -kv[1])[:8]
     return {
         "pack_s": t_pack,
@@ -355,6 +471,9 @@ def breakdown(torch, history) -> dict:
         "profiled_device_search_s": t_prof,
         "device_busy_s": busy_s,
         "device_idle_share": (1.0 - busy_s / t_prof) if busy_s else None,
+        "device_kernel_launches_per_check": n_kernels,
+        "device_copies_per_check": n_copies,
+        "sweep_kernel_us": sweep_us,
         "top_device_kernels_us": top,
     }
 
@@ -402,14 +521,21 @@ def phase_invalid(torch) -> dict:
     return r
 
 
-def main() -> int:
+def main(argv: list) -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this "
               "script needs a CUDA card", file=sys.stderr)
         return 1
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    main_only = argv[:1] == ["--main-path-only"]
+    if argv and not (main_only and len(argv) == 2):
+        print("usage: chip_smoke.py [--main-path-only ROOT]",
+              file=sys.stderr)
+        return 2
+    root = (os.path.abspath(argv[1]) if main_only
+            else os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, root)
     from jepsen_tpu_torch.history.packed import pack_history
     from jepsen_tpu_torch.models import cas_register
     from jepsen_tpu_torch.ops import kernels
@@ -442,6 +568,11 @@ def main() -> int:
     log(f"bench history: {packed.n} packed ops ({packed.n_ok} ok), "
         f"generate {t_gen:.3f} s, pack {t_pack:.3f} s, window W={W}")
 
+    if main_only:
+        print(json.dumps({"root": root,
+                          "main_path": phase_main(torch, history, packed.n)}))
+        print(smi)
+        return 0
     entry = phase_kernel(torch, packed, pm, W, seed=BENCH_SEED)
     main_r = phase_main(torch, history, packed.n)
     entry["launches"] = main_r["sweep_launches"]
@@ -458,4 +589,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -9,34 +9,54 @@
 // (bars[2][k] != 0) that leaves no lane alive, stop: death = k, and the
 // states and alive mask are those from just before k (the host then runs
 // the chain search at k and resumes at k + 1).  Otherwise death = K.
-// Padding barriers (real == 0) commit nothing.
+// Padding barriers (real == 0) commit nothing and never die.
 //
-// Layout (all int32, contiguous):
-//   bars        (6, K)   rows: window column, ret, real, f, a0, a1
-//   mbits       (W,)     member bits: lane b of the beam is bit b (B <= 32)
-//   states_in   (SW, B)  lane-major beam states
-//   alive_in    (B,)     0/1
-//   states_out  (SW, B), alive_out (B,), death_out (1,)
+// Layout (all contiguous, as the port holds them):
+//   bars        (6, K)  int32  rows: window column, ret, real, f, a0, a1
+//   member      (W, B)  bool   one byte per beam lane, B <= 32
+//   states_in   (B, SW) int32
+//   alive_in    (B,)    bool
+//   states_out  (B, SW) int32, alive_out (B,) bool, death_out (1,) int32
+// death_out is -1 if the two warps lost their hand-off (a fault; the
+// caller raises).
 //
-// What bounds it on this card: not bytes -- it reads 24 B per barrier
-// (five bars words and one member word; the ret row is not read) -- but
-// the serial chain of K dependent barrier steps: whether barrier k + 1
-// runs at all depends on the warp-wide death test at k, and each step
-// waits on two dependent loads (the window column, then its member word).
-// Only the B beam lanes are parallel.  The design follows from that: ONE
-// warp per launch, lane = beam lane, so the death test is a single
-// __ballot_sync with no shared memory or block barrier; states and alive
-// stay in registers for the whole sweep and are written back once; the
-// kernel allocates nothing and launches on the caller's stream.  The bars
-// are read straight from global memory through the read-only path
-// (__ldg); staging them in shared memory ((6, 2048) i32 plus the window is
-// past the 48 KB static limit, so it needs dynamic shared memory) or
-// prefetching the next barrier's words is left for a later change.
+// What bounds it on this card: not bytes (about 20 B per barrier: five
+// bars words and a member row; the ret row is never read) but a chain of
+// dependent register steps in each beam lane -- barrier k's state needs
+// barrier k - 1's.  Only the B beam lanes are parallel.  The design keeps
+// everything but that chain off the sweeping warp:
 //
-// witness_sweep_chain_probe times the part of each step no prefetch can
-// hide -- the model step, the ballot and the commit, with the barrier's
-// words already in registers -- so a caller can set the sweep's time
-// against that serial-chain floor.
+// - Per-lane speculation.  A lane's state and alive bit evolve on their
+//   own; the lanes couple only through the death test ("no lane alive
+//   after a real barrier"), and alive never comes back once lost.  So
+//   each lane sweeps a batch of T = 32 barriers alone, in registers, and
+//   one __reduce_or_sync of the lanes' alive masks per batch finds the
+//   first real barrier no lane survived; if there is one, every lane
+//   rewinds to its batch-start state and replays the barriers before it.
+//   No warp vote sits on the per-barrier chain.
+// - Two warps.  Fetching and packing a batch costs about as much as
+//   sweeping it, and one warp cannot overlap the two (the sweep is one
+//   dependent chain), so warp 1 produces and warp 0 sweeps.  Warp 1, lane
+//   j owning barrier k + j: loads the barrier's five bars words
+//   (coalesced) one batch ahead, copies its member row (B bytes at the
+//   window column) into a ring of staging slots with cp.async, AHEAD = 3
+//   batches ahead (a gather of rows by index is a per-thread copy, which
+//   cp.async takes and a TMA tile copy does not), packs the landed row
+//   into one 32-bit word (bit b = beam lane b), and writes the batch into
+//   a ring of records: the ops, and per beam lane its "stays" bits (the
+//   packed words transposed by ballots, or'ed with the padding barriers).
+//   Acquire/release counters hand records over; every wait is bounded.
+// - Operands in registers.  Warp 0 reads the next record into registers
+//   at the end of each batch, so no shared-memory load sits on the chain,
+//   and counts the barriers each lane is alive after instead of building
+//   its mask bit by bit.
+// - Nothing to pack on the host side: the kernel reads the (W, B) bool
+//   window, (B, SW) states and bool alive directly, so a sweep call is
+//   this launch plus the caller's read of `death`.
+//
+// witness_sweep_chain_probe times the floor every design pays: one
+// lane's dependent chain of the same per-barrier step, with its operands
+// in registers, no loads and no vote.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -50,6 +70,31 @@ constexpr int MODEL_REGISTER = 1;
 constexpr int32_t F_WRITE = 1;
 constexpr int32_t F_CAS = 2;
 
+constexpr unsigned FULL = 0xffffffffu;
+constexpr int T = 32;            // barriers per batch: one per lane
+constexpr int AHEAD = 3;         // member-row batches in flight (producer)
+constexpr int STAGES = AHEAD + 1;
+constexpr int RECORDS = 8;       // ring of packed batches between the warps
+constexpr int SPIN_LIMIT = 1 << 22;  // a wait longer than this is a fault
+
+// A batch as the sweeping warp reads it: per barrier i its op {f, a0,
+// a1}, per beam lane b the bits of the barriers it stays at (padding, or
+// its member bit set), and the real barriers.
+struct Record {
+  int4 op[T];
+  uint32_t stay[T];
+  uint32_t real;
+};
+
+// The producing warp's staging of one batch: lane j's barrier words and
+// member row (NW 4-byte words cover B <= 4 * (NW - 1) bytes at any byte
+// offset).  Only lane j touches its part.
+template <int NW>
+struct Stage {
+  int4 op[T];           // {row byte offset | real << 2, f, a0, a1}
+  uint32_t raw[T][NW];  // member row bytes as cp.async landed them
+};
+
 // The register transition of models/registers.py (the reference's
 // registers.py:166-186): reads and cas must see a0; writes always succeed.
 __device__ __forceinline__ bool register_step(int32_t s, int32_t f,
@@ -58,7 +103,7 @@ __device__ __forceinline__ bool register_step(int32_t s, int32_t f,
   const bool is_write = f == F_WRITE;
   const bool is_cas = f == F_CAS;
   *next = is_write ? a0 : (is_cas ? a1 : s);
-  return is_write || s == a0;
+  return is_write | (s == a0);
 }
 
 template <int MODEL, int SW>
@@ -70,106 +115,336 @@ __device__ __forceinline__ bool model_step(const int32_t (&s)[SW],
   return register_step(s[0], f, a0, a1, &next[0]);
 }
 
+// One beam lane at one barrier, op = {f, a0, a1}.  A lane that stays
+// keeps its state and alive; otherwise an alive lane steps the model,
+// commits the step if it is legal and dies if not.  Returns alive after
+// the barrier.  Written in bools so the chain is compare -> predicate op
+// -> select.
 template <int MODEL, int SW>
-__global__ void __launch_bounds__(32)
-witness_sweep_kernel(int B, int K, int start,
+__device__ __forceinline__ bool lane_step(int32_t (&st)[SW], bool alive,
+                                          const int4 op, bool stay) {
+  int32_t nx[SW];
+  const bool legal = model_step<MODEL, SW>(st, nx, op.x, op.y, op.z);
+  const bool take = alive & !stay & legal;
+#pragma unroll
+  for (int j = 0; j < SW; ++j) st[j] = take ? nx[j] : st[j];
+  return alive & (stay | legal);
+}
+
+__device__ __forceinline__ unsigned smem(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ int load_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.cta.shared.b32 %0, [%1];\n"
+               : "=r"(v) : "r"(smem(p)) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void store_release(int* p, int v) {
+  asm volatile("st.release.cta.shared.b32 [%0], %1;\n"
+               :: "r"(smem(p)), "r"(v) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// The bars words of one barrier (the ret row is not read); a barrier
+// past K is padding.
+struct Bar {
+  int32_t col, real, f, a0, a1;
+};
+
+__device__ __forceinline__ Bar load_bar(const int32_t* __restrict__ bars,
+                                        int K, int k) {
+  Bar b = {0, 0, 0, 0, 0};
+  if (k < K) {
+    b.col = __ldg(bars + k);
+    b.real = __ldg(bars + 2 * K + k) != 0 ? 1 : 0;
+    b.f = __ldg(bars + 3 * K + k);
+    b.a0 = __ldg(bars + 4 * K + k);
+    b.a1 = __ldg(bars + 5 * K + k);
+  }
+  return b;
+}
+
+// Lane j stages barrier j: its words, and the NW aligned words from its
+// member row's first byte on.  Words past the row or the window's end
+// copy no bytes (cp.async zero-fills them), so every lane issues the same
+// NW copies with no branch, and commits one group per batch.
+template <int NW>
+__device__ __forceinline__ void stage_batch(Stage<NW>& sg, const Bar& b,
+                                            const uint8_t* __restrict__ member,
+                                            int B, int64_t member_bytes,
+                                            int lane) {
+  const int64_t lo = static_cast<int64_t>(b.col) * B;  // row's first byte
+  sg.op[lane] = make_int4(static_cast<int>(lo & 3) | (b.real << 2), b.f,
+                          b.a0, b.a1);
+  const int64_t end = lo + B;
+#pragma unroll
+  for (int w = 0; w < NW; ++w) {
+    const int64_t at = (lo & ~int64_t{3}) + 4 * w;
+    const bool need = at < end;
+    const int64_t left = member_bytes - at;
+    cp_async4(&sg.raw[lane][w], need ? member + at : member,
+              need ? (left < 4 ? static_cast<int>(left) : 4) : 0);
+  }
+  cp_async_commit();
+}
+
+// Lane j's landed member row packed into one word: bit b = beam lane b.
+// Four row bytes at a time: the funnel shift aligns them, bit 7 of each
+// byte of `nz` is set iff the byte is nonzero, and the multiply gathers
+// the four flags into the top nibble.
+template <int NW>
+__device__ __forceinline__ uint32_t pack_row(const Stage<NW>& sg,
+                                             unsigned offset, int B,
+                                             int lane) {
+  const uint32_t* raw = sg.raw[lane];
+  uint32_t word = 0;
+#pragma unroll
+  for (int q = 0; q + 1 < NW; ++q) {
+    const uint32_t v = __funnelshift_r(raw[q], raw[q + 1], 8u * offset);
+    const uint32_t nz = (((v & 0x7f7f7f7fu) + 0x7f7f7f7fu) | v) & 0x80808080u;
+    word |= (((nz >> 7) * 0x10204080u) >> 28) << (4 * q);
+  }
+  return word & ((2u << (B - 1)) - 1u);  // bytes past the row
+}
+
+struct Shared {
+  int produced;  // records written (release by the producer)
+  int consumed;  // records swept (release by the sweeper)
+  int stop;      // the sweeper is done: the producer stops
+};
+
+// Warp 1: fetches batch after batch and writes it into the record ring
+// as the sweeping warp reads it.
+template <int NW>
+__device__ void produce(Record* ring, Stage<NW>* stages, Shared& sh, int B,
+                        int K, int W, int start, int batches,
+                        const int32_t* __restrict__ bars,
+                        const uint8_t* __restrict__ member, int lane) {
+  const int64_t member_bytes = static_cast<int64_t>(W) * B;
+  Bar pro[AHEAD + 1];
+#pragma unroll
+  for (int p = 0; p <= AHEAD; ++p) {
+    pro[p] = load_bar(bars, K, start + p * T + lane);
+  }
+#pragma unroll
+  for (int p = 0; p < AHEAD; ++p) {
+    stage_batch(stages[p], pro[p], member, B, member_bytes, lane);
+  }
+  Bar next = pro[AHEAD];
+  for (int m = 0; m < batches; ++m) {
+    const int k = start + m * T;
+    stage_batch(stages[(m + AHEAD) % STAGES], next, member, B, member_bytes,
+                lane);
+    next = load_bar(bars, K, k + (AHEAD + 1) * T + lane);
+    cp_async_wait<AHEAD>();  // this lane's row of batch m has landed
+    const Stage<NW>& sg = stages[m % STAGES];
+    const int4 op = sg.op[lane];
+    const uint32_t word = pack_row(sg, op.x & 3, B, lane);
+    const uint32_t real = __ballot_sync(FULL, (op.x >> 2) & 1);
+    // Transpose: lane b gets bit j = "lane b has barrier j".
+    uint32_t has = 0;
+#pragma unroll
+    for (int b = 0; b < 4 * (NW - 1); ++b) {
+      const uint32_t r = __ballot_sync(FULL, (word >> b) & 1u);
+      has = lane == b ? r : has;
+    }
+    // Room in the ring (the sweeper is at most RECORDS behind); stop
+    // once the sweeper has.
+    int spins = 0;
+    bool stopped = load_acquire(&sh.stop) != 0;
+    while (!stopped && m - load_acquire(&sh.consumed) >= RECORDS) {
+      stopped = load_acquire(&sh.stop) != 0 || ++spins > SPIN_LIMIT;
+    }
+    if (stopped) break;
+    Record& rec = ring[m % RECORDS];
+    rec.op[lane] = make_int4(op.y, op.z, op.w, 0);
+    rec.stay[lane] = ~real | has;
+    if (lane == 0) rec.real = real;
+    __syncwarp();
+    if (lane == 0) store_release(&sh.produced, m + 1);
+  }
+  cp_async_wait_all();
+}
+
+// The sweeping warp's copy of one record: the ops in registers, and this
+// lane's stay bits.
+struct Batch {
+  int4 op[T];
+  uint32_t stay;
+  uint32_t real;
+};
+
+// Waits until the producer has written record n, then reads it into
+// registers.  Returns false if it never comes (a fault).
+__device__ __forceinline__ bool fetch_record(const Record* ring, Shared& sh,
+                                             int n, int lane, Batch& bt) {
+  int spins = 0;
+  while (__shfl_sync(FULL, load_acquire(&sh.produced), 0) <= n) {
+    if (++spins > SPIN_LIMIT) return false;
+  }
+  const Record& rec = ring[n % RECORDS];
+#pragma unroll
+  for (int i = 0; i < T; ++i) bt.op[i] = rec.op[i];
+  bt.stay = rec.stay[lane];
+  bt.real = rec.real;
+  return true;
+}
+
+// Warp 0: lane = beam lane.  Sweeps each record speculatively from
+// registers (the next record is read at the end of the previous
+// iteration, so no shared load sits on the chain) and votes once per
+// batch.  Returns the death barrier, K, or -1 if the producer never
+// delivered (a fault).
+template <int MODEL, int SW>
+__device__ int sweep_records(const Record* ring, Shared& sh, int K,
+                             int start, int batches, int32_t (&st)[SW],
+                             bool& alive, int lane) {
+  Batch bt;
+  if (batches > 0 && !fetch_record(ring, sh, 0, lane, bt)) return -1;
+  for (int n = 0, k = start; n < batches; ++n, k += T) {
+    int32_t st0[SW];
+#pragma unroll
+    for (int j = 0; j < SW; ++j) st0[j] = st[j];
+    const bool alive0 = alive;
+    // Alive never comes back, so the barriers a lane is alive after form
+    // a prefix of the batch: counting them gives its alive mask.
+    int alive_after = 0;
+#pragma unroll
+    for (int i = 0; i < T; ++i) {
+      alive = lane_step<MODEL, SW>(st, alive, bt.op[i], (bt.stay >> i) & 1u);
+      alive_after += alive;
+    }
+    const uint32_t mask =
+        alive_after == T ? FULL : (1u << alive_after) - 1u;
+    // One vote per batch: the real barriers no lane survived.
+    const uint32_t dead = ~__reduce_or_sync(FULL, mask) & bt.real;
+    if (dead != 0u) {
+      // Rewind and replay up to the death, from the record (still in the
+      // ring: it is released only after this batch).
+      const int d = __ffs(static_cast<int>(dead)) - 1;
+      const Record& rec = ring[n % RECORDS];
+#pragma unroll
+      for (int j = 0; j < SW; ++j) st[j] = st0[j];
+      alive = alive0;
+      for (int i = 0; i < d; ++i) {
+        alive = lane_step<MODEL, SW>(st, alive, rec.op[i],
+                                     (bt.stay >> i) & 1u);
+      }
+      return k + d;
+    }
+    __syncwarp();
+    if (lane == 0) store_release(&sh.consumed, n + 1);
+    if (n + 1 < batches && !fetch_record(ring, sh, n + 1, lane, bt)) {
+      return -1;
+    }
+  }
+  return K;
+}
+
+template <int MODEL, int SW, int NW>
+__global__ void __launch_bounds__(64)
+witness_sweep_kernel(int B, int K, int W, int start,
                      const int32_t* __restrict__ bars,
-                     const int32_t* __restrict__ mbits,
+                     const uint8_t* __restrict__ member,
                      const int32_t* __restrict__ states_in,
-                     const int32_t* __restrict__ alive_in,
+                     const uint8_t* __restrict__ alive_in,
                      int32_t* __restrict__ states_out,
-                     int32_t* __restrict__ alive_out,
+                     uint8_t* __restrict__ alive_out,
                      int32_t* __restrict__ death_out) {
-  const int lane = threadIdx.x;
+  __shared__ Record ring[RECORDS];
+  __shared__ Stage<NW> stages[STAGES];
+  __shared__ Shared sh;
+  const int lane = threadIdx.x & 31;
+  const int batches = (K - start + T - 1) / T;
+  if (threadIdx.x == 0) {
+    sh.produced = 0;
+    sh.consumed = 0;
+    sh.stop = 0;
+  }
+  __syncthreads();
+  if (threadIdx.x >= 32) {
+    produce(ring, stages, sh, B, K, W, start, batches, bars, member, lane);
+    return;
+  }
   const bool in_beam = lane < B;
   int32_t st[SW];
 #pragma unroll
-  for (int j = 0; j < SW; ++j) st[j] = in_beam ? states_in[j * B + lane] : 0;
-  int alive = (in_beam && alive_in[lane] != 0) ? 1 : 0;
-  int death = K;
-
-  for (int k = start; k < K; ++k) {
-    // The same six words for every lane: one broadcast load each.
-    const int32_t col = __ldg(bars + k);
-    const int32_t real = __ldg(bars + 2 * K + k);
-    const int32_t f = __ldg(bars + 3 * K + k);
-    const int32_t a0 = __ldg(bars + 4 * K + k);
-    const int32_t a1 = __ldg(bars + 5 * K + k);
-    const int32_t word = __ldg(mbits + col);
-    // Bit 31 comes out of the arithmetic shift as -1; the & 1 keeps it.
-    const int has = (word >> lane) & 1;
-    int32_t nx[SW];
-    const bool legal = model_step<MODEL, SW>(st, nx, f, a0, a1);
-    const int surv_pass = alive & has;
-    const int surv_dir = alive & (1 - has) & (legal ? 1 : 0);
-    const int new_alive = surv_pass | surv_dir;
-    if (real != 0) {  // uniform across the warp: every lane read `real`
-      // Death test over the B beam lanes only (lanes >= B are masked out).
-      const unsigned any = __ballot_sync(0xffffffffu, in_beam && new_alive);
-      if (any == 0u) {
-        death = k;
-        break;
-      }
-      if (surv_dir) {
-#pragma unroll
-        for (int j = 0; j < SW; ++j) st[j] = nx[j];
-      }
-      alive = new_alive;
-    }
-  }
-
+  for (int j = 0; j < SW; ++j) st[j] = in_beam ? states_in[lane * SW + j] : 0;
+  bool alive = in_beam && alive_in[lane] != 0;
+  const int death =
+      sweep_records<MODEL, SW>(ring, sh, K, start, batches, st, alive, lane);
+  if (lane == 0) store_release(&sh.stop, 1);
   if (in_beam) {
 #pragma unroll
-    for (int j = 0; j < SW; ++j) states_out[j * B + lane] = st[j];
-    alive_out[lane] = alive;
+    for (int j = 0; j < SW; ++j) states_out[lane * SW + j] = st[j];
+    alive_out[lane] = alive ? 1 : 0;
   }
   if (lane == 0) death_out[0] = death;
 }
 
-// The serial chain of the sweep with no loads: per step, the register
-// step, the death ballot and the commit.  The operands of 16 steps are
-// made in registers before the loop (from `steps`, so they are not
-// compile-time constants) and the loop is unrolled by 16, so each step
-// waits only on the previous step's state and alive.  Lane 0 passes every
-// step, but the compiler cannot know it, so every ballot and branch stays.
-// Writes each lane's state plus alive and the step count reached, so
-// nothing is dead code.
-constexpr int PROBE_UNROLL = 16;
+// The per-lane chain with no loads in the loop and no vote: `steps`
+// dependent lane_steps (state k needs state k - 1) over 16 ops {f, a0,
+// a1, member word} read into registers before the loop.  Writes each
+// lane's state and alive so nothing is dead code.
+constexpr int PROBE_OPS = 16;
 
 __global__ void __launch_bounds__(32)
-chain_probe_kernel(int steps, int32_t* __restrict__ out) {
+chain_probe_kernel(int steps, const int4* __restrict__ ops,
+                   int32_t* __restrict__ out) {
   const int lane = threadIdx.x;
-  int32_t f[PROBE_UNROLL], a0[PROBE_UNROLL], a1[PROBE_UNROLL];
-  int has[PROBE_UNROLL];
+  int4 op[PROBE_OPS];
+  bool stay[PROBE_OPS];
 #pragma unroll
-  for (int j = 0; j < PROBE_UNROLL; ++j) {
-    const uint32_t h = static_cast<uint32_t>(steps + j) * 2654435761u;
-    f[j] = static_cast<int32_t>(h >> 30) % 3;
-    a0[j] = static_cast<int32_t>(h >> 8) & 3;
-    a1[j] = static_cast<int32_t>(h >> 12) & 3;
-    has[j] = lane == 0 ? 1 : static_cast<int>((h >> lane) & 1u);
+  for (int j = 0; j < PROBE_OPS; ++j) {
+    op[j] = ops[j];
+    stay[j] = (static_cast<uint32_t>(op[j].w) >> lane) & 1u;
   }
-  int32_t st = lane & 3;
-  int alive = 1;
-  int reached = steps;
-  for (int k = 0; k < steps; k += PROBE_UNROLL) {
+  int32_t st[1] = {lane & 3};
+  bool alive = true;
+  for (int k = 0; k < steps; k += PROBE_OPS) {
 #pragma unroll
-    for (int j = 0; j < PROBE_UNROLL; ++j) {
-      int32_t nx;
-      const bool legal = register_step(st, f[j], a0[j], a1[j], &nx);
-      const int surv_dir = alive & (1 - has[j]) & (legal ? 1 : 0);
-      const int new_alive = (alive & has[j]) | surv_dir;
-      if (__ballot_sync(0xffffffffu, new_alive) == 0u) {
-        reached = k + j;
-        goto done;
-      }
-      if (surv_dir) st = nx;
-      alive = new_alive;
+    for (int j = 0; j < PROBE_OPS; ++j) {
+      alive = lane_step<MODEL_REGISTER, 1>(st, alive, op[j], stay[j]);
     }
   }
-done:
-  out[lane] = st + alive;
-  if (lane == 0) out[32] = reached;
+  out[lane] = st[0] + (alive ? 1 : 0);
+}
+
+template <int NW>
+void launch(int B, int K, int W, int start, const void* bars,
+            const void* member, const void* states_in, const void* alive_in,
+            void* states_out, void* alive_out, void* death_out,
+            cudaStream_t stream) {
+  witness_sweep_kernel<MODEL_REGISTER, 1, NW><<<1, 64, 0, stream>>>(
+      B, K, W, start, static_cast<const int32_t*>(bars),
+      static_cast<const uint8_t*>(member),
+      static_cast<const int32_t*>(states_in),
+      static_cast<const uint8_t*>(alive_in),
+      static_cast<int32_t*>(states_out), static_cast<uint8_t*>(alive_out),
+      static_cast<int32_t*>(death_out));
 }
 
 }  // namespace
@@ -177,36 +452,41 @@ done:
 extern "C" {
 
 // Launches the sweep on `stream` and returns cudaGetLastError() (0 on
-// success); an unsupported model or shape returns cudaErrorInvalidValue
-// without launching.
-int witness_sweep_launch(int model, int sw, int B, int K, int start,
-                         const void* bars, const void* mbits,
+// success); an unsupported model or shape, or a member window that is
+// not 4-byte aligned, returns cudaErrorInvalidValue without launching.
+int witness_sweep_launch(int model, int sw, int B, int K, int W, int start,
+                         const void* bars, const void* member,
                          const void* states_in, const void* alive_in,
                          void* states_out, void* alive_out, void* death_out,
                          void* stream) {
   if (model != MODEL_REGISTER || sw != 1 || B < 1 || B > 32 || K < 1 ||
-      start < 0 || start > K) {
+      W < 1 || start < 0 || start > K ||
+      reinterpret_cast<uintptr_t>(member) % 4 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  witness_sweep_kernel<MODEL_REGISTER, 1>
-      <<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(
-          B, K, start, static_cast<const int32_t*>(bars),
-          static_cast<const int32_t*>(mbits),
-          static_cast<const int32_t*>(states_in),
-          static_cast<const int32_t*>(alive_in),
-          static_cast<int32_t*>(states_out), static_cast<int32_t*>(alive_out),
-          static_cast<int32_t*>(death_out));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // A row of B bytes at any byte offset spans ceil((B + 3) / 4) words;
+  // the pack reads one word past its last group.
+  if (B <= 8) {
+    launch<3>(B, K, W, start, bars, member, states_in, alive_in, states_out,
+              alive_out, death_out, s);
+  } else {
+    launch<9>(B, K, W, start, bars, member, states_in, alive_in, states_out,
+              alive_out, death_out, s);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
-// Launches the serial-chain probe (one warp, `steps` steps, a multiple
-// of 16) on `stream`; `out` holds 33 int32.  Returns cudaGetLastError().
-int witness_sweep_chain_probe(int steps, void* out, void* stream) {
-  if (steps < 0 || steps % PROBE_UNROLL != 0) {
+// Launches the per-lane chain probe (one warp, `steps` steps, a multiple
+// of 16, over the 16 ops {f, a0, a1, member word} at `ops`) on `stream`;
+// `out` holds 32 int32.  Returns cudaGetLastError().
+int witness_sweep_chain_probe(int steps, const void* ops, void* out,
+                              void* stream) {
+  if (steps < 0 || steps % PROBE_OPS != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   chain_probe_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(
-      steps, static_cast<int32_t*>(out));
+      steps, static_cast<const int4*>(ops), static_cast<int32_t*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 

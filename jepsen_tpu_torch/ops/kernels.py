@@ -46,9 +46,10 @@ _sweep: ctypes.CDLL | None = None
 
 
 class KernelLaunchError(RuntimeError):
-    """A kernel failed to launch (a CUDA error came back).  Never a
-    resource error to the degradation ladder, whatever CUDA's message
-    says: a failing kernel fails the run."""
+    """A kernel failed to launch (a CUDA error came back) or reported a
+    fault in its output.  Never a resource error to the degradation
+    ladder, whatever CUDA's message says: a failing kernel fails the
+    run."""
 
 
 def _nvcc() -> str:
@@ -86,10 +87,10 @@ def sweep_lib() -> ctypes.CDLL:
     # Every pointer and the stream as c_void_p: ctypes would pass a bare
     # Python int as a 32-bit int and cut the pointer.
     lib.witness_sweep_launch.argtypes = (
-        [ctypes.c_int] * 5 + [ctypes.c_void_p] * 8)
+        [ctypes.c_int] * 6 + [ctypes.c_void_p] * 8)
     lib.witness_sweep_launch.restype = ctypes.c_int
     lib.witness_sweep_chain_probe.argtypes = (
-        [ctypes.c_int] + [ctypes.c_void_p] * 2)
+        [ctypes.c_int] + [ctypes.c_void_p] * 3)
     lib.witness_sweep_chain_probe.restype = ctypes.c_int
     lib.witness_sweep_error_string.argtypes = [ctypes.c_int]
     lib.witness_sweep_error_string.restype = ctypes.c_char_p
@@ -104,33 +105,47 @@ def _check(lib: ctypes.CDLL, what: str, err: int) -> None:
 
 
 def witness_sweep(model: int, start_k: int, bars: torch.Tensor,
-                  mbits: torch.Tensor, states: torch.Tensor,
+                  member: torch.Tensor, states: torch.Tensor,
                   alive: torch.Tensor):
-    """Launches csrc/witness_sweep.cu on CUDA tensors.
+    """Launches csrc/witness_sweep.cu on CUDA tensors, as the port holds
+    them.
 
-    bars (6, K) i32, mbits (W,) i32 (lane b = bit b), states (SW, B)
-    i32 lane-major, alive (B,) i32 0/1 -> (states' (SW, B) i32, alive'
-    (B,) i32, death (1,) i32), all on the inputs' device.  `model` is a
-    `PackedModel.kernel_model` id."""
-    dev = bars.device
-    if dev.type != "cuda":
-        raise ValueError(f"witness_sweep needs CUDA tensors, got {dev}")
-    for t, name, ndim in ((bars, "bars", 2), (mbits, "mbits", 1),
-                          (states, "states", 2), (alive, "alive", 1)):
-        if t.device != dev or t.dtype != torch.int32 or t.dim() != ndim:
+    bars (6, K) i32, member (W, B) bool, states (B, SW) i32, alive (B,)
+    bool, all contiguous on one card, 1 <= B <= 32 -> (states' (B, SW)
+    i32, alive' (B,) bool, death (1,) i32) on that card; death is -1 if
+    the kernel's two warps lost their hand-off (see `sweep`).  `model` is
+    a `PackedModel.kernel_model` id.  Raises ValueError on anything else
+    (checked before the device, so CPU tensors show the shape errors
+    first), and KernelLaunchError if the launch fails."""
+    for t, name, dtype, ndim in ((bars, "bars", torch.int32, 2),
+                                 (member, "member", torch.bool, 2),
+                                 (states, "states", torch.int32, 2),
+                                 (alive, "alive", torch.bool, 1)):
+        if t.dtype != dtype or t.dim() != ndim:
             raise ValueError(
-                f"witness_sweep: {name} must be a {ndim}-d int32 tensor on "
-                f"{dev}, got {t.dim()}-d {t.dtype} on {t.device}")
+                f"witness_sweep: {name} must be a {ndim}-d {dtype} tensor, "
+                f"got {t.dim()}-d {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"witness_sweep: {name} must be contiguous")
-    sw, b = states.shape
+    w, b = member.shape
     k = bars.shape[1]
-    if bars.shape[0] != 6 or alive.shape != (b,) or not 1 <= b <= 32:
+    if (bars.shape[0] != 6 or states.shape[0] != b or alive.shape != (b,)
+            or not 1 <= b <= 32):
         raise ValueError(
-            f"witness_sweep: bad shapes bars {tuple(bars.shape)}, states "
-            f"{tuple(states.shape)}, alive {tuple(alive.shape)}")
+            f"witness_sweep: bad shapes bars {tuple(bars.shape)}, member "
+            f"{tuple(member.shape)}, states {tuple(states.shape)}, alive "
+            f"{tuple(alive.shape)} (B must be 1..32)")
     if not 0 <= start_k <= k:
         raise ValueError(f"witness_sweep: start_k {start_k} outside [0, {k}]")
+    dev = bars.device
+    if dev.type != "cuda" or any(t.device != dev
+                                 for t in (member, states, alive)):
+        raise ValueError(
+            f"witness_sweep needs CUDA tensors on one card, got {dev}, "
+            f"{member.device}, {states.device}, {alive.device}")
+    if member.data_ptr() % 4:
+        raise ValueError("witness_sweep: member must be 4-byte aligned "
+                         "(its rows are fetched in 4-byte words)")
     lib = sweep_lib()
     states_out = torch.empty_like(states)
     alive_out = torch.empty_like(alive)
@@ -138,27 +153,31 @@ def witness_sweep(model: int, start_k: int, bars: torch.Tensor,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.witness_sweep_launch(
-            int(model), sw, b, k, int(start_k), bars.data_ptr(),
-            mbits.data_ptr(), states.data_ptr(), alive.data_ptr(),
-            states_out.data_ptr(), alive_out.data_ptr(), death.data_ptr(),
-            stream)
+            int(model), states.shape[1], b, k, w, int(start_k),
+            bars.data_ptr(), member.data_ptr(), states.data_ptr(),
+            alive.data_ptr(), states_out.data_ptr(), alive_out.data_ptr(),
+            death.data_ptr(), stream)
     _check(lib, "witness_sweep", err)
     launches["witness_sweep"] += 1
     return states_out, alive_out, death
 
 
 def sweep_chain_probe(steps: int, device: torch.device) -> torch.Tensor:
-    """Launches the sweep's serial-chain probe (csrc/witness_sweep.cu
-    `chain_probe_kernel`: `steps` register steps, ballots and commits
-    with no loads; a multiple of 16) on `device` -> its (33,) int32
-    output.  A measuring
+    """Launches the sweep's per-lane chain probe (csrc/witness_sweep.cu
+    `chain_probe_kernel`: `steps` dependent per-barrier lane steps, a
+    multiple of 16, over 16 fixed ops held in registers, with no loads
+    and no vote) on `device` -> its (32,) int32 output.  A measuring
     aid, not a kernel of the checking path: it is not counted in
     `launches`."""
     lib = sweep_lib()
-    out = torch.empty(33, dtype=torch.int32, device=device)
+    j = torch.arange(16, dtype=torch.int32)
+    # {f, a0, a1, member word}: reads, writes and cas over values 0-3.
+    ops = torch.stack([j % 3, (j * 7) % 4, (j * 5) % 4, (j * 40503) & 0xFF],
+                      dim=1).to(torch.int32).contiguous().to(device)
+    out = torch.empty(32, dtype=torch.int32, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         _check(lib, "witness_sweep_chain_probe",
-               lib.witness_sweep_chain_probe(int(steps), out.data_ptr(),
-                                             stream))
+               lib.witness_sweep_chain_probe(int(steps), ops.data_ptr(),
+                                             out.data_ptr(), stream))
     return out

@@ -173,22 +173,6 @@ def plan_drops(packed: PackedOps, bars_per_block: int = BARS_PER_BLOCK,
         return False
 
 
-def pack_member_bits(member: torch.Tensor) -> torch.Tensor:
-    """(W, B) bool member window -> (W,) int32 words, lane b = bit b.
-
-    A shift-and-sum in int32 would wrap at bit 31 and torch promotes
-    the sum to int64 anyway, so the sum is taken in int64 (at most
-    2**32 - 1 for B <= 32) and folded into int32 two's complement
-    explicitly: lane 31 becomes the sign bit, which the kernel's
-    `(word >> lane) & 1` reads back correctly."""
-    B = member.shape[1]
-    if B > MAX_KERNEL_BEAM:
-        raise ValueError(f"beam {B} does not fit one 32-bit member word")
-    lanes = torch.arange(B, dtype=torch.int64, device=member.device)
-    words = (member.to(torch.int64) << lanes).sum(dim=1)
-    return torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)
-
-
 def sweep_plain(start_k: int, bars: torch.Tensor, member: torch.Tensor,
                 states: torch.Tensor, alive: torch.Tensor, step_rows):
     """The plain PyTorch sweep: the kernel's contract, one barrier per
@@ -220,21 +204,30 @@ def sweep(pm: PackedModel, start_k: int, bars: torch.Tensor,
           member: torch.Tensor, states: torch.Tensor, alive: torch.Tensor):
     """The barrier sweep (see `sweep_plain` for the contract).
 
-    CPU tensors take the plain version.  CUDA tensors launch the
-    csrc/witness_sweep.cu kernel or raise: a ValueError for a model
-    with no device step (`pm.kernel_model` None) or a beam wider than
-    one member word, the kernel's own error for a failed launch.
-    Reading the death barrier back is the launch's one host sync."""
+    CPU tensors take the plain version.  CUDA tensors go to the
+    csrc/witness_sweep.cu kernel as they are (no packing, transpose or
+    cast) or raise: a ValueError for a model with no device step
+    (`pm.kernel_model` None) or a beam wider than one member word,
+    KernelLaunchError for a failed launch or a kernel that reports a
+    fault.  Reading the death barrier back is the call's one host
+    sync."""
     if bars.device.type == "cpu":
         return sweep_plain(start_k, bars, member, states, alive,
                            pm.torch_step_rows)
     if pm.kernel_model is None:
         raise ValueError(
             f"model {pm.name!r} has no device step in the sweep kernel")
+    B = member.shape[1]
+    if B > MAX_KERNEL_BEAM:
+        raise ValueError(f"beam {B} does not fit one 32-bit member word")
     s2, al2, death = kernels.witness_sweep(
-        pm.kernel_model, start_k, bars, pack_member_bits(member),
-        states.T.contiguous(), alive.to(torch.int32))
-    return s2.T, al2 != 0, _device.host(death)[0]
+        pm.kernel_model, start_k, bars, member, states, alive)
+    d = _device.host(death)[0]
+    if d < 0:
+        raise kernels.KernelLaunchError(
+            "witness_sweep: the kernel's producer and sweeper warps lost "
+            "their hand-off")
+    return s2, al2, d
 
 
 class _Block:

@@ -1,8 +1,10 @@
-"""The witness barrier sweep: the port's plain version against the JAX
-package's Pallas kernel in interpret mode — exact integer equality of
-states, alive and death — and the member bit packing at B = 32 (the
-sign bit).  The CUDA kernel itself is held against the plain version
-on the card in tests/test_torch_kernels_cuda.py."""
+"""The witness barrier sweep on the CPU: the port's plain version
+against the JAX package's Pallas kernel in interpret mode, and a model
+of the CUDA kernel's batch algorithm (csrc/witness_sweep.cu: per-lane
+speculation over 32-barrier batches, one OR-vote per batch, rewind and
+replay at a death) against both — exact integer equality of states,
+alive and death.  The CUDA kernel itself is held against the plain
+version on the card in tests/test_torch_kernels_cuda.py."""
 
 import numpy as np
 import pytest
@@ -11,8 +13,9 @@ import torch
 from jepsen_tpu.models import cas_register as ref_cas_register
 from jepsen_tpu.ops.wgl_witness import _make_pallas_sweep
 from jepsen_tpu_torch.models import cas_register
-from jepsen_tpu_torch.ops.wgl_witness import pack_member_bits, sweep_plain
-from test_torch_kernels_cuda import CASES, SW, K, W, sweep_tables
+from jepsen_tpu_torch.ops.wgl_witness import sweep_plain
+from test_torch_kernels_cuda import (CASES, SW, K, W, case_tables,
+                                     expected_death)
 
 _ref_sweeps = {}
 
@@ -27,43 +30,239 @@ def _ref_sweep(B):
     return fn
 
 
-@pytest.mark.parametrize("B,start_k,kind", CASES)
-def test_sweep_plain_matches_pallas_interpret(B, start_k, kind):
-    bars, member, states, alive = sweep_tables(B, kind,
-                                               seed=B * 100 + start_k)
-    ref_s, ref_a, ref_d = _ref_sweep(B)(start_k, bars, member, states, alive)
-    got_s, got_a, got_d = sweep_plain(
+# ---------------------------------------------------------------------------
+# The kernel's algorithm, written line by line from csrc/witness_sweep.cu
+# (same names; Python ints stand for the 32-bit registers, a list of 32
+# values for a warp's lanes).  The two warps run one after the other
+# here: the producer's records do not depend on the sweeper, except for
+# where it stops.
+
+M32 = 0xFFFFFFFF
+F_WRITE, F_CAS = 1, 2
+T, AHEAD = 32, 3
+STAGES = AHEAD + 1
+#: Shared memory a lane never wrote: the kernel must mask it off.
+GARBAGE = 0xA5C3_96F1
+
+
+def register_step(s, f, a0, a1):
+    is_write = f == F_WRITE
+    is_cas = f == F_CAS
+    nxt = a0 if is_write else (a1 if is_cas else s)
+    return is_write or s == a0, nxt
+
+
+def lane_step(st, alive, op, stay):
+    """-> (st, alive) of one lane after one barrier, op = (f, a0, a1)."""
+    legal, nx = register_step(st, *op)
+    take = alive and not stay and legal
+    st = nx if take else st
+    return st, alive and (stay or legal)
+
+
+class Stage:
+    def __init__(self, nw):
+        self.op = [[0, 0, 0, 0] for _ in range(T)]
+        self.raw = [[GARBAGE] * nw for _ in range(T)]
+
+
+def load_bar(bars, K_, k):
+    if k < K_:
+        col, real, f, a0, a1 = (int(bars[r, k]) for r in (0, 2, 3, 4, 5))
+        return (col, 1 if real != 0 else 0, f, a0, a1)
+    return (0, 0, 0, 0, 0)
+
+
+def stage_batch(sg, bar_of_lane, member_words, B, member_bytes, nw):
+    """Every lane's part of stage_batch; the cp.async copies land at
+    once here (the kernel waits for them before packing)."""
+    for lane in range(T):
+        col, real, f, a0, a1 = bar_of_lane[lane]
+        lo = col * B
+        sg.op[lane] = [(lo & 3) | (real << 2), f, a0, a1]
+        end = lo + B
+        for w in range(nw):
+            at = (lo & ~3) + 4 * w
+            need = at < end
+            left = member_bytes - at
+            n = (min(left, 4) if need else 0)
+            word = member_words[at // 4] if need else 0
+            sg.raw[lane][w] = word & ((1 << (8 * n)) - 1)  # zero-filled
+
+
+def pack_row(sg, offset, B, lane, nw):
+    raw = sg.raw[lane]
+    word = 0
+    for q in range(nw - 1):
+        v = (((raw[q + 1] << 32) | raw[q]) >> (8 * offset)) & M32
+        nz = (((v & 0x7F7F7F7F) + 0x7F7F7F7F) | v) & 0x80808080
+        word |= ((((nz >> 7) * 0x10204080) & M32) >> 28) << (4 * q)
+    return word & ((((2 << (B - 1)) & M32) - 1) & M32)  # bytes past the row
+
+
+def ballot(preds):
+    """__ballot_sync over the warp."""
+    return sum(int(bool(p)) << lane for lane, p in enumerate(preds))
+
+
+def reduce_or(values):
+    """__reduce_or_sync over the warp."""
+    out = 0
+    for v in values:
+        out |= v
+    return out
+
+
+def produce(bars, member_words, B, K_, member_bytes, start, batches, nw):
+    """Warp 1: every record it would write (it writes them all when the
+    sweeper does not stop it)."""
+    stages = [Stage(nw) for _ in range(STAGES)]
+    records = []
+    pro = [[load_bar(bars, K_, start + p * T + lane) for lane in range(T)]
+           for p in range(AHEAD + 1)]
+    for p in range(AHEAD):
+        stage_batch(stages[p], pro[p], member_words, B, member_bytes, nw)
+    nxt = pro[AHEAD]
+    for m in range(batches):
+        k = start + m * T
+        stage_batch(stages[(m + AHEAD) % STAGES], nxt, member_words, B,
+                    member_bytes, nw)
+        nxt = [load_bar(bars, K_, k + (AHEAD + 1) * T + lane)
+               for lane in range(T)]
+        sg = stages[m % STAGES]
+        ops = [list(sg.op[lane]) for lane in range(T)]
+        word = [pack_row(sg, ops[lane][0] & 3, B, lane, nw)
+                for lane in range(T)]
+        real = ballot((ops[lane][0] >> 2) & 1 for lane in range(T))
+        has = [0] * T
+        for b in range(4 * (nw - 1)):
+            r = ballot((word[lane] >> b) & 1 for lane in range(T))
+            has = [r if lane == b else has[lane] for lane in range(T)]
+        records.append(dict(
+            op=[(o[1], o[2], o[3]) for o in ops],
+            stay=[(~real | has[lane]) & M32 for lane in range(T)],
+            real=real))
+    return records
+
+
+def ffs(x):
+    return (x & -x).bit_length()
+
+
+def batch_model_sweep(start, bars, member, states, alive):
+    """The kernel on numpy inputs (bars (6, K) i32, member (W, B) bool,
+    states (B, 1) i32, alive (B,) bool) -> (states', alive', death)."""
+    K_ = bars.shape[1]
+    W_, B = member.shape
+    nw = 3 if B <= 8 else 9
+    member_bytes = W_ * B
+    flat = np.zeros(4 * ((member_bytes + 3) // 4), dtype=np.uint8)
+    flat[:member_bytes] = member.reshape(-1)
+    member_words = [int(x) for x in flat.view("<u4")]
+    batches = (K_ - start + T - 1) // T
+    records = produce(bars, member_words, B, K_, member_bytes, start,
+                      batches, nw)
+
+    # Warp 0: lane = beam lane.
+    in_beam = [lane < B for lane in range(T)]
+    st = [int(states[lane, 0]) if in_beam[lane] else 0 for lane in range(T)]
+    al = [bool(in_beam[lane] and alive[lane]) for lane in range(T)]
+    death = K_
+    for n in range(batches):
+        k = start + n * T
+        rec = records[n]
+        st0, al0 = list(st), list(al)
+        mask = [0] * T
+        for lane in range(T):
+            alive_after = 0
+            for i in range(T):
+                st[lane], al[lane] = lane_step(
+                    st[lane], al[lane], rec["op"][i],
+                    (rec["stay"][lane] >> i) & 1)
+                alive_after += al[lane]
+            mask[lane] = M32 if alive_after == T else (1 << alive_after) - 1
+        dead = ~reduce_or(mask) & rec["real"] & M32
+        if dead:
+            d = ffs(dead) - 1
+            st, al = list(st0), list(al0)
+            for lane in range(T):
+                for i in range(d):
+                    st[lane], al[lane] = lane_step(
+                        st[lane], al[lane], rec["op"][i],
+                        (rec["stay"][lane] >> i) & 1)
+            death = k + d
+            break
+
+    out_states = np.array([[st[lane]] for lane in range(B)], dtype=np.int32)
+    out_alive = np.array([al[lane] for lane in range(B)])
+    return out_states, out_alive, death
+
+
+# ---------------------------------------------------------------------------
+
+
+def _plain(start_k, bars, member, states, alive):
+    s, a, d = sweep_plain(
         start_k, torch.from_numpy(bars), torch.from_numpy(member),
         torch.from_numpy(states), torch.from_numpy(alive),
         cas_register().packed().torch_step_rows)
+    return s.numpy(), a.numpy(), d
+
+
+@pytest.mark.parametrize("B,start_k,kind", CASES)
+def test_sweep_plain_matches_pallas_interpret(B, start_k, kind):
+    bars, member, states, alive = case_tables(B, start_k, kind)
+    ref_s, ref_a, ref_d = _ref_sweep(B)(start_k, bars, member, states, alive)
+    got_s, got_a, got_d = _plain(start_k, bars, member, states, alive)
     assert got_d == int(ref_d)
-    assert np.array_equal(got_s.numpy(), np.asarray(ref_s))
-    assert np.array_equal(got_a.numpy(), np.asarray(ref_a))
-    if kind == "death":
-        assert got_d <= K // 2
-    else:
-        assert got_d == K
+    assert np.array_equal(got_s, np.asarray(ref_s))
+    assert np.array_equal(got_a, np.asarray(ref_a))
+    assert expected_death(kind, start_k, got_d)
 
 
-@pytest.mark.parametrize("B", [1, 8, 31, 32])
-def test_pack_member_bits_sign_bit(B):
+@pytest.mark.parametrize("B,start_k,kind", CASES)
+def test_batch_model_matches_plain_and_pallas(B, start_k, kind):
+    bars, member, states, alive = case_tables(B, start_k, kind)
+    got_s, got_a, got_d = batch_model_sweep(start_k, bars, member, states,
+                                            alive)
+    for want_s, want_a, want_d in (
+            _plain(start_k, bars, member, states, alive),
+            _ref_sweep(B)(start_k, bars, member, states, alive)):
+        assert got_d == int(want_d)
+        assert np.array_equal(got_s, np.asarray(want_s))
+        assert np.array_equal(got_a, np.asarray(want_a))
+
+
+@pytest.mark.parametrize("B", [1, 3, 8, 31, 32])
+def test_batch_model_packs_rows_at_every_byte_offset(B):
+    """The kernel's row packing (aligned 4-byte copies cut at the
+    window's end, funnel shift, nonzero-byte gather) gives bit b = lane
+    b for every row, whatever its byte offset, with garbage beyond the
+    row masked off.  W = 7 rows make every offset 0-3 occur for odd B,
+    and W * B a non-multiple of 4."""
     rng = np.random.default_rng(B)
-    member = rng.random((50, B)) < 0.5
+    member = rng.random((7, B)) < 0.5
     member[0] = True  # all lanes: bit 31 set at B = 32
     member[1] = False
-    got = pack_member_bits(torch.from_numpy(member))
-    assert got.dtype == torch.int32
-    want = (member.astype(np.uint64) << np.arange(B, dtype=np.uint64)).sum(
-        axis=1).astype(np.uint32).view(np.int32)
-    assert np.array_equal(got.numpy(), want)
-    # The kernel reads lane l as (word >> l) & 1 with an arithmetic shift.
-    lanes = torch.arange(B, dtype=torch.int32)
-    back = ((got[:, None] >> lanes[None, :]) & 1).bool()
-    assert torch.equal(back, torch.from_numpy(member))
-    if B == 32:
-        assert int(got[0]) == -1
+    nw = 3 if B <= 8 else 9
+    member_bytes = member.size
+    flat = np.zeros(4 * ((member_bytes + 3) // 4), dtype=np.uint8)
+    flat[:member_bytes] = member.reshape(-1)
+    words = [int(x) for x in flat.view("<u4")]
+    for col in range(member.shape[0]):
+        sg = Stage(nw)
+        stage_batch(sg, [(col, 1, 0, 0, 0)] * T, words, B, member_bytes, nw)
+        got = pack_row(sg, sg.op[0][0] & 3, B, 0, nw)
+        want = sum(int(bit) << b for b, bit in enumerate(member[col]))
+        assert got == want, (col, (col * B) & 3)
 
 
-def test_pack_member_bits_rejects_wide_beam():
-    with pytest.raises(ValueError, match="32-bit"):
-        pack_member_bits(torch.zeros((4, 33), dtype=torch.bool))
+def test_batch_model_tail_batch_is_masked():
+    """A start whose last batch runs past K: the barriers past K are
+    neither real nor fetched, and a clean table completes (death K)."""
+    bars, member, states, alive = case_tables(8, K - 5, "clean")
+    got = batch_model_sweep(K - 5, bars, member, states, alive)
+    want = _plain(K - 5, bars, member, states, alive)
+    assert got[2] == want[2] == K
+    assert np.array_equal(got[0], want[0])
+    assert np.array_equal(got[1], want[1])
