@@ -6,7 +6,7 @@
 Needs one CUDA card and the CUDA toolkit (nvcc): the witness sweep
 kernel is built from jepsen_tpu_torch/csrc/ into build/jepsen_tpu_torch/
 at first use.  Exits non-zero, printing no result, when torch sees no
-CUDA device or the package is missing.  Three phases, each raising on
+CUDA device or the package is missing.  Four phases, each raising on
 failure:
 
 1. The sweep kernel against its plain PyTorch version at the bench
@@ -16,32 +16,32 @@ failure:
    start past 0, or end in padding, and the kernel's 32-barrier batch
    edges (starts 31 and 33, deaths at batch offsets 0 and 31, B = 1),
    recorded and random.  States, alive and death must match exactly.
-   Times the kernel on the card (torch.profiler), back-to-back launches
-   of its wrapper and the `sweep()` call the main path makes (wrapper,
-   kernel, death read), with CUDA events and the host clock; counts
-   the device operations of one `sweep()` call with torch.profiler;
-   sets the kernel's time beside its byte bound and beside its step
-   floor (the library's chain probe: one lane's dependent per-barrier
-   step with no loads and no vote, times the barriers).
+   Times back-to-back launches of the kernel's wrapper (CUDA events:
+   the JSON's `ms`; and the host clock) and the `sweep()` call the main
+   path makes (wrapper, kernel, death read: `call_ms`, host clock; and
+   CUDA events); sets the kernel's time beside its byte bound and
+   beside its step floor (the library's chain probe: one lane's
+   dependent per-barrier step with no loads and no vote, times the
+   barriers).
 2. The main path: `Linearizable(cas_register(), "wgl-tpu").check` on
    the 100k-op, 5%-info, 16-process cas-register history (seed 45100),
    warmed up first; median of 3 wall times, with the kernel's launch
-   count, chain-search rounds and host syncs of those runs; then one
-   profiled device search: the card's busy time and idle share, its
+   count, chain-search rounds and host syncs of those runs.
+3. Under torch.profiler: the kernel's device time (`device_ms`) and
+   the device operations of one `sweep()` call (must be 2), then the
+   back-to-back timing of phase 1 again; then one profiled device
+   search of the main path: the card's busy time and idle share, its
    kernel launches and copies, and the sweep kernel's device time.
-3. The invalid path: `check_wgl_device` on a 2k-op history with an
+   Every host-clock and CUDA-event timing of phases 1 and 2 runs
+   before the script first starts torch.profiler, so none is taken in
+   a process the profiler has touched; the repeat shows what that
+   changes.
+4. The invalid path: `check_wgl_device` on a 2k-op history with an
    impossible read — the witness must die, the frontier BFS runs on the
    card, and the verdict (False) must equal the exact CPU engine's.
 
 The last lines are the kernels JSON line, the card's name and power
 limit from nvidia-smi, and {"ok": true, "device": {...}}.
-
-    python3 chip_smoke.py --main-path-only ROOT
-
-runs phase 2 alone, with the port imported from the checkout at ROOT,
-and prints its JSON and the card's name and power limit: the same
-measurement for two commits on one card (run them in turns: parent,
-change, change, parent).
 """
 
 from __future__ import annotations
@@ -141,9 +141,10 @@ def profile_device(torch, fn, reps: int) -> dict:
     return seen
 
 
-def phase_kernel(torch, packed, pm, W, seed: int) -> dict:
+def phase_kernel(torch, packed, pm, W, seed: int) -> tuple:
     """Kernel vs plain on recorded and random inputs; returns the
-    kernel's JSON entry (launches filled in by the caller)."""
+    kernel's JSON entry (launches and the profiler's numbers filled in
+    later) and the timed cases, for `phase_profile`."""
     import numpy as np
 
     from jepsen_tpu_torch.ops import kernels, wgl_witness
@@ -296,12 +297,11 @@ def phase_kernel(torch, packed, pm, W, seed: int) -> dict:
         f"(dependent register step chain, no loads, no vote)")
 
     def timed(name):
-        """One case's numbers: the kernel's device time (CUPTI, mean over
-        many launches), back-to-back launches of its wrapper (CUDA
-        events and host clock), the sweep() call as the main path makes
-        it (wrapper, kernel, death read; host clock and CUDA events),
-        the plain version, the byte bound for this input, and its
-        barriers times the step floor."""
+        """One case's numbers: back-to-back launches of the kernel's
+        wrapper (CUDA events and host clock), the sweep() call as the
+        main path makes it (wrapper, kernel, death read; host clock and
+        CUDA events), the plain version, the byte bound for this input,
+        and its barriers times the step floor."""
         start_k, bars, member, states, alive = dict(cases)[name]
         _, _, death = run_kernel(start_k, bars, member, states, alive)
         swept = min(death, K - 1) - start_k + 1
@@ -313,10 +313,7 @@ def phase_kernel(torch, packed, pm, W, seed: int) -> dict:
         def call():
             sweep(pm, start_k, bars, member, states, alive)
 
-        seen = profile_device(torch, kernel, reps=200)
-        n, us = next(v for k, v in seen.items() if "witness_sweep" in k)
-        ms = us / n / 1e3
-        ms_events = cuda_ms(kernel, reps=200)
+        ms = cuda_ms(kernel, reps=200)
         ms_host = wall_ms(kernel, reps=200)
         call_ms = wall_ms(call, reps=200)
         call_ms_events = cuda_ms(call, reps=200)
@@ -327,31 +324,23 @@ def phase_kernel(torch, packed, pm, W, seed: int) -> dict:
         bound = nbytes / HBM_BYTES_PER_S * 1e3
         floor = swept * step_ns / 1e6
         log(f"phase1: timing {name}: {swept} barriers, kernel {ms:.6f} ms "
-            f"on the card ({ms * 1e6 / swept:.4f} ns/barrier; wrapper "
-            f"back to back {ms_events:.6f} ms events / {ms_host:.6f} ms "
-            f"host clock), sweep() call {call_ms:.6f} ms host clock / "
-            f"{call_ms_events:.6f} ms events, plain {plain:.3f} ms, bound "
-            f"{bound:.9f} ms ({nbytes} B at {HBM_BYTES_PER_S:.3g} B/s), "
-            f"step floor {floor:.6f} ms (kernel {ms / floor:.3f}x)")
-        return dict(swept=swept, ms=ms, ms_events=ms_events, ms_host=ms_host,
+            f"back to back (CUDA events; {ms * 1e6 / swept:.4f} ns/barrier; "
+            f"host clock {ms_host:.6f} ms), sweep() call {call_ms:.6f} ms "
+            f"host clock / {call_ms_events:.6f} ms events, plain "
+            f"{plain:.3f} ms, bound {bound:.9f} ms ({nbytes} B at "
+            f"{HBM_BYTES_PER_S:.3g} B/s), step floor {floor:.6f} ms")
+        return dict(name=name, swept=swept, ms=ms, ms_host=ms_host,
                     call_ms=call_ms, call_ms_events=call_ms_events,
-                    plain=plain, bound=bound, floor=floor, call=call)
+                    plain=plain, bound=bound, floor=floor, kernel=kernel,
+                    call=call)
 
     # The JSON line reports the longest real sweep of the main path; the
     # full random block (K barriers) is printed beside it.
-    t = timed("bench-longest")
-    timed("rand8-clean")
-    seen = profile_device(torch, t["call"], reps=20)
-    ops_per_call = sum(n for n, _ in seen.values()) / 20
-    log(f"phase1: sweep() call: {ops_per_call:g} device operations per "
-        f"call ({sorted(seen)})")
-    if ops_per_call != 2:
-        raise AssertionError(
-            f"sweep() made {ops_per_call} device operations per call, "
-            f"not 2 (the kernel and the death copy): {sorted(seen)}")
+    timings = [timed("bench-longest"), timed("rand8-clean")]
+    t = timings[0]
     log("phase1: library_ms null: no single PyTorch call computes an "
         "early-exit serial sweep")
-    return {
+    entry = {
         "name": "witness_sweep",
         "route": "cuda",
         "source": "jepsen_tpu_torch/csrc/witness_sweep.cu",
@@ -364,15 +353,43 @@ def phase_kernel(torch, packed, pm, W, seed: int) -> dict:
         "bound_ms": t["bound"],
         "bound_by": "bytes",
         "library_ms": None,
-        "ms_events": t["ms_events"],
         "ms_host": t["ms_host"],
         "call_ms_events": t["call_ms_events"],
-        "device_ops_per_call": ops_per_call,
         "chain_floor_ms": t["floor"],
         "chain_step_ns": step_ns,
         "barriers_timed": t["swept"],
         "cases_matched": len(cases),
     }
+    return entry, timings
+
+
+def phase_profile(torch, entry: dict, timings: list) -> None:
+    """The kernel's device time on each timed case and the device
+    operations of one sweep() call, from torch.profiler, added to
+    `entry`; then phase 1's first back-to-back timing again, so the log
+    shows what a process that has run the profiler pays per launch."""
+    for t in timings:
+        seen = profile_device(torch, t["kernel"], reps=200)
+        n, us = next(v for k, v in seen.items() if "witness_sweep" in k)
+        t["device_ms"] = us / n / 1e3
+        log(f"profile: {t['name']}: kernel device time "
+            f"{t['device_ms']:.6f} ms ({t['device_ms'] * 1e6 / t['swept']:.4f}"
+            f" ns/barrier; {t['device_ms'] / t['floor']:.3f}x the step "
+            f"floor)")
+    t = timings[0]
+    seen = profile_device(torch, t["call"], reps=20)
+    ops_per_call = sum(n for n, _ in seen.values()) / 20
+    log(f"profile: sweep() call: {ops_per_call:g} device operations per "
+        f"call ({sorted(seen)})")
+    if ops_per_call != 2:
+        raise AssertionError(
+            f"sweep() made {ops_per_call} device operations per call, "
+            f"not 2 (the kernel and the death copy): {sorted(seen)}")
+    again = cuda_ms(t["kernel"], reps=200)
+    log(f"profile: {t['name']}: kernel back to back {again:.6f} ms (CUDA "
+        f"events) after torch.profiler ran; {t['ms']:.6f} ms before")
+    entry.update(device_ms=t["device_ms"], device_ops_per_call=ops_per_call,
+                 ms_after_profiler=again)
 
 
 def phase_main(torch, history, n_packed: int) -> dict:
@@ -414,8 +431,6 @@ def phase_main(torch, history, n_packed: int) -> dict:
         "host_syncs_per_check": counts.get("host_syncs", 0) / 3,
     }
     log("phase2: " + json.dumps(r))
-    r["breakdown"] = breakdown(torch, history)
-    log("phase2: breakdown " + json.dumps(r["breakdown"]))
     return r
 
 
@@ -423,9 +438,6 @@ def breakdown(torch, history) -> dict:
     """Where one main-path check spends its time, stage by stage (host
     clock), and the card's busy time in the device search from
     torch.profiler.  Runs after the counted runs."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from jepsen_tpu_torch.checker.refute import check_refute
     from jepsen_tpu_torch.history.packed import pack_history
     from jepsen_tpu_torch.models import cas_register
@@ -439,27 +451,21 @@ def breakdown(torch, history) -> dict:
     if check_refute(packed, pm) is not None:
         raise AssertionError("refutation screen fired on a valid history")
     t_refute = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    check_wgl_device(packed, pm, device="cuda")
-    torch.cuda.synchronize()
-    t_device = time.perf_counter() - t0
+    walls = []
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    def search():
         t0 = time.perf_counter()
         check_wgl_device(packed, pm, device="cuda")
         torch.cuda.synchronize()
-        t_prof = time.perf_counter() - t0
-    kernels_us = {}
-    n_kernels = n_copies = 0
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA:
-            kernels_us[e.key] = (kernels_us.get(e.key, 0.0)
-                                 + e.self_device_time_total)
-            if e.key.startswith(("Memcpy", "Memset")):
-                n_copies += e.count
-            else:
-                n_kernels += e.count
+        walls.append(time.perf_counter() - t0)
+
+    # One search before the profiler starts, one under it.
+    seen = profile_device(torch, search, reps=1)
+    t_device, t_prof = walls
+    kernels_us = {k: us for k, (_, us) in seen.items()}
+    n_copies = sum(n for k, (n, _) in seen.items()
+                   if k.startswith(("Memcpy", "Memset")))
+    n_kernels = sum(n for n, _ in seen.values()) - n_copies
     busy_s = sum(kernels_us.values()) / 1e6
     sweep_us = sum(us for k, us in kernels_us.items()
                    if "witness_sweep" in k)
@@ -517,25 +523,18 @@ def phase_invalid(torch) -> dict:
         "sweep_launches": kernels.launches["witness_sweep"],
         "host_syncs": D.counters.get("host_syncs", 0),
     }
-    log("phase3: " + json.dumps(r))
+    log("phase4: " + json.dumps(r))
     return r
 
 
-def main(argv: list) -> int:
+def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this "
               "script needs a CUDA card", file=sys.stderr)
         return 1
-    main_only = argv[:1] == ["--main-path-only"]
-    if argv and not (main_only and len(argv) == 2):
-        print("usage: chip_smoke.py [--main-path-only ROOT]",
-              file=sys.stderr)
-        return 2
-    root = (os.path.abspath(argv[1]) if main_only
-            else os.path.dirname(os.path.abspath(__file__)))
-    sys.path.insert(0, root)
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from jepsen_tpu_torch.history.packed import pack_history
     from jepsen_tpu_torch.models import cas_register
     from jepsen_tpu_torch.ops import kernels
@@ -568,17 +567,15 @@ def main(argv: list) -> int:
     log(f"bench history: {packed.n} packed ops ({packed.n_ok} ok), "
         f"generate {t_gen:.3f} s, pack {t_pack:.3f} s, window W={W}")
 
-    if main_only:
-        print(json.dumps({"root": root,
-                          "main_path": phase_main(torch, history, packed.n)}))
-        print(smi)
-        return 0
-    entry = phase_kernel(torch, packed, pm, W, seed=BENCH_SEED)
+    entry, timings = phase_kernel(torch, packed, pm, W, seed=BENCH_SEED)
     main_r = phase_main(torch, history, packed.n)
     entry["launches"] = main_r["sweep_launches"]
+    phase_profile(torch, entry, timings)
+    main_r["breakdown"] = breakdown(torch, history)
+    log("profile: main path breakdown " + json.dumps(main_r["breakdown"]))
     bad_r = phase_invalid(torch)
 
-    log(f"phase3 done; main path {main_r['ops_per_s']:.1f} ops/s, "
+    log(f"phase4 done; main path {main_r['ops_per_s']:.1f} ops/s, "
         f"invalid path {bad_r['wall_s']:.3f} s")
     print(json.dumps({"kernels": [entry]}))
     print(smi)
@@ -589,4 +586,4 @@ def main(argv: list) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main(sys.argv[1:]))
+    sys.exit(main())

@@ -272,11 +272,14 @@ __device__ void produce(Record* ring, Stage<NW>* stages, Shared& sh, int B,
       has = lane == b ? r : has;
     }
     // Room in the ring (the sweeper is at most RECORDS behind); stop
-    // once the sweeper has.
+    // once the sweeper has.  Each lane acquires before it writes the
+    // ring; the votes keep the decision the same in every lane.
     int spins = 0;
-    bool stopped = load_acquire(&sh.stop) != 0;
-    while (!stopped && m - load_acquire(&sh.consumed) >= RECORDS) {
-      stopped = load_acquire(&sh.stop) != 0 || ++spins > SPIN_LIMIT;
+    bool stopped = __any_sync(FULL, load_acquire(&sh.stop) != 0);
+    while (!stopped &&
+           !__all_sync(FULL, m - load_acquire(&sh.consumed) < RECORDS)) {
+      stopped = __any_sync(FULL, load_acquire(&sh.stop) != 0) ||
+                ++spins > SPIN_LIMIT;
     }
     if (stopped) break;
     Record& rec = ring[m % RECORDS];
@@ -298,11 +301,13 @@ struct Batch {
 };
 
 // Waits until the producer has written record n, then reads it into
-// registers.  Returns false if it never comes (a fault).
+// registers.  Every lane acquires the release it reads the ring after;
+// the vote only keeps the warp's loop uniform.  Returns false if it never
+// comes (a fault).
 __device__ __forceinline__ bool fetch_record(const Record* ring, Shared& sh,
                                              int n, int lane, Batch& bt) {
   int spins = 0;
-  while (__shfl_sync(FULL, load_acquire(&sh.produced), 0) <= n) {
+  while (!__all_sync(FULL, load_acquire(&sh.produced) > n)) {
     if (++spins > SPIN_LIMIT) return false;
   }
   const Record& rec = ring[n % RECORDS];
