@@ -6,8 +6,9 @@
 Needs one CUDA card and the CUDA toolkit (nvcc): the witness sweep
 kernel is built from jepsen_tpu_torch/csrc/ into build/jepsen_tpu_torch/
 at first use.  Exits non-zero, printing no result, when torch sees no
-CUDA device or the package is missing.  Four phases, each raising on
-failure:
+CUDA device or the package is missing.  Seven phases, each raising on
+failure, run in the order 1, 2, 5, 6, 1b, 3, 4 (every host-clock and
+CUDA-event timing before the profiler first runs):
 
 1. The sweep kernel against its plain PyTorch version at the bench
    shapes (B = 8, SW = 1, K = 2048, W = the bench history's planned
@@ -39,15 +40,42 @@ failure:
 4. The invalid path: `check_wgl_device` on a 2k-op history with an
    impossible read — the witness must die, the frontier BFS runs on the
    card, and the verdict (False) must equal the exact CPU engine's.
+5. The many-key path, bench.py run_mixed's shape: `IndependentChecker(
+   Linearizable(cas_register(), time_limit_s=120))` on 200 keys x 100
+   ops (4 processes, 5% :info, seed i for key i, keys 0-29 bad); one
+   warm-up (its sweep calls recorded), then a median of 3 with the
+   settle memo cleared before each.  Must return valid False with 30
+   failures, every per-key verdict equal to the exact CPU engine's.
+   Reports ops/s (history length / 2 / median, the reference's metric),
+   the keys each tier settled, and per check the stream passes and
+   restarts, sweep launches, BFS levels and host syncs.  Then the same
+   readings for an all-valid 2,000-key (200k-op) check.
+6. The other models: a 200-key x 100-op history each of the mutex, a
+   5-register multi-register, the FIFO and the unordered queue (every
+   7th key bad, one long key past the ladder's 2,000-op bound), once
+   recorded, once counted.  Every per-key verdict equals the exact CPU
+   engine's and both of the model's sweep instantiations (plain and
+   stream) launched.
+1b. Every other sweep instantiation (each model plain and stream, the
+   multi-register at 3 and 5 registers) against the plain version,
+   exactly, on the calls recorded in phases 5 and 6 and on random tables
+   at B = 1, 8 and 32 with RESET barriers and batch-edge starts and
+   deaths; then the instantiations of phases 5 and 6 timed on their
+   longest recorded call.  Their device time is read in phase 3, and
+   each one's registers and spills from the build's -Xptxas -v output.
+   Also the batched BFS on each model's cohort recorded in phases 5
+   and 6: levels, host syncs and wall time; its device time in phase 3.
 
-The last lines are the kernels JSON line, the card's name and power
-limit from nvidia-smi, and {"ok": true, "device": {...}}.
+The last lines are the kernels JSON line (one entry per timed
+instantiation), the card's name and power limit from nvidia-smi, and
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import random
 import statistics
 import subprocess
 import sys
@@ -57,6 +85,168 @@ import time
 HBM_BYTES_PER_S = 3.35e12
 
 BENCH_OPS, BENCH_PROCS, BENCH_INFO, BENCH_SEED = 100_000, 16, 0.05, 45100
+
+
+# ---------------------------------------------------------------------------
+# Seeded per-key histories of the other models (the tests use them too).
+# Each generator returns one key's ops as dicts (type, f, value,
+# process); `keyed_history` wraps them into a many-key history of either
+# package.  Effects apply at completion, so a history is linearizable
+# unless it is bad: a bad key ends with ops that no linearization
+# allows, appended after every other op has completed.
+
+
+def mutex_ops(n_ops: int, seed: int, bad: bool, procs: int = 4,
+              info: float = 0.05) -> list:
+    """Processes acquire and release one lock.  An acquire of a held
+    lock fails; an acquire may end :info (it took the lock or not, by a
+    coin); releases are determinate.  Bad: two :ok acquires in a row
+    with no release between them."""
+    rng = random.Random(seed)
+    holder = None
+    ops, pending = [], {}
+    started = 0
+    while started < n_ops or pending:
+        p = rng.randrange(procs)
+        if p in pending:
+            f, as_info = pending.pop(p)
+            if f == "acquire":
+                if holder is None and (not as_info or rng.random() < 0.5):
+                    holder = p
+                typ = ("info" if as_info else
+                       "ok" if holder == p else "fail")
+            else:
+                holder = None
+                typ = "ok"
+            ops.append(dict(type=typ, f=f, value=None, process=p))
+        elif started < n_ops:
+            f = "release" if holder == p else "acquire"
+            pending[p] = (f, f == "acquire" and rng.random() < info)
+            ops.append(dict(type="invoke", f=f, value=None, process=p))
+            started += 1
+    if bad:
+        for p in (procs, procs + 1):
+            ops += [dict(type="invoke", f="acquire", value=None, process=p),
+                    dict(type="ok", f="acquire", value=None, process=p)]
+    return ops
+
+
+def multi_register_ops(n_ops: int, seed: int, bad: bool, n_regs: int = 5,
+                       procs: int = 4, info: float = 0.05) -> list:
+    """Reads and writes of `n_regs` registers r0.. (all 0 at first),
+    values 0-4; a write may end :info (applied by a coin).  Bad: a read
+    of a value never written."""
+    rng = random.Random(seed)
+    vals = [0] * n_regs
+    ops, pending = [], {}
+    started = 0
+    while started < n_ops or pending:
+        p = rng.randrange(procs)
+        if p in pending:
+            f, r, v, as_info = pending.pop(p)
+            if f == "write" and (not as_info or rng.random() < 0.5):
+                vals[r] = v
+            typ = "info" if as_info else "ok"
+            value = (f"r{r}", vals[r] if f == "read" else v)
+            ops.append(dict(type=typ, f=f, value=value, process=p))
+        elif started < n_ops:
+            f = rng.choice(["read", "write"])
+            r, v = rng.randrange(n_regs), rng.randrange(5)
+            pending[p] = (f, r, v, f == "write" and rng.random() < info)
+            ops.append(dict(type="invoke", f=f, process=p,
+                            value=(f"r{r}", None if f == "read" else v)))
+            started += 1
+    if bad:
+        ops += [dict(type="invoke", f="read", value=("r0", None),
+                     process=procs),
+                dict(type="ok", f="read", value=("r0", 99), process=procs)]
+    return ops
+
+
+def queue_ops(n_ops: int, seed: int, bad: bool, procs: int = 4,
+              info: float = 0.05, cap: int = 20) -> list:
+    """Enqueues of distinct values and dequeues of the head (a dequeue
+    of an empty queue fails), at most `cap` values queued, so the packed
+    queues' 32 slots hold every reachable state; an enqueue may end
+    :info (applied by a coin); dequeues are determinate, so the history
+    packs.  Valid for the FIFO and the unordered queue alike.  Bad: a
+    dequeue of a value never enqueued."""
+    rng = random.Random(seed)
+    queue: list = []
+    ops, pending = [], {}
+    started = nxt = 0
+    while started < n_ops or pending:
+        p = rng.randrange(procs)
+        if p in pending:
+            f, v, as_info = pending.pop(p)
+            if f == "enqueue":
+                if not as_info or rng.random() < 0.5:
+                    queue.append(v)
+                typ = "info" if as_info else "ok"
+            elif queue:
+                v, typ = queue.pop(0), "ok"
+            else:
+                typ = "fail"
+            ops.append(dict(type=typ, f=f, value=v, process=p))
+        elif started < n_ops:
+            in_flight = sum(1 for q in pending.values() if q[0] == "enqueue")
+            f = ("dequeue" if len(queue) + in_flight >= cap
+                 else rng.choice(["enqueue", "dequeue"]))
+            v = None
+            if f == "enqueue":
+                v, nxt = nxt, nxt + 1
+            pending[p] = (f, v, f == "enqueue" and rng.random() < info)
+            ops.append(dict(type="invoke", f=f, value=v, process=p))
+            started += 1
+    if bad:
+        ops += [dict(type="invoke", f="dequeue", value=None, process=procs),
+                dict(type="ok", f="dequeue", value=10**6, process=procs)]
+    return ops
+
+
+def keyed_history(gen, n_keys: int, n_ops: int, bad_keys, *, Op, kv,
+                  history, long_key_ops: int = 0, **gen_kw):
+    """A many-key history: key "k<i>" carries gen(n_ops, seed=i, bad=i in
+    bad_keys, **gen_kw); with `long_key_ops`, one more valid key "long"
+    of that many ops with no :info ops (past the ladder's long-key
+    bound, and packable: an :info enqueue that never lands counts
+    against a packed queue's capacity for good) is appended.  `Op`,
+    `kv` and `history` are either package's."""
+    ops = []
+    keys = [(f"k{i}", n_ops, i, i in bad_keys, gen_kw)
+            for i in range(n_keys)]
+    if long_key_ops:
+        keys.append(("long", long_key_ops, n_keys, False,
+                     {**gen_kw, "info": 0.0}))
+    for key, n, seed, bad, kw in keys:
+        for d in gen(n, seed=seed, bad=bad, **kw):
+            ops.append(Op(**{**d, "value": kv(key, d["value"])}))
+    return history(ops)
+
+
+def model_specs() -> list:
+    """Phase 6's models: (name, model factory, generator, generator
+    kwargs).  The FIFO queue's history has no :info enqueues and three
+    processes: with either, the exact CPU engine that every verdict is
+    held against runs past its budget on some keys (5M configurations
+    on 60-op keys)."""
+    from jepsen_tpu_torch import models as M
+
+    return [
+        ("mutex", M.mutex, mutex_ops, {}),
+        ("multi-register",
+         lambda: M.multi_register({f"r{i}": 0 for i in range(5)}),
+         multi_register_ops, {}),
+        ("fifo-queue", M.fifo_queue, queue_ops, {"procs": 3, "info": 0.0}),
+        ("unordered-queue", M.unordered_queue, queue_ops, {}),
+    ]
+
+
+#: Invocations of phase 6's long key per model: past the ladder's 2,000
+#: packed ops (a failed acquire packs to nothing, so the mutex needs
+#: more), so the models' plain (non-stream) instantiations run too.
+LONG_KEY_OPS = {"mutex": 6000}
+LONG_KEY_OPS_DEFAULT = 2600
 
 
 def log(msg: str) -> None:
@@ -158,8 +348,9 @@ def phase_kernel(torch, packed, pm, W, seed: int) -> tuple:
     recorded = []
     real_sweep = wgl_witness.sweep
 
-    def recording_sweep(pm_, start_k, bars, member, states, alive):
-        out = real_sweep(pm_, start_k, bars, member, states, alive)
+    def recording_sweep(pm_, start_k, bars, member, states, alive,
+                        init=None):
+        out = real_sweep(pm_, start_k, bars, member, states, alive, init)
         recorded.append((start_k, bars, member, states, alive, out[2]))
         return out
 
@@ -527,6 +718,525 @@ def phase_invalid(torch) -> dict:
     return r
 
 
+# ---------------------------------------------------------------------------
+# The many-key path (phases 5 and 6) and the sweep kernel's other
+# instantiations (phase 1b).
+
+MIXED_KEYS, MIXED_OPS, MIXED_BAD = 200, 100, 30  # bench.py run_mixed
+BIG_KEYS = 2000  # the all-valid check: 200k ops
+MODEL_KEYS, MODEL_OPS = 200, 100
+
+
+def instantiation(pm) -> str:
+    """The sweep kernel instantiation `pm` runs, as `kernels.launches`
+    counts it: witness_sweep[<model>] or witness_sweep[<model>+stream]."""
+    from jepsen_tpu_torch.ops import kernels
+
+    return (f"witness_sweep[{kernels.SWEEP_MODELS[pm.kernel_model][0]}"
+            f"{'+stream' if pm.stream else ''}]")
+
+
+class SweepRecorder:
+    """While entered, records the sweep() calls of the checks it wraps,
+    per kernel instantiation: the first `first` calls and the longest
+    (in barriers swept), inputs cloned, with the death each returned;
+    and each model's first batched-BFS call (its packs and arguments)."""
+
+    def __init__(self, first: int = 3):
+        self.first = first
+        self.calls: dict = {}
+        self.longest: dict = {}
+        self.batched: dict = {}
+
+    def __enter__(self):
+        from jepsen_tpu_torch.ops import wgl_batched, wgl_witness
+
+        self._real = real = wgl_witness.sweep
+        self._real_batched = real_batched = wgl_batched.check_wgl_batched
+
+        def recording_batched(packs, pm, **kw):
+            self.batched.setdefault(pm.name, (list(packs), pm, kw))
+            return real_batched(packs, pm, **kw)
+
+        wgl_batched.check_wgl_batched = recording_batched
+
+        def recording(pm, start_k, bars, member, states, alive, init=None):
+            out = real(pm, start_k, bars, member, states, alive, init)
+            name = instantiation(pm)
+            span = min(out[2], bars.shape[1] - 1) - start_k
+            calls = self.calls.setdefault(name, [])
+            best = self.longest.get(name)
+            longer = best is None or span > best["span"]
+            if len(calls) < self.first or longer:
+                call = dict(pm=pm, start_k=start_k, span=span, death=out[2],
+                            args=tuple(t.clone() for t in
+                                       (bars, member, states, alive)),
+                            init=None if init is None else init.clone())
+                if len(calls) < self.first:
+                    calls.append(call)
+                if longer:
+                    self.longest[name] = call
+            return out
+
+        wgl_witness.sweep = recording
+        return self
+
+    def __exit__(self, *exc):
+        from jepsen_tpu_torch.ops import wgl_batched, wgl_witness
+
+        wgl_witness.sweep = self._real
+        wgl_batched.check_wgl_batched = self._real_batched
+        return False
+
+
+def mixed_history(n_keys: int, n_bad: int):
+    """bench.py run_mixed's history: `n_keys` cas-register keys "k<i>"
+    of MIXED_OPS ops (4 processes, 5% :info, seed i), keys 0 ..
+    n_bad - 1 with a planted violation."""
+    from jepsen_tpu_torch.history.core import history
+    from jepsen_tpu_torch.parallel import kv
+    from jepsen_tpu_torch.utils.histgen import random_register_history
+
+    ops = []
+    for i in range(n_keys):
+        h = random_register_history(MIXED_OPS, procs=4, info_rate=0.05,
+                                    seed=i, bad=i < n_bad)
+        ops += [o.replace(value=kv(f"k{i}", o.value)) for o in h]
+    return history(ops)
+
+
+def check_exact(what: str, make_model, history, res: dict) -> None:
+    """Holds every per-key verdict of `res` against the exact CPU
+    engine's on that key's subhistory; raises on a difference or on a
+    key the exact engine could not decide."""
+    from jepsen_tpu_torch.checker import Linearizable
+    from jepsen_tpu_torch.parallel import subhistories
+
+    diff = {}
+    for k, h in subhistories(history).items():
+        want = Linearizable(make_model(), "cpu", time_limit_s=120,
+                            device="cpu").check({}, h, {})["valid"]
+        got = res["results"][k]["valid"]
+        if want not in (True, False) or got != want:
+            diff[k] = (got, want)
+    if diff:
+        raise AssertionError(f"{what}: per-key verdicts differ from the "
+                             f"exact CPU engine's (got, exact): "
+                             f"{dict(list(diff.items())[:8])}")
+
+
+def many_key_run(torch, checker, history, reps: int) -> tuple:
+    """`reps` checks of `history` by `checker`, the settle memo cleared
+    before each; the counts are set to 0 before the first and read after
+    the last -> (last result, readings per check)."""
+    from jepsen_tpu_torch import device as D
+    from jepsen_tpu_torch.ops import kernels
+    from jepsen_tpu_torch.parallel import clear_settle_memo
+
+    kernels.launches.clear()
+    D.counters.clear()
+    times = []
+    for _ in range(reps):
+        clear_settle_memo()
+        t0 = time.perf_counter()
+        res = checker.check({}, history, {})
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launches = {k: v for k, v in kernels.launches.items()
+                if k.startswith("witness_sweep[")}
+    counts = dict(D.counters)
+    med = statistics.median(times)
+    per = {name: counts.get(name, 0) / reps for name in (
+        "stream_passes", "stream_restarts", "stream_keys_proven",
+        "heavy_rounds", "bfs_levels", "host_syncs")}
+    r = {
+        "ops": len(history) // 2,
+        "keys": res["key-count"],
+        "valid": res["valid"],
+        "failure_count": res["failure-count"],
+        "wall_s": times,
+        "median_s": med,
+        "ops_per_s": len(history) / 2 / med,
+        "tiers": res["tiers"],
+        "per_check": {**per, "sweep_launches":
+                      kernels.launches["witness_sweep"] / reps},
+        "launches": launches,
+    }
+    return res, r
+
+
+def phase_mixed(torch, recorder: SweepRecorder) -> dict:
+    """Phase 5: bench.py run_mixed's shape on the card, then the
+    all-valid 2,000-key check."""
+    from jepsen_tpu_torch.checker import Linearizable
+    from jepsen_tpu_torch.models import cas_register
+    from jepsen_tpu_torch.parallel import IndependentChecker, \
+        clear_settle_memo
+
+    chk = IndependentChecker(Linearizable(cas_register(), time_limit_s=120))
+    h = mixed_history(MIXED_KEYS, MIXED_BAD)
+    clear_settle_memo()
+    with recorder:
+        warm = chk.check({}, h, {})  # warm-up: not counted, recorded
+    res, r = many_key_run(torch, chk, h, reps=3)
+    for out in (warm, res):
+        if out["valid"] is not False or out["failure-count"] != MIXED_BAD:
+            raise AssertionError(
+                f"phase5: valid {out['valid']}, {out['failure-count']} "
+                f"failures; want False with {MIXED_BAD}")
+    if r["launches"].get("witness_sweep[register+stream]", 0) <= 0:
+        raise AssertionError("phase5: the stream instantiation never ran")
+    check_exact("phase5", cas_register, h, res)
+    log("phase5: mixed " + json.dumps(r))
+    big = mixed_history(BIG_KEYS, 0)
+    res_b, rb = many_key_run(torch, chk, big, reps=3)
+    if res_b["valid"] is not True or res_b["failure-count"]:
+        raise AssertionError(f"phase5: all-valid check gave "
+                             f"{res_b['valid']} ({res_b['failure-count']} "
+                             f"failures)")
+    log("phase5: all-valid " + json.dumps(rb))
+    return {"mixed": r, "all_valid": rb}
+
+
+def phase_models(torch, recorder: SweepRecorder) -> dict:
+    """Phase 6: a 200-key history of each other model (every 7th key
+    bad, plus one long key), once recorded, then once counted; every
+    per-key verdict equals the exact CPU engine's, and both of the
+    model's instantiations ran."""
+    from jepsen_tpu_torch.checker import Linearizable
+    from jepsen_tpu_torch.history.core import Op, history
+    from jepsen_tpu_torch.parallel import IndependentChecker, \
+        clear_settle_memo, kv
+
+    out = {}
+    for name, make, gen, kw in model_specs():
+        bad = set(range(0, MODEL_KEYS, 7))
+        h = keyed_history(gen, MODEL_KEYS, MODEL_OPS, bad, Op=Op, kv=kv,
+                          history=history, long_key_ops=LONG_KEY_OPS.get(
+                              name, LONG_KEY_OPS_DEFAULT), **kw)
+        chk = IndependentChecker(Linearizable(make(), time_limit_s=120))
+        clear_settle_memo()
+        with recorder:
+            chk.check({}, h, {})
+        res, r = many_key_run(torch, chk, h, reps=1)
+        for inst in (f"witness_sweep[{name}]",
+                     f"witness_sweep[{name}+stream]"):
+            if r["launches"].get(inst, 0) <= 0:
+                raise AssertionError(f"phase6 {name}: {inst} never launched")
+        if res["failure-count"] != len(bad):
+            raise AssertionError(f"phase6 {name}: {res['failure-count']} "
+                                 f"failures, want {len(bad)}")
+        check_exact(f"phase6 {name}", make, h, res)
+        log(f"phase6: {name} " + json.dumps(r))
+        out[name] = r
+    return out
+
+
+def instance_models() -> list:
+    """(label, packed model) of every sweep instantiation phase 1b holds
+    against the plain version: each model plain and stream, the
+    multi-register at 3 and 5 registers (state buckets 4 and 8).  The
+    register's plain instantiation is phase 1's."""
+    from jepsen_tpu_torch import models as M
+    from jepsen_tpu_torch.ops.wgl_stream import stream_model
+
+    out = []
+    for label, make in (
+            ("register", M.cas_register), ("mutex", M.mutex),
+            ("multi-register/3",
+             lambda: M.multi_register({f"r{i}": 0 for i in range(3)})),
+            ("multi-register/5",
+             lambda: M.multi_register({f"r{i}": 0 for i in range(5)})),
+            ("fifo-queue", M.fifo_queue),
+            ("unordered-queue", M.unordered_queue)):
+        pm = make().packed()
+        if label != "register":
+            out.append((label, pm))
+        out.append((label + "+stream", stream_model(pm)))
+    return out
+
+
+def random_model_tables(pm, rng, B: int, W: int, K: int, kind: str,
+                        planted=None) -> tuple:
+    """Random sweep inputs for `pm` as numpy (bars (6, K), member (W, B),
+    states (B, SW), alive (B,)): its ops, with codes it never packs mixed
+    in (an f past release for the mutex, register indices outside the
+    real width, 0 for the queues), and for a stream model a RESET every
+    7th barrier.  Lane 0 passes every barrier at columns below W - 1
+    ("clean": every barrier).  `planted`: the barrier of an op no lane
+    survives, at the empty column W - 1 (for the mutex two acquires in a
+    row ending there)."""
+    import numpy as np
+
+    from jepsen_tpu_torch.ops.wgl_stream import F_RESET
+
+    name = pm.name.partition("+")[0]
+    sw = pm.state_width
+    member = rng.random((W, B)) < 0.3
+    member[:, 0] = True
+    member[W - 1] = kind == "clean"
+    if B == 32:
+        member[: W - 1, 31] = True  # the sign bit of every word
+    alive = rng.random(B) < 0.7
+    alive[0] = True
+    bars = np.zeros((6, K), dtype=np.int32)
+    bars[0] = rng.integers(0, W - 1, size=K)
+    bars[1] = np.arange(K)
+    bars[2] = 1
+    if name == "cas-register":
+        states = rng.integers(0, 4, (B, sw))
+        ops = (rng.integers(0, 3, K), rng.integers(0, 4, K),
+               rng.integers(0, 4, K))
+        killer = (0, 77, 0)
+    elif name == "mutex":
+        states = rng.integers(0, 2, (B, sw))
+        ops = rng.choice([0, 1, 1, 0, 2], K), np.zeros(K), np.zeros(K)
+        killer = (0, 0, 0)
+    elif name == "multi-register":
+        states = rng.integers(0, 4, (B, sw))
+        ops = (rng.integers(0, 2, K),
+               rng.choice(list(range(sw)) * 3 + [-1, sw, 31], K),
+               rng.integers(0, 4, K))
+        killer = (0, 0, 77)
+    else:
+        states = np.zeros((B, sw), dtype=np.int64)
+        for b in range(B):
+            # Lanes 0 and 1: an empty and a full queue.
+            n = (0, sw)[b] if b < 2 else int(rng.integers(0, sw + 1))
+            if name == "fifo-queue":
+                states[b, :n] = rng.integers(1, 7, n)
+            else:
+                states[b, rng.permutation(sw)[:n]] = rng.integers(1, 7, n)
+        ops = rng.choice([0, 0, 1], K), rng.integers(0, 7, K), np.zeros(K)
+        killer = (1, 99, 0)
+    bars[3], bars[4], bars[5] = ops
+    if pm.stream:
+        bars[3, 3::7] = F_RESET
+    if planted is not None:
+        for k in ((planted - 1, planted) if name == "mutex" else (planted,)):
+            bars[0, k] = W - 1
+            bars[3:, k] = killer
+    if kind == "padding":
+        bars[2, K - 300:] = 0
+    return bars, member, states.astype(np.int32), alive
+
+
+def phase_instantiations(torch, recorder: SweepRecorder, seed: int) -> list:
+    """Phase 1b: every other sweep instantiation against the plain
+    version (run on host copies of the inputs), exactly (states, alive,
+    death): the calls recorded in
+    phases 5 and 6 (and the first of each restarted at 31 and 33 and cut
+    to lane 0), and random tables at B = 1, 8 and 32 with RESET barriers
+    for the stream models, deaths mid-block and at batch offsets 0 and
+    31 from starts 31 and 33, starts after a death and in a padding
+    tail.  Then times each instantiation on its longest recorded call ->
+    the kernels-line entries of the instantiations phases 5 and 6
+    ran."""
+    import numpy as np
+
+    from jepsen_tpu_torch.ops import kernels
+    from jepsen_tpu_torch.ops.wgl_witness import BARS_PER_BLOCK, sweep_plain
+
+    dev = torch.device("cuda")
+    K, W = BARS_PER_BLOCK, 64
+    rng = np.random.default_rng(seed)
+
+    def to_dev(arrays):
+        return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                     for a in arrays)
+
+    def init_of(pm):
+        return (torch.tensor(pm.init_state, dtype=torch.int32, device=dev)
+                if pm.stream else None)
+
+    cases = []  # (label, pm, start_k, (bars, member, states, alive), init)
+    for name, calls in recorder.calls.items():
+        rec = calls + [recorder.longest[name]]
+        for i, c in enumerate(rec):
+            cases.append((f"{name}:recorded{i}", c["pm"], c["start_k"],
+                          c["args"], c["init"]))
+        c = calls[0]
+        bars, member, states, alive = c["args"]
+        for start in (31, 33):
+            if start < bars.shape[1]:
+                cases.append((f"{name}:recorded-start{start}", c["pm"],
+                              start, c["args"], c["init"]))
+        cases.append((f"{name}:recorded-B1", c["pm"], c["start_k"],
+                      (bars, member[:, :1].contiguous(), states[:1],
+                       alive[:1]), c["init"]))
+    for label, pm in instance_models():
+        for B in (1, 8, 32):
+            def tables(kind, planted=None):
+                return to_dev(random_model_tables(pm, rng, B, W, K, kind,
+                                                  planted))
+
+            death = tables("death", K // 2)
+            runs = [("clean", 0, tables("clean")), ("death", 0, death),
+                    ("after-death", K // 2 + 1, death),
+                    ("padding", K - 295, tables("padding", K // 2))]
+            for start in (31, 33):
+                for off in (0, 31):
+                    runs.append((f"start{start}-death@{off}", start,
+                                 tables("death", start + 5 * 32 + off)))
+            for kind, start, args in runs:
+                cases.append((f"{label}:rand{B}-{kind}", pm, start, args,
+                              init_of(pm)))
+
+    max_err = {}
+    for label, pm, start_k, args, init in cases:
+        ks, ka, kd = kernels.witness_sweep(pm.kernel_model, start_k, *args,
+                                           init)
+        ks, ka, kd = ks.cpu(), ka.cpu(), int(kd.item())
+        # The plain version on host copies of the same inputs: its
+        # per-barrier loop on the card would cost minutes here.
+        ps, pa, pd = sweep_plain(start_k, *(t.cpu() for t in args),
+                                 pm.torch_step_rows)
+        inst = instantiation(pm)
+        max_err[inst] = max(max_err.get(inst, 0), abs(kd - pd),
+                            int((ks.long() - ps.long()).abs().max()),
+                            int((ka.long() - pa.long()).abs().max()))
+        if not (torch.equal(ks, ps) and torch.equal(ka, pa) and kd == pd):
+            raise AssertionError(
+                f"phase1b: witness_sweep != sweep_plain on {label}: death "
+                f"{kd} vs {pd}, states equal {torch.equal(ks, ps)}, alive "
+                f"equal {torch.equal(ka, pa)}")
+        if ("@" in label and not label.startswith("mutex")
+                and (kd - start_k) % 32 != int(label.rpartition("@")[2])):
+            raise AssertionError(f"phase1b: {label}: death {kd} from "
+                                 f"{start_k} is not at its batch offset")
+    log(f"phase1b: {len(cases)} cases of {len(max_err)} instantiations "
+        f"match sweep_plain exactly ({sorted(max_err)})")
+
+    entries = []
+    for name, c in sorted(recorder.longest.items()):
+        pm, start_k, init = c["pm"], c["start_k"], c["init"]
+        bars, member, states, alive = c["args"]
+        B, sw = member.shape[1], states.shape[1]
+
+        def kernel(pm=pm, start_k=start_k, args=c["args"], init=init):
+            kernels.witness_sweep(pm.kernel_model, start_k, *args, init)
+
+        ms = cuda_ms(kernel, reps=200)
+        plain = wall_ms(lambda: sweep_plain(start_k, *c["args"],
+                                            pm.torch_step_rows), reps=3)
+        swept = c["span"] + 1
+        nbytes = (sweep_bytes(start_k, c["death"], bars.shape[1],
+                              bars[0].tolist(), B, sw)
+                  + (4 * sw if init is not None else 0))
+        entry = {
+            "name": name,
+            "route": "cuda",
+            "source": "jepsen_tpu_torch/csrc/witness_sweep.cu",
+            "replaces": "jepsen_tpu/ops/wgl_witness.py:332",
+            "launches": 0,
+            "max_abs_err": max_err.get(name, 0),
+            "ms": ms,
+            "plain_ms": plain,
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes",
+            "library_ms": None,
+            "barriers_timed": swept,
+            "B": B,
+            "sw": sw,
+            "_kernel": kernel,
+        }
+        log(f"phase1b: timing {name}: {swept} barriers B={B} sw={sw}, "
+            f"kernel {ms:.6f} ms back to back (CUDA events; "
+            f"{ms * 1e6 / swept:.4f} ns/barrier), plain {plain:.3f} ms, "
+            f"bound {entry['bound_ms']:.9f} ms ({nbytes} B)")
+        entries.append(entry)
+    return entries
+
+
+def phase_batched(torch, recorder: SweepRecorder) -> dict:
+    """The batched BFS (plain PyTorch; the JAX package's `_make_key_fn`
+    under `vmap`) on each model's cohort recorded in phases 5 and 6:
+    keys, levels, host syncs and wall time of one call (host clock),
+    and a callable for its device time in phase 3."""
+    from jepsen_tpu_torch import device as D
+    from jepsen_tpu_torch.ops.wgl_batched import check_wgl_batched
+
+    out = {}
+    for name, (packs, pm, kw) in sorted(recorder.batched.items()):
+        def call(packs=packs, pm=pm, kw=kw):
+            return check_wgl_batched(packs, pm, **kw)
+
+        call()  # warm-up
+        torch.cuda.synchronize()
+        D.counters.clear()
+        t0 = time.perf_counter()
+        res = call()
+        torch.cuda.synchronize()
+        out[name] = {
+            "keys": len(packs),
+            "max_ops": max(p.n for p in packs),
+            "valid": {str(v): res.valid.count(v) for v in set(res.valid)},
+            "levels": D.counters.get("bfs_levels", 0),
+            "host_syncs": D.counters.get("host_syncs", 0),
+            "wall_s": time.perf_counter() - t0,
+            "_call": call,
+        }
+        log(f"phase1b: batched BFS {name}: " + json.dumps(
+            {k: v for k, v in out[name].items() if k != "_call"}))
+    return out
+
+
+def ptxas_report(build_log: str) -> dict:
+    """{"MODEL,SW,NW,stream": {"registers", "spill_stores",
+    "spill_loads"}} of each witness_sweep_kernel instantiation, from the
+    build's -Xptxas -v output."""
+    import re
+
+    out, cur = {}, None
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            t = re.search(r"witness_sweep_kernelILi(\d+)ELi(\d+)ELi(\d+)"
+                          r"ELb([01])E", m.group(1))
+            cur = ",".join(t.groups()) if t else None
+            if cur:
+                out[cur] = {}
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[cur].update(spill_stores=int(m.group(1)),
+                            spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[cur]["registers"] = int(m.group(1))
+    return out
+
+
+def sass_instructions(lib_path: str) -> dict:
+    """{"MODEL,SW,NW,stream": SASS instructions} of each
+    witness_sweep_kernel instantiation in the built library, from
+    `cuobjdump -sass` ({} where the toolkit has none)."""
+    import re
+    import shutil
+
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        return {}
+    sass = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                          text=True, check=True).stdout
+    out, cur = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            t = re.search(r"witness_sweep_kernelILi(\d+)ELi(\d+)ELi(\d+)"
+                          r"ELb([01])E", m.group(1))
+            cur = ",".join(t.groups()) if t else None
+            if cur:
+                out[cur] = 0
+        elif cur and re.match(r"\s+/\*[0-9a-f]{4,}\*/", line):
+            out[cur] += 1
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -545,8 +1255,8 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
-    name = torch.cuda.get_device_name(0)
-    log(f"device: {name} (torch {torch.__version__}, CUDA "
+    kind = torch.cuda.get_device_name(0)
+    log(f"device: {kind} (torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}); nvidia-smi: {smi}")
 
     t0 = time.perf_counter()
@@ -570,17 +1280,64 @@ def main() -> int:
     entry, timings = phase_kernel(torch, packed, pm, W, seed=BENCH_SEED)
     main_r = phase_main(torch, history, packed.n)
     entry["launches"] = main_r["sweep_launches"]
+
+    # The many-key path, then phase 1b on the sweep calls it recorded;
+    # all before the profiler first runs (phase 3).
+    recorder = SweepRecorder()
+    mixed_r = phase_mixed(torch, recorder)
+    models_r = phase_models(torch, recorder)
+    launches = dict(mixed_r["mixed"]["launches"])
+    for r in models_r.values():
+        launches.update(r["launches"])
+    more = phase_instantiations(torch, recorder, seed=BENCH_SEED)
+    batched = phase_batched(torch, recorder)
+    ptxas = ptxas_report(kernels.build_log)
+    for key, n in sass_instructions(kernels.sweep_lib()._name).items():
+        ptxas.setdefault(key, {})["sass_instructions"] = n
+    for e in more:
+        e["launches"] = launches.get(e["name"], 0)
+        if e["launches"] <= 0:
+            raise AssertionError(f"{e['name']}: no launch on its path")
+        model_id = next(m for m, (n, _) in kernels.SWEEP_MODELS.items()
+                        if e["name"].startswith(f"witness_sweep[{n}"))
+        bucket = 1 << max(0, e["sw"] - 1).bit_length()
+        if model_id == 3:  # the multi-register's state buckets
+            bucket = max(2, bucket)
+        stream = int(e["name"].endswith("+stream]"))
+        e["ptxas"] = {f"NW{nw}": ptxas.get(f"{model_id},{bucket},{nw},"
+                                           f"{stream}")
+                      for nw in (3, 9)}
+    for key, rep in sorted(ptxas.items()):
+        log(f"ptxas: witness_sweep_kernel<MODEL,SW,NW,STREAM>=<{key}>: "
+            f"{json.dumps(rep)}")
+
     phase_profile(torch, entry, timings)
+    for e in more:
+        seen = profile_device(torch, e.pop("_kernel"), reps=200)
+        n, us = next(v for k, v in seen.items() if "witness_sweep" in k)
+        e["device_ms"] = us / n / 1e3
+        log(f"profile: {e['name']}: kernel device time "
+            f"{e['device_ms']:.6f} ms ({e['device_ms'] * 1e6 / e['barriers_timed']:.4f}"
+            f" ns/barrier)")
+    for model_name, b in batched.items():
+        seen = profile_device(torch, b.pop("_call"), reps=1)
+        b["device_ms"] = sum(us for _, us in seen.values()) / 1e3
+        b["device_ops"] = sum(n for n, _ in seen.values())
+        log(f"profile: batched BFS {model_name}: {b['levels']} levels, device "
+            f"time {b['device_ms']:.3f} ms in {b['device_ops']} device "
+            f"operations, wall {b['wall_s']:.3f} s")
     main_r["breakdown"] = breakdown(torch, history)
     log("profile: main path breakdown " + json.dumps(main_r["breakdown"]))
     bad_r = phase_invalid(torch)
 
     log(f"phase4 done; main path {main_r['ops_per_s']:.1f} ops/s, "
-        f"invalid path {bad_r['wall_s']:.3f} s")
-    print(json.dumps({"kernels": [entry]}))
+        f"invalid path {bad_r['wall_s']:.3f} s; many-key mixed "
+        f"{mixed_r['mixed']['ops_per_s']:.1f} ops/s, all-valid "
+        f"{mixed_r['all_valid']['ops_per_s']:.1f} ops/s")
+    print(json.dumps({"kernels": [entry] + more}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name,
+        "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))
     return 0
 

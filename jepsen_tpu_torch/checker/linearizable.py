@@ -6,10 +6,17 @@
                  label, kept so results compare like for like)
   "competition"  the same, with no budget on the exact settling pass
   "wgl"/"event"  the exact CPU engines as asked
+  "settle"       the many-key cohort's entry (parallel/independent.py):
+                 refutation screen, then the exact CPU engine — the
+                 device tiers already had their shot
 
-The port of `jepsen_tpu/checker/linearizable.py` for models with a
-packed form; streaming sessions, the plan executor and the host-model
-search wait for later slices.
+Models with no packed form, histories that do not pack (an
+indeterminate dequeue) and histories the model's `validate_packed`
+refuses go to the host-model search ("wgl-host",
+"wgl-host-unpackable").
+
+The port of `jepsen_tpu/checker/linearizable.py`; streaming sessions
+and the plan executor wait for later slices.
 """
 
 from __future__ import annotations
@@ -24,19 +31,20 @@ from ..history.core import History
 from ..history.packed import pack_history
 from ..models.base import Model, PackedModel
 from ..ops import degrade
+from .core import Checker
 from .refute import check_refute
-from .wgl_cpu import WGLResult, check_wgl_cpu
+from .wgl_cpu import WGLResult, check_wgl_cpu, check_wgl_host_model
 from .wgl_event import check_wgl_event
 
 #: Budget for the exact settling pass when the device search returns
 #: unknown and the checker has no configured time limit.
 DEFAULT_SETTLE_BUDGET_S = 120.0
 
-_CPU_ALGORITHMS = ("wgl", "linear", "cpu", "event")
+CPU_ALGORITHMS = ("wgl", "linear", "cpu", "event")
 _DEVICE_ALGORITHMS = ("wgl-tpu", "competition")
 
 
-class Linearizable:
+class Linearizable(Checker):
     def __init__(
         self,
         model: Optional[Model] = None,
@@ -49,7 +57,7 @@ class Linearizable:
         max_configs: int = 5_000_000,
         device: Union[str, torch.device, None] = "cuda",
     ):
-        if algorithm not in _CPU_ALGORITHMS + _DEVICE_ALGORITHMS:
+        if algorithm not in CPU_ALGORITHMS + _DEVICE_ALGORITHMS + ("settle",):
             raise ValueError(f"unknown linearizability algorithm {algorithm!r}")
         self.model = model
         self.algorithm = algorithm
@@ -68,18 +76,55 @@ class Linearizable:
         model = self.model or (test or {}).get("model")
         if model is None:
             raise ValueError("linearizable checker needs a model")
-        pm = model.packed()
-        packed = pack_history(history, pm.encode)
         # Record every degradation step taken while checking, so the
         # result shows the path taken to the verdict.
         with degrade.capture() as steps:
-            if self.algorithm in _CPU_ALGORITHMS:
-                res, engine = self._cpu_exact(packed, pm, self.algorithm)
-                out = self._render(res, packed, engine, pm)
-            else:
-                out = self._device_first(packed, pm, dev)
+            out = self._check(history, model, dev)
         if steps:
             out["degradations"] = steps
+        return out
+
+    def _check(self, history: History, model: Model,
+               dev: torch.device) -> dict:
+        try:
+            pm = model.packed()
+        except NotImplementedError:
+            return self._host_fallback(history, model, "wgl-host")
+        try:
+            packed = pack_history(history, pm.encode)
+        except ValueError:
+            # Ops the packed form cannot encode soundly (e.g. an
+            # indeterminate dequeue): host-model search.
+            return self._host_fallback(history, model, "wgl-host-unpackable")
+        if pm.validate_packed is not None:
+            reason = pm.validate_packed(packed)
+            if reason is not None:
+                return self._host_fallback(history, model,
+                                           "wgl-host-unpackable", reason)
+        if self.algorithm in CPU_ALGORITHMS:
+            res, engine = self._cpu_exact(packed, pm, self.algorithm)
+            return self._render(res, packed, engine, pm)
+        if self.algorithm == "settle":
+            t0 = time.monotonic()
+            ref = check_refute(packed, pm, time_limit_s=self.time_limit_s)
+            if ref is not None:
+                return self._render(ref, packed, "refute-screen", pm)
+            remaining = None
+            if self.time_limit_s is not None:
+                remaining = max(
+                    1.0, self.time_limit_s - (time.monotonic() - t0))
+            res, engine = self._cpu_exact(packed, pm, time_limit_s=remaining)
+            return self._render(res, packed, engine, pm)
+        return self._device_first(packed, pm, dev)
+
+    def _host_fallback(self, history: History, model: Model, label: str,
+                       reason: Optional[str] = None) -> dict:
+        res = check_wgl_host_model(history, model,
+                                   max_configs=self.max_configs,
+                                   time_limit_s=self.time_limit_s)
+        out = self._render(res, None, label, None)
+        if reason is not None:
+            out["packed-fallback-reason"] = reason
         return out
 
     def _device_first(self, packed, pm: PackedModel, dev: torch.device) -> dict:
@@ -168,7 +213,7 @@ class Linearizable:
                              time_limit_s=limit), "wgl"
 
     def _render(self, res: WGLResult, packed, algorithm: str,
-                pm: PackedModel) -> dict:
+                pm: Optional[PackedModel]) -> dict:
         out = {
             "valid": res.valid,
             "algorithm": algorithm,
@@ -180,7 +225,7 @@ class Linearizable:
         if res.valid in (False, "unknown") and res.final_configs:
             out["final-configs"] = res.final_configs[:10]
         if (res.valid is False and res.final_configs
-                and res.crashed_at is not None):
+                and res.crashed_at is not None and packed is not None):
             a = res.crashed_at
             out["crashed-op"] = {
                 "history-index": int(packed.src_index[a]),

@@ -1,7 +1,8 @@
 """CPU reference Wing–Gong–Lowe linearizability search.
 
-The port's copy of `jepsen_tpu/checker/wgl_cpu.py` (`WGLResult` and
-`check_wgl_cpu`; the host-model search waits for a later slice).  It
+The port's copy of `jepsen_tpu/checker/wgl_cpu.py`: `WGLResult`,
+`check_wgl_cpu` over packed ops, and `check_wgl_host_model` over host
+`Model` values for models or histories with no packed form.  It
 reimplements the core of `knossos.wgl/analysis`, which Jepsen's
 checker.clj:214-233 consumes, from the Wing–Gong / Lowe papers.
 
@@ -221,3 +222,108 @@ def check_wgl_cpu(
     )
 
 
+def check_wgl_host_model(
+    h,
+    model,
+    *,
+    max_configs: int = 5_000_000,
+    time_limit_s: Optional[float] = None,
+) -> WGLResult:
+    """WGL search over host `Model` values (models/base.py) for models
+    with no packed int32 form (unbounded sets) or histories that do not
+    pack (an indeterminate dequeue).  The algorithm of check_wgl_cpu;
+    the state is the (hashable) model value itself, and ops apply with
+    Model.step on the completion (for :ok) or the invocation (for
+    :info)."""
+    from ..history.core import FAIL, INVOKE, OK
+
+    t0 = time.monotonic()
+    # (inv_event, ret_event, op to apply, is_ok) rows from the client
+    # event sequence, as history/packed.pack_history pairs them.
+    client = [o for o in h if o.is_client_op]
+    rows = []
+    pending: dict[Any, tuple[int, Any]] = {}
+    for e, o in enumerate(client):
+        if o.type == INVOKE:
+            prev = pending.get(o.process)
+            if prev is not None:
+                rows.append((prev[0], float("inf"), prev[1], False))
+            pending[o.process] = (e, o)
+        else:
+            if o.process not in pending:
+                continue
+            inv_e, inv_op = pending.pop(o.process)
+            if o.type == FAIL:
+                continue
+            if o.type == OK:
+                rows.append((inv_e, e, o, True))
+            else:  # info
+                rows.append((inv_e, float("inf"), inv_op, False))
+    for inv_e, inv_op in pending.values():
+        rows.append((inv_e, float("inf"), inv_op, False))
+    rows.sort(key=lambda r: r[0])
+
+    n = len(rows)
+    if n == 0:
+        return WGLResult(valid=True, configs_explored=1)
+    inv = [r[0] for r in rows]
+    ret = [r[1] for r in rows]
+    ops = [r[2] for r in rows]
+    ok_mask = 0
+    for i, r in enumerate(rows):
+        if r[3]:
+            ok_mask |= 1 << i
+    if ok_mask == 0:
+        return WGLResult(valid=True, configs_explored=1)
+    full = (1 << n) - 1
+    ret_order = sorted(range(n), key=lambda i: ret[i])
+
+    visited = {(0, model)}
+    stack = [(0, model)]
+    explored = 0
+    while stack:
+        explored += 1
+        if explored > max_configs:
+            return WGLResult(valid=UNKNOWN, configs_explored=explored,
+                             reason="config-limit",
+                             elapsed_s=time.monotonic() - t0)
+        if time_limit_s is not None and not (explored & 0x3FF):
+            if time.monotonic() - t0 > time_limit_s:
+                return WGLResult(valid=UNKNOWN, configs_explored=explored,
+                                 reason="time-limit",
+                                 elapsed_s=time.monotonic() - t0)
+        S, state = stack.pop()
+        m1 = -1
+        m1_ret = None
+        for i in ret_order:
+            if not (S >> i) & 1:
+                m1 = i
+                m1_ret = ret[i]
+                break
+        if m1 < 0:
+            continue
+        candidates = [m1]
+        x = (~S) & full
+        while x:
+            b = x & -x
+            a = b.bit_length() - 1
+            x ^= b
+            if a == m1:
+                continue
+            if inv[a] >= m1_ret:
+                break
+            candidates.append(a)
+        for a in candidates:
+            new_state = state.step(ops[a])
+            if new_state.is_inconsistent:
+                continue
+            S2 = S | (1 << a)
+            if (S2 & ok_mask) == ok_mask:
+                return WGLResult(valid=True, configs_explored=explored,
+                                 elapsed_s=time.monotonic() - t0)
+            key = (S2, new_state)
+            if key not in visited:
+                visited.add(key)
+                stack.append(key)
+    return WGLResult(valid=False, configs_explored=explored,
+                     elapsed_s=time.monotonic() - t0)

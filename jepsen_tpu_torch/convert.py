@@ -5,7 +5,9 @@ columns of a `PackedOps` and the interner's value list that gives
 their codes meaning.  These functions move them between the JAX
 package and the port as plain numpy arrays and lists, so the port
 never imports the JAX package's types.  The parity tests use them to
-feed identical packed input to both packages.
+feed identical packed input to both packages: one history, a list of
+per-key histories (`packs_across`), or the batched BFS's padded table
+(`batched_to_arrays`, `batched_from_arrays`).
 """
 
 from __future__ import annotations
@@ -16,6 +18,10 @@ import numpy as np
 
 from .history.packed import PACKED_COLUMNS, PackedOps
 from .models.base import PackedModel
+from .ops.wgl_batched import BatchedPack
+
+#: The array fields of a `BatchedPack`, as both packages name them.
+BATCHED_FIELDS = ("ret", "inv", "f", "a0", "a1", "okv", "n_ops")
 
 
 def packed_from_arrays(arrays: Mapping[str, Any]) -> PackedOps:
@@ -38,6 +44,33 @@ def packed_to_arrays(p: Any) -> dict[str, np.ndarray]:
     `PackedOps` — anything with the column attributes) as numpy
     arrays."""
     return {name: np.asarray(getattr(p, name)) for name, _ in PACKED_COLUMNS}
+
+
+def packs_across(packs: Sequence[Any]) -> list[PackedOps]:
+    """Port `PackedOps` for a list of packed histories of either package
+    (the many-key path's per-key packs)."""
+    return [packed_from_arrays(packed_to_arrays(p)) for p in packs]
+
+
+def batched_to_arrays(bp: Any) -> dict[str, np.ndarray]:
+    """The arrays of a batched pack (the port's or the JAX package's
+    `BatchedPack`) as numpy arrays."""
+    return {name: np.asarray(getattr(bp, name)) for name in BATCHED_FIELDS}
+
+
+def batched_from_arrays(arrays: Mapping[str, Any]) -> BatchedPack:
+    """A port `BatchedPack` from its arrays; the (K, N) tables must
+    agree in shape and n_ops must be (K,)."""
+    bp = BatchedPack(**{name: np.ascontiguousarray(np.asarray(arrays[name]))
+                        for name in BATCHED_FIELDS})
+    for name in BATCHED_FIELDS[:-1]:
+        if getattr(bp, name).shape != bp.ret.shape:
+            raise ValueError(f"batched {name}: shape "
+                             f"{getattr(bp, name).shape} != {bp.ret.shape}")
+    if bp.n_ops.shape != (bp.K,):
+        raise ValueError(f"batched n_ops: shape {bp.n_ops.shape} != "
+                         f"({bp.K},)")
+    return bp
 
 
 def adopt_values(pm: PackedModel, values: Sequence[Any]) -> None:

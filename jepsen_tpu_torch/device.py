@@ -8,12 +8,14 @@ card cannot silently measure the CPU.
 `host` is the one place device values come back to Python in the
 search loops; it counts the reads that had to wait for the card
 (`counters["host_syncs"]`), so a run can report what its host-driven
-loops cost.  `exact_float32` pins full-precision float32 products
-around the search's dedup hashes.
+loops cost.  `count` adds to the counters under a lock: the many-key
+checker runs searches from worker threads.  `exact_float32` pins
+full-precision float32 products around the search's dedup hashes.
 """
 
 from __future__ import annotations
 
+import threading
 from collections import Counter
 from contextlib import contextmanager
 from typing import Any, Iterator, Union
@@ -22,16 +24,29 @@ import torch
 
 #: Event counts of the host-driven loops: "host_syncs" (device reads
 #: that waited for the card), "heavy_rounds" (witness chain searches),
-#: "bfs_levels" (frontier BFS levels).  Callers reset by `.clear()`.
+#: "bfs_levels" (frontier and batched BFS levels), and the many-key
+#: path's "stream_passes", "stream_restarts" and "stream_keys_proven".
+#: Callers reset by `.clear()`.
 counters: Counter = Counter()
+_counters_lock = threading.Lock()
+
+
+def count(name: str, n: int = 1) -> None:
+    """Adds `n` to `counters[name]`."""
+    with _counters_lock:
+        counters[name] += n
+
+
+class DeviceUnavailable(RuntimeError):
+    """CUDA was asked for and torch sees no CUDA device."""
 
 
 def resolve(device: Union[str, torch.device, None] = "cuda") -> torch.device:
-    """The torch.device for `device`; raises when CUDA is asked for but
-    torch sees no CUDA device."""
+    """The torch.device for `device`; raises DeviceUnavailable when CUDA
+    is asked for but torch sees no CUDA device."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
+        raise DeviceUnavailable(
             "CUDA device requested but torch.cuda.is_available() is False; "
             "pass device='cpu' to run on the CPU"
         )
@@ -59,5 +74,5 @@ def host(t: torch.Tensor) -> Any:
     """`t` as Python scalars (`.tolist()`), counting a host sync when
     `t` lives on the card."""
     if t.device.type != "cpu":
-        counters["host_syncs"] += 1
+        count("host_syncs")
     return t.tolist()

@@ -1,11 +1,14 @@
 """Sequential specification models in their packed int32 form.
 
-The port's copy of `jepsen_tpu/models/base.py`.  A checkable model
-compiles itself to a `PackedModel`: an arithmetic transition function
-over int32 state vectors, usable as plain Python (`py_step`, the exact
-CPU engines) and as batched torch code over search frontiers
-(`torch_step`, `torch_step_rows`).  Op payloads are interned to int32
-by the model's encoder (history/packed.py).
+The port's copy of `jepsen_tpu/models/base.py`.  A model is an
+immutable value: `step(op)` returns the next model, or an
+`Inconsistent` saying why the transition is illegal (the host-model
+search, checker/wgl_cpu.py `check_wgl_host_model`, walks these).  A
+checkable model also compiles itself to a `PackedModel`: an arithmetic
+transition function over int32 state vectors, usable as plain Python
+(`py_step`, the exact CPU engines) and as batched torch code over
+search frontiers (`torch_step`, `torch_step_rows`).  Op payloads are
+interned to int32 by the model's encoder (history/packed.py).
 """
 
 from __future__ import annotations
@@ -13,11 +16,48 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Any, Callable, Optional
 
+from ..history.core import Op
 from ..history.packed import Interner, OpEncoderFn
+
+
+class Inconsistent:
+    """Terminal model state: the op sequence was illegal."""
+
+    __slots__ = ("msg",)
+
+    def __init__(self, msg: str):
+        self.msg = msg
+
+    def step(self, op: Op) -> "Inconsistent":
+        return self
+
+    @property
+    def is_inconsistent(self) -> bool:
+        return True
+
+    def __repr__(self) -> str:
+        return f"Inconsistent({self.msg!r})"
+
+    def __eq__(self, other: object) -> bool:
+        return isinstance(other, Inconsistent) and other.msg == self.msg
+
+    def __hash__(self) -> int:
+        return hash(("Inconsistent", self.msg))
+
+
+def inconsistent(msg: str) -> Inconsistent:
+    return Inconsistent(msg)
 
 
 class Model:
     """Base sequential datatype model (knossos.model/Model)."""
+
+    @property
+    def is_inconsistent(self) -> bool:
+        return False
+
+    def step(self, op: Op) -> "Model | Inconsistent":
+        raise NotImplementedError
 
     def packed(self) -> "PackedModel":
         """The packed form of this model, memoized per instance so one
@@ -54,6 +94,12 @@ class PackedModel:
       witness sweep (ops/kernels.py), or None when the sweep kernel
       has no step for this model: its witness then runs only on CPU
       tensors, and a sweep on the card raises.
+    - `stream`: the model also knows the stream's RESET op
+      (ops/wgl_stream.py `stream_model`): the sweep kernel then runs
+      its stream instantiation, which takes the initial state.
+    - `validate_packed(packed) -> None | reason`: an optional soundness
+      gate; a reason (e.g. a bounded queue whose capacity the history
+      could exceed) sends the checker to the host-model search.
     - `interner`: maps packed value codes back to real values.
     """
 
@@ -66,6 +112,8 @@ class PackedModel:
     torch_step_rows: Callable[..., Any]
     interner: Interner
     kernel_model: Optional[int] = None
+    stream: bool = False
+    validate_packed: Optional[Callable[..., Optional[str]]] = None
     #: optional pretty-printer for a packed op row
     describe_op: Optional[Callable[[int, int, int], str]] = None
     #: optional columnar facets for the refutation screens

@@ -7,8 +7,9 @@ as "the device ran out, not the search" — now including CUDA's
 out-of-memory errors — and `record` appends to the active capture so a
 checker can put the ladder's path in its result.  A kernel that fails
 to build or launch is not a resource error, even when CUDA's message
-says "out of memory": it raises (a launch as `KernelLaunchError`) and
-fails the run.
+says "out of memory": it raises (`KernelBuildError`,
+`KernelLaunchError`) and fails the run.  `is_device_fault` names the
+errors that no layer may turn into a verdict.
 """
 
 from __future__ import annotations
@@ -18,7 +19,8 @@ from typing import Any, Optional
 
 import torch
 
-from .kernels import KernelLaunchError
+from ..device import DeviceUnavailable
+from .kernels import KernelBuildError, KernelLaunchError
 
 #: Message fragments that mean "the device gave out", as opposed to a
 #: bug in the search itself, matched case-insensitively.
@@ -43,6 +45,18 @@ def is_resource_error(e: BaseException) -> bool:
         return False
     msg = f"{type(e).__name__}: {e}".lower()
     return any(m in msg for m in _RESOURCE_MARKERS)
+
+
+def is_device_fault(e: BaseException) -> bool:
+    """True for a failure of the card or of a kernel — a kernel that did
+    not build or launch, CUDA asked for and missing, or a CUDA error
+    that is not a resource error.  The checkers re-raise these where
+    the reference turns an exception into an "unknown" verdict."""
+    if isinstance(e, (KernelBuildError, KernelLaunchError,
+                      DeviceUnavailable)):
+        return True
+    return (isinstance(e, RuntimeError) and "CUDA error" in str(e)
+            and not is_resource_error(e))
 
 
 _tls = threading.local()

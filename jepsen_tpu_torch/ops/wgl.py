@@ -240,7 +240,7 @@ def _run_block(member, states, alive, iters: int, tables, B: int,
         alive = torch.arange(B, device=dev) < n_keep
         acc_h, inc_h, n_keep_h = _device.host(
             torch.stack([acc, overflow | (n_uniq > B), n_keep]))
-        _device.counters["bfs_levels"] += 1
+        _device.count("bfs_levels")
         it += 1
         explored += n_keep_h
         accepted = accepted or bool(acc_h)

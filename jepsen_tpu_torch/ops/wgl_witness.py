@@ -75,6 +75,9 @@ MAX_WINDOW = 32768
 #: Beams up to this width fit the sweep kernel's one-word member bits.
 MAX_KERNEL_BEAM = 32
 
+#: The widest model state the sweep kernel is compiled for.
+MAX_KERNEL_STATE = 32
+
 
 def _state_hash_vec(sw: int, seed: int = 0xA11CE) -> np.ndarray:
     rng = np.random.default_rng(seed)
@@ -82,7 +85,8 @@ def _state_hash_vec(sw: int, seed: int = 0xA11CE) -> np.ndarray:
 
 
 def _plan_blocks(packed: PackedOps, bars_per_block: int,
-                 info_window: Optional[int] = None):
+                 info_window: Optional[int] = None,
+                 rank_override: Optional[np.ndarray] = None):
     """Host-side plan: barrier order and per-block active windows (the
     reference's planner, copied).
 
@@ -94,6 +98,11 @@ def _plan_blocks(packed: PackedOps, bars_per_block: int,
     entrants are a contiguous index range, and its leavers are the
     barriers that passed in the previous block plus the oldest info
     rows beyond the bound.
+
+    `rank_override` (n,) gives non-barrier rows a synthetic barrier
+    rank (-1: none).  Once that rank passes, such a row is treated like
+    a retired barrier: implied membership, no helper candidacy, gone
+    from later windows.  Barrier rows keep their real ranks.
 
     Returns (bars, bar_rank, inv32, ret32, blocks, any_dropped).
     Raises OverflowError when an event index is >= int32 INF: the int32
@@ -115,6 +124,9 @@ def _plan_blocks(packed: PackedOps, bars_per_block: int,
     bars = ok_rows[np.argsort(ret32[ok_rows], kind="stable")]
     bar_rank = np.full(packed.n, NO_BAR, dtype=np.int64)
     bar_rank[bars] = np.arange(len(bars))
+    if rank_override is not None:
+        ov = (rank_override >= 0) & (status != ST_OK)
+        bar_rank[ov] = rank_override[ov]
     is_info = status != ST_OK
     blocks = []
     any_dropped = False
@@ -201,27 +213,36 @@ def sweep_plain(start_k: int, bars: torch.Tensor, member: torch.Tensor,
 
 
 def sweep(pm: PackedModel, start_k: int, bars: torch.Tensor,
-          member: torch.Tensor, states: torch.Tensor, alive: torch.Tensor):
+          member: torch.Tensor, states: torch.Tensor, alive: torch.Tensor,
+          init: Optional[torch.Tensor] = None):
     """The barrier sweep (see `sweep_plain` for the contract).
 
     CPU tensors take the plain version.  CUDA tensors go to the
     csrc/witness_sweep.cu kernel as they are (no packing, transpose or
     cast) or raise: a ValueError for a model with no device step
-    (`pm.kernel_model` None) or a beam wider than one member word,
-    KernelLaunchError for a failed launch or a kernel that reports a
-    fault.  Reading the death barrier back is the call's one host
-    sync."""
+    (`pm.kernel_model` None), a state wider than the kernel's 32 words
+    or a beam wider than one member word, KernelLaunchError for a
+    failed launch or a kernel that reports a fault.  A stream model
+    (`pm.stream`) needs `init`, its initial state as a (SW,) int32
+    tensor on the card, and runs the kernel's stream instantiation.
+    Reading the death barrier back is the call's one host sync."""
     if bars.device.type == "cpu":
         return sweep_plain(start_k, bars, member, states, alive,
                            pm.torch_step_rows)
     if pm.kernel_model is None:
         raise ValueError(
             f"model {pm.name!r} has no device step in the sweep kernel")
+    if pm.state_width > MAX_KERNEL_STATE:
+        raise ValueError(f"model {pm.name!r}: state width "
+                         f"{pm.state_width} > {MAX_KERNEL_STATE}")
     B = member.shape[1]
     if B > MAX_KERNEL_BEAM:
         raise ValueError(f"beam {B} does not fit one 32-bit member word")
+    if pm.stream and init is None:
+        raise ValueError(f"stream model {pm.name!r} needs its initial state")
     s2, al2, death = kernels.witness_sweep(
-        pm.kernel_model, start_k, bars, member, states, alive)
+        pm.kernel_model, start_k, bars, member, states, alive,
+        init if pm.stream else None)
     d = _device.host(death)[0]
     if d < 0:
         raise kernels.KernelLaunchError(
@@ -235,8 +256,10 @@ class _Block:
     reference's `run_block` / `heavy`, as host-driven loops)."""
 
     def __init__(self, pm: PackedModel, tab: torch.Tensor, B: int,
-                 compact: int, hv: torch.Tensor):
+                 compact: int, hv: torch.Tensor,
+                 init: Optional[torch.Tensor]):
         self.pm = pm
+        self.init = init
         # tab (5, W): inv, f, a0, a1, bar_rank of the window rows.
         self.inv_w, self.f_w, self.a0_w, self.a1_w, self.rank_w = tab
         self.W = tab.shape[1]
@@ -253,7 +276,8 @@ class _Block:
         K = bars_h.shape[1]
         k = 0
         while k < K:
-            s2, al2, dk = sweep(self.pm, k, bars_d, member, states, alive)
+            s2, al2, dk = sweep(self.pm, k, bars_d, member, states, alive,
+                                self.init)
             if dk >= K:
                 return member, s2, al2, False, NO_BAR
             a, r, _, bf, ba0, ba1 = (int(x) for x in bars_h[:, dk])
@@ -268,7 +292,7 @@ class _Block:
         """Chain search at one barrier: direct -> targeted h·a ->
         expand-any, bounded by CHAIN_DEPTH rounds.  Two host syncs per
         round."""
-        _device.counters["heavy_rounds"] += 1
+        _device.count("heavy_rounds")
         pm = self.pm
         # Membership of ops whose barrier already passed is implied.
         implied = self.rank_w < k_rank
@@ -371,6 +395,7 @@ def check_wgl_witness(
     info_window: Optional[int] = NARROW_INFO_WINDOW,
     width_hint: int = 0,
     time_limit_s: Optional[float] = None,
+    rank_override: Optional[np.ndarray] = None,
     out_info: Optional[dict] = None,
     device: Union[str, torch.device, None] = "cuda",
 ) -> Optional[WGLResult]:
@@ -383,9 +408,13 @@ def check_wgl_witness(
 
     `width_hint` forces at least that window width.  The chain rounds'
     compact candidate tile is max(64, min(W // 2, info_window)) rows
-    wide (W // 8 without a window bound).  `out_info`, when given, receives "died_at_rank": the global rank of
-    the first barrier the chain search could not linearize (None when
-    the death was not localized)."""
+    wide (W // 8 without a window bound).  `rank_override` gives
+    non-barrier rows a synthetic barrier rank (see `_plan_blocks`): the
+    many-key stream (ops/wgl_stream.py) fences each key's indeterminate
+    ops at its RESET with it.  `out_info`, when given, receives
+    "died_at_rank": the global rank of the first barrier the chain
+    search could not linearize (None when the death was not
+    localized)."""
     dev = _device.resolve(device)
     t0 = time.monotonic()
     n = packed.n
@@ -394,7 +423,7 @@ def check_wgl_witness(
                          elapsed_s=time.monotonic() - t0)
     try:
         bars, bar_rank, inv32, ret32, blocks, _ = _plan_blocks(
-            packed, BARS_PER_BLOCK, info_window)
+            packed, BARS_PER_BLOCK, info_window, rank_override)
     except OverflowError:
         return None  # the witness tier can't represent it: escalate
     widest = max(len(a) for _, _, a in blocks)
@@ -408,6 +437,8 @@ def check_wgl_witness(
     compact = max(64, min(
         W // 2, info_window if info_window is not None else W // 8))
     hv = torch.from_numpy(_state_hash_vec(SW)).to(dev)
+    init = (torch.tensor(pm.init_state, dtype=torch.int32, device=dev)
+            if pm.stream else None)
 
     member = torch.zeros((W, B), dtype=torch.bool, device=dev)
     states = torch.tensor(pm.init_state, dtype=torch.int32,
@@ -456,7 +487,7 @@ def check_wgl_witness(
         for bi, (k0, _, _) in enumerate(chunk):
             # Re-lay the member window onto this block's rows.
             member = member[perm_d[bi]] & present_d[bi][:, None]
-            blk = _Block(pm, tab_d[bi], B, compact, hv)
+            blk = _Block(pm, tab_d[bi], B, compact, hv, init)
             member, states, alive, failed, died = blk.run(
                 member, states, alive, bars_d[bi], bars_np[bi], k0)
             if failed:

@@ -7,7 +7,8 @@ with a card and no JAX:
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_kernels_cuda.py
 
 The `cuda`-marked tests skip without a card: a CUDA kernel has no CPU
-mode.  `sweep_tables` is shared with tests/test_torch_witness_sweep.py.
+mode.  `sweep_tables` and `model_tables` are shared with
+tests/test_torch_witness_sweep.py.
 """
 
 import dataclasses
@@ -16,8 +17,10 @@ import numpy as np
 import pytest
 import torch
 
-from jepsen_tpu_torch.models import cas_register
+from jepsen_tpu_torch.models import (cas_register, fifo_queue, multi_register,
+                                     mutex, unordered_queue)
 from jepsen_tpu_torch.ops import kernels
+from jepsen_tpu_torch.ops.wgl_stream import F_RESET, stream_model
 from jepsen_tpu_torch.ops.wgl_witness import sweep, sweep_plain
 
 K, W, SW = 64, 16, 1
@@ -99,6 +102,144 @@ CASES = ([(B, start, kind)
 def case_tables(B, start_k, kind):
     """`sweep_tables` for one entry of CASES, with its seed."""
     return sweep_tables(B, kind, seed=B * 100 + start_k, start_k=start_k)
+
+
+# ---------------------------------------------------------------------------
+# Every model's instantiation, plain and stream.
+
+#: The sweep kernel's models as the tests name them; "+stream" selects
+#: the stream model (ops/wgl_stream.py), which knows RESET.
+MODEL_FACTORIES = {
+    "register": lambda: cas_register(),
+    "mutex": lambda: mutex(),
+    "multi3": lambda: multi_register({f"r{i}": 0 for i in range(3)}),
+    "multi5": lambda: multi_register({f"r{i}": 0 for i in range(5)}),
+    "fifo": lambda: fifo_queue(),
+    "unordered": lambda: unordered_queue(),
+}
+
+MODEL_NAMES = [m + s for m in MODEL_FACTORIES for s in ("", "+stream")]
+
+_pms = {}
+
+
+def model_pm(name):
+    """The packed model for a MODEL_NAMES entry (one per name)."""
+    pm = _pms.get(name)
+    if pm is None:
+        base, _, stream = name.partition("+")
+        pm = MODEL_FACTORIES[base]().packed()
+        if stream:
+            pm = stream_model(pm)
+        _pms[name] = pm
+    return pm
+
+
+def _random_ops(base, rng, n, sw):
+    """(f, a0, a1) rows of `n` random ops for the model: mostly legal
+    shapes, with codes a model never packs (f = 2 for the mutex, a0
+    outside the registers, a0 = 0 for the queues) mixed in."""
+    if base == "register":
+        return (rng.integers(0, 3, n), rng.integers(0, 4, n),
+                rng.integers(0, 4, n))
+    if base == "mutex":
+        return rng.choice([0, 1, 1, 0, 2], n), np.zeros(n), np.zeros(n)
+    if base.startswith("multi"):
+        return (rng.integers(0, 2, n), rng.choice(
+            list(range(sw)) * 3 + [-1, sw, 7], n), rng.integers(0, 4, n))
+    return (rng.choice([0, 0, 1], n), rng.integers(0, 7, n), np.zeros(n))
+
+
+def _random_states(base, rng, B, sw):
+    if base in ("register", "mutex"):
+        return rng.integers(0, 2 if base == "mutex" else 4, (B, sw))
+    if base.startswith("multi"):
+        return rng.integers(0, 4, (B, sw))
+    states = np.zeros((B, sw), dtype=np.int64)
+    for b in range(B):
+        # Lanes 0 and 1: an empty and a full queue; others in between.
+        n = (0, sw)[b] if b < 2 else int(rng.integers(0, sw + 1))
+        vals = rng.integers(1, 7, n)
+        if base == "fifo":
+            states[b, :n] = vals
+        else:
+            states[b, rng.permutation(sw)[:n]] = vals
+    return states
+
+
+#: An op no lane survives, for a planted death: a read of a value no
+#: lane holds; a dequeue of one; for the mutex an acquire of a held
+#: lock (planted twice in a row: the first leaves every survivor
+#: holding it).
+_KILLERS = {"register": (0, 77, 0), "mutex": (0, 0, 0),
+            "multi": (0, 0, 77), "fifo": (1, 99, 0),
+            "unordered": (1, 99, 0)}
+
+
+def model_tables(name, B, kind, seed, start_k=0):
+    """Random sweep inputs for one model (bars (6, K), member (W, B),
+    states (B, SW), alive (B,), as numpy): the kinds of `sweep_tables`,
+    with the model's ops and states, and for a "+stream" model a RESET
+    barrier every 7th."""
+    base = name.partition("+")[0]
+    pm = model_pm(name)
+    sw = pm.state_width
+    rng = np.random.default_rng(seed)
+    member = rng.random((W, B)) < 0.3
+    states = _random_states(base, rng, B, sw).astype(np.int32)
+    alive = rng.random(B) < 0.7
+    alive[0] = True
+    bars = np.zeros((6, K), dtype=np.int32)
+    bars[0] = rng.integers(0, W - 1, size=K)
+    bars[1] = np.arange(K)
+    bars[2] = 1
+    bars[3], bars[4], bars[5] = _random_ops(base, rng, K, sw)
+    if pm.stream:
+        bars[3, 3::7] = F_RESET
+    member[W - 1] = False
+    if B == 32:
+        member[: W - 1, 31] = rng.random(W - 1) < 0.8  # bit 31 in use
+    if kind != "death":
+        member[: W - 1, 0] = True  # lane 0 passes every real barrier
+    if kind == "clean":
+        member[W - 1, 0] = True
+    if kind.startswith("dead+"):
+        planted = start_k + int(kind[len("dead+"):])
+    else:
+        planted = K // 2 if kind == "death" else 3 * K // 4
+    killer = _KILLERS["multi" if base.startswith("multi") else base]
+    for k in ((planted - 1, planted) if base == "mutex" else (planted,)):
+        if k >= 0:
+            bars[0, k] = W - 1  # no lane has this member bit
+            bars[3:, k] = killer
+    if kind in ("padding", "no-alive"):
+        bars[2, K // 4:] = 0
+    if kind == "no-alive":
+        alive[:] = False
+    return bars, member, states, alive
+
+
+#: (model, B, start, kind) cases of every model at B = 1, 8 and 32,
+#: with the kernel's batch edges: starts 1, 31 and 33, deaths at batch
+#: offsets 0 and 31 and at the start of the second batch.
+MODEL_CASES = [(m, B, start, kind) for m in MODEL_NAMES for B in (1, 8, 32)
+               for start, kind in ((0, "death"), (0, "clean"),
+                                   (33, "padding"), (31, "dead+0"),
+                                   (1, "dead+31"), (0, "dead+32"))]
+
+
+def model_case_tables(name, B, start_k, kind):
+    """`model_tables` for one entry of MODEL_CASES, with its seed."""
+    return model_tables(name, B, kind, seed=B * 100 + start_k + len(name),
+                        start_k=start_k)
+
+
+def model_init(name, dev):
+    """The init tensor a stream model's sweep takes, or None."""
+    pm = model_pm(name)
+    if not pm.stream:
+        return None
+    return torch.tensor(pm.init_state, dtype=torch.int32, device=dev)
 
 
 def test_sweep_routes_cpu_tensors_to_plain():
@@ -220,3 +361,55 @@ def test_cuda_kernel_rejects_a_misaligned_member_window():
                           device=dev)[1:].view(member.shape)
     with pytest.raises(ValueError, match="aligned"):
         kernels.witness_sweep(1, 0, bars, shifted, states, alive)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,B,start_k,kind", MODEL_CASES)
+def test_cuda_kernel_matches_plain_every_model(name, B, start_k, kind):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the sweep kernel has no CPU mode")
+    dev = torch.device("cuda")
+    pm = model_pm(name)
+    bars, member, states, alive = (
+        torch.from_numpy(a).to(dev)
+        for a in model_case_tables(name, B, start_k, kind))
+    key = f"witness_sweep[{pm.name}]".replace("cas-register", "register")
+    before = kernels.launches[key]
+    got = sweep(pm, start_k, bars, member, states, alive,
+                model_init(name, dev))
+    want = sweep_plain(start_k, bars, member, states, alive,
+                       pm.torch_step_rows)
+    torch.cuda.synchronize()
+    assert kernels.launches[key] == before + 1
+    assert got[2] == want[2]
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    if kind.startswith("dead+") and not name.startswith("mutex"):
+        assert got[2] == start_k + int(kind[len("dead+"):])
+
+
+def test_kernel_wrapper_checks_model_and_width():
+    """An unknown model id, a width the model is not compiled for, and
+    an init of the wrong shape are refused before any launch."""
+    bars, member, states, alive = (torch.from_numpy(a)
+                                   for a in sweep_tables(8, "clean", 5))
+    before = kernels.launches["witness_sweep"]
+    with pytest.raises(ValueError, match="no device step"):
+        kernels.witness_sweep(9, 0, bars, member, states, alive)
+    with pytest.raises(ValueError, match="state widths"):
+        kernels.witness_sweep(4, 0, bars, member, states, alive)
+    wide = torch.zeros((8, 33), dtype=torch.int32)
+    with pytest.raises(ValueError, match="state widths"):
+        kernels.witness_sweep(3, 0, bars, member, wide, alive)
+    with pytest.raises(ValueError, match="init"):
+        kernels.witness_sweep(1, 0, bars, member, states, alive,
+                              torch.zeros(2, dtype=torch.int32))
+    assert kernels.launches["witness_sweep"] == before
+
+
+def test_sweep_refuses_a_stream_model_without_its_initial_state():
+    pm = model_pm("mutex+stream")
+    bars, member, states, alive = (
+        torch.from_numpy(a).to("meta")
+        for a in model_tables("mutex+stream", 8, "clean", 6))
+    with pytest.raises(ValueError, match="initial state"):
+        sweep(pm, 0, bars, member, states, alive)
