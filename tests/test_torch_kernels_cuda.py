@@ -413,3 +413,72 @@ def test_sweep_refuses_a_stream_model_without_its_initial_state():
         for a in model_tables("mutex+stream", 8, "clean", 6))
     with pytest.raises(ValueError, match="initial state"):
         sweep(pm, 0, bars, member, states, alive)
+
+
+#: The models of the recorded cases: chip_smoke.py's seeded histories,
+#: at a test's size.
+RECORDED_MODELS = ["register", "mutex", "multi5", "fifo", "unordered"]
+
+
+def _recorded_history(name, n_keys, n_ops, bad):
+    """A keyed history of `name` (keys `bad` bad) and its model."""
+    from chip_smoke import (keyed_history, multi_register_ops, mutex_ops,
+                            queue_ops)
+    from jepsen_tpu_torch.history.core import Op, history
+    from jepsen_tpu_torch.parallel import kv
+    from jepsen_tpu_torch.utils.histgen import random_register_history
+
+    def register_ops(n, seed, bad, info=0.05):
+        return [dict(type=o.type, f=o.f, value=o.value, process=o.process)
+                for o in random_register_history(n, procs=4, info_rate=info,
+                                                 seed=seed, bad=bad)]
+
+    gen, kw = {"register": (register_ops, {}), "mutex": (mutex_ops, {}),
+               "multi5": (multi_register_ops, {}),
+               "fifo": (queue_ops, {"procs": 3, "info": 0.0}),
+               "unordered": (queue_ops, {})}[name]
+    h = keyed_history(gen, n_keys, n_ops, bad, Op=Op, kv=kv,
+                      history=history, **kw)
+    return MODEL_FACTORIES[name](), h
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", RECORDED_MODELS)
+def test_cuda_recorded_sweeps_match_plain(name, monkeypatch):
+    """Every sweep a many-key check (stream instantiation) and a single
+    long history (plain instantiation) make on the card equals the plain
+    version on the same inputs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the sweep kernel has no CPU mode")
+    from jepsen_tpu_torch.checker import Linearizable
+    from jepsen_tpu_torch.ops import wgl_witness
+    from jepsen_tpu_torch.parallel import IndependentChecker, subhistories
+
+    real = wgl_witness.sweep
+    calls = []
+
+    def recording(pm, start_k, bars, member, states, alive, init=None):
+        args = tuple(t.clone() for t in (bars, member, states, alive))
+        out = real(pm, start_k, bars, member, states, alive, init)
+        calls.append((pm, start_k, args, out))
+        return out
+
+    monkeypatch.setattr(wgl_witness, "sweep", recording)
+    model, h = _recorded_history(name, 12, 40, {0, 4, 8})
+    res = IndependentChecker(Linearizable(model, time_limit_s=60)).check(
+        {}, h, {})
+    assert res["failure-count"] == 3
+    streamed = len(calls)
+    _, long_h = _recorded_history(name, 1, 400, set())
+    (single,) = subhistories(long_h).values()
+    Linearizable(MODEL_FACTORIES[name](), "wgl-tpu",
+                 time_limit_s=60).check({}, single, {})
+    assert 0 < streamed < len(calls)
+    assert any(pm.stream for pm, *_ in calls)
+    assert any(not pm.stream for pm, *_ in calls)
+    for pm, start_k, args, (s2, al2, d) in calls:
+        want = sweep_plain(start_k, *(t.cpu() for t in args),
+                           pm.torch_step_rows)
+        assert d == want[2]
+        assert torch.equal(s2.cpu(), want[0])
+        assert torch.equal(al2.cpu(), want[1])
