@@ -6,8 +6,8 @@
 Needs one CUDA card and the CUDA toolkit (nvcc): the witness sweep
 kernel is built from jepsen_tpu_torch/csrc/ into build/jepsen_tpu_torch/
 at first use.  Exits non-zero, printing no result, when torch sees no
-CUDA device or the package is missing.  Seven phases, each raising on
-failure, run in the order 1, 2, 5, 6, 1b, 3, 4 (every host-clock and
+CUDA device or the package is missing.  Eight phases, each raising on
+failure, run in the order 1, 2, 5, 6, 7, 1b, 3, 4 (every host-clock and
 CUDA-event timing before the profiler first runs):
 
 1. The sweep kernel against its plain PyTorch version at the bench
@@ -65,6 +65,18 @@ CUDA-event timing before the profiler first runs):
    each one's registers and spills from the build's -Xptxas -v output.
    Also the batched BFS on each model's cohort recorded in phases 5
    and 6: levels, host syncs and wall time; its device time in phase 3.
+7. Online checking (streaming/, monitor/), each sub-phase counted on its
+   own: (7a) the bench history replayed in 24 stable-prefix slices
+   through FrontierCarry equals one check_wgl_witness at the same block
+   knobs (valid, sweep launches, chain rounds); (7b) bench.py
+   run_scale_online: a 2M-op random_register_packed stream in 24
+   slices, warmed on 50k ops, valid, with its verdict lag and
+   lag_fraction; (7c) a producer thread feeds the bench history through
+   a StreamingSession and Linearizable takes the "wgl-online" verdict;
+   (7d) phase 5's history through a keyed session, then
+   IndependentChecker: 30 failures, every verdict the exact CPU
+   engine's, 170 keys online; (7e) RollingChecker over a 200k-op stream
+   with and without discards: equal verdicts, resident rows bounded.
 
 The last lines are the kernels JSON line (one entry per timed
 instantiation), the card's name and power limit from nvidia-smi, and
@@ -1181,6 +1193,326 @@ def phase_batched(torch, recorder: SweepRecorder) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Online checking (phase 7): the frontier carry, the streaming session and
+# the rolling discard.
+
+ONLINE_SLICES = 24  # bench.py run_scale_online's default
+SCALE_OPS, SCALE_WARM_OPS = 2_000_000, 50_000
+ROLLING_OPS = 200_000
+#: The live producers feed this many ops, then pause FEED_PAUSE_S.
+FEED_BURST, FEED_PAUSE_S = 2048, 0.02
+
+
+def counted(torch, dev, fn) -> tuple:
+    """fn() with the kernel launch counts and `device.counters` set to 0
+    just before and read just after -> (result, launches, counters)."""
+    from jepsen_tpu_torch import device as D
+    from jepsen_tpu_torch.ops import kernels
+
+    kernels.launches.clear()
+    D.counters.clear()
+    out = fn()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    return out, dict(kernels.launches), dict(D.counters)
+
+
+def need_launches(what: str, dev, launches: dict, name="witness_sweep"):
+    """On the card, raise unless `name` launched in the run just read."""
+    if dev.type == "cuda" and launches.get(name, 0) <= 0:
+        raise AssertionError(f"{what}: no {name} launch on this path")
+
+
+def prefix(packed, k: int):
+    """The witness-only view of the first k rows of `packed`: with the
+    stable bound s = inv[k] it is a PackedBuilder snapshot (every row has
+    inv < s, every later completion has ret > s), as bench.py
+    run_scale_online replays it."""
+    import numpy as np
+
+    from jepsen_tpu_torch.history.packed import PackedOps
+
+    z = np.zeros(k, dtype=packed.preds.dtype)
+    return PackedOps(inv=packed.inv[:k], ret=packed.ret[:k],
+                     process=packed.process[:k], status=packed.status[:k],
+                     f=packed.f[:k], a0=packed.a0[:k], a1=packed.a1[:k],
+                     src_index=packed.src_index[:k], preds=z, horizon=z)
+
+
+def replay(fr, packed, slices: int = ONLINE_SLICES):
+    """Advances `fr` over `slices` stable prefixes of `packed`, then
+    finalizes -> (verdict, seconds to the last advance, seconds in
+    all)."""
+    n = packed.n
+    t0 = time.perf_counter()
+    step = max(1, n // slices)
+    for k in range(step, n, step):
+        fr.advance(prefix(packed, k), int(packed.inv[k]))
+    t_last = time.perf_counter()
+    valid = fr.finalize(packed)
+    return valid, t_last - t0, time.perf_counter() - t0
+
+
+def feed_live(sess, history) -> float:
+    """A producer thread feeds `history` through `sess.feed` in bursts
+    of FEED_BURST ops with a pause after each, then the caller's thread
+    calls finish() -> seconds the producer took."""
+    import threading
+
+    def produce():
+        for i, op in enumerate(history):
+            sess.feed(op)
+            if i % FEED_BURST == FEED_BURST - 1:
+                time.sleep(FEED_PAUSE_S)
+
+    t0 = time.perf_counter()
+    t = threading.Thread(target=produce, name="producer")
+    t.start()
+    t.join()
+    return time.perf_counter() - t0
+
+
+def online_carry(torch, dev, pm, packed) -> dict:
+    """7a: the bench history in ONLINE_SLICES stable-prefix slices
+    through FrontierCarry, then one check_wgl_witness at the same block
+    knobs on the same pack: both valid, with equal sweep launches and
+    chain rounds."""
+    from jepsen_tpu_torch.ops.wgl_witness import check_wgl_witness
+    from jepsen_tpu_torch.streaming import FrontierCarry
+
+    fr = FrontierCarry(pm, device=dev)
+    (valid, t_adv, t_all), l_on, c_on = counted(
+        torch, dev, lambda: replay(fr, packed))
+    res, l_one, c_one = counted(torch, dev, lambda: check_wgl_witness(
+        packed, pm, bars_per_block=1024, blocks_per_call=8, device=dev))
+    r = {
+        "ops": packed.n, "valid": valid, "one_shot_valid": res and res.valid,
+        "sweep_launches": l_on.get("witness_sweep", 0),
+        "one_shot_sweep_launches": l_one.get("witness_sweep", 0),
+        "heavy_rounds": c_on.get("heavy_rounds", 0),
+        "one_shot_heavy_rounds": c_one.get("heavy_rounds", 0),
+        "host_syncs": c_on.get("host_syncs", 0),
+        "one_shot_host_syncs": c_one.get("host_syncs", 0),
+        "advances": c_on.get("online_advances", 0),
+        "chunks": fr.chunks, "blocks": fr.blocks_done, "window": fr._W,
+        "advance_s": t_adv, "total_s": t_all,
+    }
+    log("phase7a: " + json.dumps(r))
+    need_launches("phase7a", dev, l_on)
+    if not (valid is True and r["one_shot_valid"] is True
+            and r["sweep_launches"] == r["one_shot_sweep_launches"]
+            and r["heavy_rounds"] == r["one_shot_heavy_rounds"]):
+        raise AssertionError("phase7a: the online carry and the one-shot "
+                             "witness differ")
+    return r
+
+
+def online_scale(torch, dev, pm, n_ops: int = SCALE_OPS) -> dict:
+    """7b: bench.py run_scale_online on the port — a random_register_packed
+    stream in ONLINE_SLICES slices, warmed on a 50k-op stream; the
+    verdict lag is the time from the last advance (the last op landed)
+    to the verdict."""
+    from jepsen_tpu_torch.streaming import FrontierCarry
+    from jepsen_tpu_torch.utils.histgen import random_register_packed
+
+    warm = random_register_packed(min(SCALE_WARM_OPS, n_ops),
+                                  procs=BENCH_PROCS, info_rate=BENCH_INFO,
+                                  seed=7, model=pm)
+    FrontierCarry(pm, device=dev).finalize(warm)
+    t0 = time.perf_counter()
+    big = random_register_packed(n_ops, procs=BENCH_PROCS,
+                                 info_rate=BENCH_INFO, seed=BENCH_SEED,
+                                 model=pm)
+    t_gen = time.perf_counter() - t0
+    fr = FrontierCarry(pm, device=dev)
+    (valid, t_adv, t_all), launches, counts = counted(
+        torch, dev, lambda: replay(fr, big))
+    lag = t_all - t_adv
+    r = {
+        "ops": big.n, "valid": valid, "verdict_lag_s": lag,
+        "elapsed_s": t_all, "lag_fraction": lag / t_all,
+        "ops_per_s": big.n / t_all, "generate_s": t_gen,
+        "blocks": fr.blocks_done, "chunks": fr.chunks,
+        "frontier_device_s": fr.device_s, "plan_s": fr.plan_s,
+        "advances": counts.get("online_advances", 0),
+        "sweep_launches": launches.get("witness_sweep", 0),
+        "heavy_rounds": counts.get("heavy_rounds", 0),
+        "host_syncs": counts.get("host_syncs", 0),
+    }
+    log("phase7b: " + json.dumps(r))
+    need_launches("phase7b", dev, launches)
+    if valid is not True:
+        raise AssertionError(f"phase7b: frontier gave {valid} "
+                             f"({fr.dead_reason})")
+    return r
+
+
+def online_live(torch, dev, history) -> dict:
+    """7c: a producer thread feeds the bench history through a
+    StreamingSession; Linearizable then takes the online verdict."""
+    from jepsen_tpu_torch.checker import Linearizable
+    from jepsen_tpu_torch.models import cas_register
+    from jepsen_tpu_torch.streaming import StreamingSession
+
+    def run():
+        sess = StreamingSession(cas_register().packed(), device=dev)
+        feed_s = feed_live(sess, history)
+        stats = sess.finish()
+        res = Linearizable(cas_register(), device=dev).check(
+            {"streaming-session": sess}, history, {})
+        return sess, feed_s, stats, res
+
+    (sess, feed_s, stats, res), launches, counts = counted(torch, dev, run)
+    fr = stats.get("frontier", {})
+    r = {
+        "events": len(history), "feed_s": feed_s,
+        "verdict_lag_s": stats["verdict-lag-s"],
+        "lag_fraction": stats["verdict-lag-s"] / (
+            feed_s + stats["verdict-lag-s"]),
+        "swaps": stats["swaps"], "valid": res["valid"],
+        "algorithm": res["algorithm"], "broken": stats.get("broken"),
+        "frontier_blocks": fr.get("blocks"), "frontier_chunks": fr.get("chunks"),
+        "frontier_device_s": fr.get("device-s"), "plan_s": fr.get("plan-s"),
+        "advances": counts.get("online_advances", 0),
+        "consumed": counts.get("online_consumed", 0),
+        "sweep_launches": launches.get("witness_sweep", 0),
+        "heavy_rounds": counts.get("heavy_rounds", 0),
+        "host_syncs": counts.get("host_syncs", 0),
+    }
+    log("phase7c: " + json.dumps(r))
+    need_launches("phase7c", dev, launches)
+    if sess.broken or res["valid"] is not True or \
+            res["algorithm"] != "wgl-online":
+        raise AssertionError(f"phase7c: session broken {sess.broken}, "
+                             f"verdict {res}")
+    return r
+
+
+def online_keyed(torch, dev) -> dict:
+    """7d: phase 5's run_mixed history fed to a keyed session by a
+    producer thread, then IndependentChecker: 30 failures, every per-key
+    verdict the exact CPU engine's, the 170 valid keys taken online.
+
+    The session ingests the history as one batch (its swap threshold is
+    past the history's length and its swap interval an hour).  With batches cut by timing, a batch
+    holding more bad keys than half its keys would reach the stream's
+    restart cap, and its valid keys left undecided are not retried at
+    finish (their pack is unchanged: the reference's rule), so the count
+    of keys taken online would vary from run to run."""
+    from jepsen_tpu_torch.checker import Linearizable
+    from jepsen_tpu_torch.models import cas_register
+    from jepsen_tpu_torch.parallel import IndependentChecker, \
+        clear_settle_memo
+    from jepsen_tpu_torch.streaming import StreamingSession
+
+    h = mixed_history(MIXED_KEYS, MIXED_BAD)
+    clear_settle_memo()
+
+    def session():
+        sess = StreamingSession(cas_register().packed(),
+                                swap_ops=len(h) + 1, swap_interval_s=3600.0,
+                                device=dev)
+        feed_s = feed_live(sess, h)
+        return sess, feed_s, sess.finish()
+
+    (sess, feed_s, stats), l_sess, c_sess = counted(torch, dev, session)
+    chk = IndependentChecker(Linearizable(cas_register(), time_limit_s=120,
+                                          device=dev), device=dev)
+    res, l_chk, c_chk = counted(torch, dev, lambda: chk.check(
+        {"streaming-session": sess}, h, {}))
+    online = sum(1 for v in res["results"].values()
+                 if v.get("algorithm") == "wgl-online")
+    r = {
+        "events": len(h), "feed_s": feed_s,
+        "verdict_lag_s": stats["verdict-lag-s"], "swaps": stats["swaps"],
+        "proven_online": stats["proven-online"],
+        "rechecks": stats["rechecks"], "valid": res["valid"],
+        "failure_count": res["failure-count"], "keys_online": online,
+        "tiers": res["tiers"],
+        "session_launches": {k: v for k, v in l_sess.items()
+                             if k.startswith("witness_sweep")},
+        "session_counts": c_sess,
+        "check_launches": {k: v for k, v in l_chk.items()
+                           if k.startswith("witness_sweep")},
+        "check_host_syncs": c_chk.get("host_syncs", 0),
+    }
+    log("phase7d: " + json.dumps(r))
+    need_launches("phase7d", dev, l_sess, "witness_sweep[register+stream]")
+    if (sess.broken or res["valid"] is not False
+            or res["failure-count"] != MIXED_BAD
+            or online != MIXED_KEYS - MIXED_BAD):
+        raise AssertionError(
+            f"phase7d: broken {sess.broken}, valid {res['valid']}, "
+            f"{res['failure-count']} failures, {online} keys online; want "
+            f"False, {MIXED_BAD}, {MIXED_KEYS - MIXED_BAD}")
+    check_exact("phase7d", cas_register, h, res)
+    return r
+
+
+def online_rolling(torch, dev, n_ops: int = ROLLING_OPS) -> dict:
+    """7e: RollingChecker over one key's n_ops-op stream (no :info ops,
+    so stable prefixes can go), with and without discards: equal
+    verdicts; with discards at least half the rows go and the resident
+    rows never reach a quarter of the stream's (they rise and fall with
+    the discard points, not with the stream's length)."""
+    from jepsen_tpu_torch.models import cas_register
+    from jepsen_tpu_torch.monitor import RollingChecker
+    from jepsen_tpu_torch.utils.histgen import random_register_history
+
+    stream = random_register_history(n_ops, procs=8, info_rate=0.0,
+                                     seed=BENCH_SEED)
+    pm = cas_register().packed()
+    out = {}
+    for discard in (True, False):
+        def run():
+            rc = RollingChecker(pm, discard=discard, device=dev)
+            peak = 0
+            t0 = time.perf_counter()
+            for i, op in enumerate(stream):
+                rc.feed(0, op)
+                if i % 1024 == 0:
+                    peak = max(peak, rc.resident_rows())
+            status = rc.status()
+            return rc.finish(), status, peak, time.perf_counter() - t0
+
+        (verdicts, status, peak, wall), launches, counts = counted(
+            torch, dev, run)
+        need_launches(f"phase7e discard={discard}", dev, launches)
+        out["discard" if discard else "keep"] = {
+            "verdicts": verdicts, "max_resident_rows": peak,
+            "rows": status["discarded-rows"] + status["resident-rows"],
+            "discarded_rows": status["discarded-rows"],
+            "blocks": status["blocks-done"],
+            "epoch_restarts": status["epoch-restarts"], "wall_s": wall,
+            "sweep_launches": launches.get("witness_sweep", 0),
+            "host_syncs": counts.get("host_syncs", 0),
+        }
+    log("phase7e: " + json.dumps(out))
+    d, k = out["discard"], out["keep"]
+    if d["verdicts"] != k["verdicts"] or d["verdicts"] != {0: True}:
+        raise AssertionError(f"phase7e: verdicts {d['verdicts']} with "
+                             f"discards, {k['verdicts']} without")
+    if d["max_resident_rows"] * 4 > d["rows"] or d["discarded_rows"] * 2 < d["rows"]:
+        raise AssertionError(f"phase7e: resident rows not bounded: "
+                             f"{d['max_resident_rows']} of {d['rows']}")
+    return out
+
+
+def phase_online(torch, pm, packed, history, dev=None,
+                 scale_ops: int = SCALE_OPS,
+                 rolling_ops: int = ROLLING_OPS) -> dict:
+    """Phase 7, online checking on `dev` (the card by default)."""
+    dev = torch.device("cuda") if dev is None else torch.device(dev)
+    return {
+        "carry": online_carry(torch, dev, pm, packed),
+        "scale": online_scale(torch, dev, pm, scale_ops),
+        "live": online_live(torch, dev, history),
+        "keyed": online_keyed(torch, dev),
+        "rolling": online_rolling(torch, dev, rolling_ops),
+    }
+
+
 def ptxas_report(build_log: str) -> dict:
     """{"MODEL,SW,NW,stream": {"registers", "spill_stores",
     "spill_loads"}} of each witness_sweep_kernel instantiation, from the
@@ -1286,6 +1618,14 @@ def main() -> int:
     recorder = SweepRecorder()
     mixed_r = phase_mixed(torch, recorder)
     models_r = phase_models(torch, recorder)
+    online_r = phase_online(torch, pm, packed, history)
+    entry["launches_online"] = {
+        "carry": online_r["carry"]["sweep_launches"],
+        "scale": online_r["scale"]["sweep_launches"],
+        "live": online_r["live"]["sweep_launches"],
+        "keyed": online_r["keyed"]["session_launches"],
+        "rolling": online_r["rolling"]["discard"]["sweep_launches"],
+    }
     launches = dict(mixed_r["mixed"]["launches"])
     for r in models_r.values():
         launches.update(r["launches"])
@@ -1333,7 +1673,10 @@ def main() -> int:
     log(f"phase4 done; main path {main_r['ops_per_s']:.1f} ops/s, "
         f"invalid path {bad_r['wall_s']:.3f} s; many-key mixed "
         f"{mixed_r['mixed']['ops_per_s']:.1f} ops/s, all-valid "
-        f"{mixed_r['all_valid']['ops_per_s']:.1f} ops/s")
+        f"{mixed_r['all_valid']['ops_per_s']:.1f} ops/s; online "
+        f"{online_r['scale']['ops']} ops, verdict lag "
+        f"{online_r['scale']['verdict_lag_s']:.3f} s, lag_fraction "
+        f"{online_r['scale']['lag_fraction']:.4f}")
     print(json.dumps({"kernels": [entry] + more}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

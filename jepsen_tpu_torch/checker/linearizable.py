@@ -15,8 +15,13 @@ indeterminate dequeue) and histories the model's `validate_packed`
 refuses go to the host-model search ("wgl-host",
 "wgl-host-unpackable").
 
-The port of `jepsen_tpu/checker/linearizable.py`; streaming sessions
-and the plan executor wait for later slices.
+Before any engine runs, a verdict an online session
+(`test["streaming-session"]`, streaming/) proved while the run was
+still going is taken ("wgl-online"), when the packed history's digest
+equals the one the proof covered; `streaming=False` ignores sessions.
+
+The port of `jepsen_tpu/checker/linearizable.py`; the plan executor
+waits for a later slice.
 """
 
 from __future__ import annotations
@@ -55,6 +60,7 @@ class Linearizable(Checker):
         block: int = 256,
         time_limit_s: Optional[float] = None,
         max_configs: int = 5_000_000,
+        streaming: bool = True,
         device: Union[str, torch.device, None] = "cuda",
     ):
         if algorithm not in CPU_ALGORITHMS + _DEVICE_ALGORITHMS + ("settle",):
@@ -66,6 +72,7 @@ class Linearizable(Checker):
         self.block = block
         self.time_limit_s = time_limit_s
         self.max_configs = max_configs
+        self.streaming = streaming
         self.device = device
 
     def check(self, test: dict, history: History, opts: dict) -> dict:
@@ -79,12 +86,12 @@ class Linearizable(Checker):
         # Record every degradation step taken while checking, so the
         # result shows the path taken to the verdict.
         with degrade.capture() as steps:
-            out = self._check(history, model, dev)
+            out = self._check(test or {}, history, model, dev)
         if steps:
             out["degradations"] = steps
         return out
 
-    def _check(self, history: History, model: Model,
+    def _check(self, test: dict, history: History, model: Model,
                dev: torch.device) -> dict:
         try:
             pm = model.packed()
@@ -101,6 +108,15 @@ class Linearizable(Checker):
             if reason is not None:
                 return self._host_fallback(history, model,
                                            "wgl-host-unpackable", reason)
+        sess = test.get("streaming-session")
+        if self.streaming and sess is not None:
+            # Digest in the session's code space (see _online_digest).
+            from ..parallel.independent import _online_digest
+
+            d = _online_digest(sess, pm, history)
+            r = sess.consume(None, d) if d is not None else None
+            if r is not None:
+                return r
         if self.algorithm in CPU_ALGORITHMS:
             res, engine = self._cpu_exact(packed, pm, self.algorithm)
             return self._render(res, packed, engine, pm)

@@ -24,9 +24,11 @@ import torch
 
 #: Event counts of the host-driven loops: "host_syncs" (device reads
 #: that waited for the card), "heavy_rounds" (witness chain searches),
-#: "bfs_levels" (frontier and batched BFS levels), and the many-key
-#: path's "stream_passes", "stream_restarts" and "stream_keys_proven".
-#: Callers reset by `.clear()`.
+#: "bfs_levels" (frontier and batched BFS levels), the many-key
+#: path's "stream_passes", "stream_restarts" and "stream_keys_proven",
+#: and online checking's "online_advances", "online_chunks",
+#: "frontier_deaths", "online_rechecks" and "online_consumed".
+#: Process-wide: callers reset by `.clear()`.
 counters: Counter = Counter()
 _counters_lock = threading.Lock()
 

@@ -120,6 +120,44 @@ def _register_packed(model: Register, allow_cas: bool) -> PackedModel:
             )
         raise ValueError(f"register model can't encode op f {f!r}")
 
+    def encode_many(items):
+        # encode() over a [(inv, comp)] batch for PackedBuilder.
+        # append_many, with the interner inlined: the same drops, the
+        # same interner and the same codes as encode().
+        ids = interner._ids
+        vals = interner.values
+        out = []
+        add = out.append
+
+        def code(v):
+            if isinstance(v, list):
+                v = tuple(v)
+            i = ids.get(v)
+            if i is None:
+                i = len(vals)
+                ids[v] = i
+                vals.append(v)
+            return i
+
+        for inv, comp in items:
+            f = inv.f
+            if f == "read":
+                if comp is None or comp.type != OK or comp.value is None:
+                    add(None)
+                else:
+                    add((F_READ, code(comp.value), NIL))
+            elif f == "write":
+                add((F_WRITE, code(inv.value), NIL))
+            elif f == "cas" and allow_cas:
+                old, new = inv.value
+                i0 = code(old)
+                add((F_CAS, i0, code(new)))
+            else:
+                raise ValueError(f"register model can't encode op f {f!r}")
+        return out
+
+    encode.many = encode_many
+
     def py_step(state, f, a0, a1):
         s = state[0]
         if f == F_READ:

@@ -18,11 +18,13 @@ an event-walk form of Wing–Gong:
   lane) pair in one batched step, keeps <= B children deduplicated by
   model state, and the sweep resumes after the barrier.
 
-Execution is a host loop: blocks of `BARS_PER_BLOCK` barriers, their
-tables built on the host and uploaded `BLOCKS_PER_CALL` blocks at a
-time; inside a block, sweep -> read the death barrier -> chain search
--> resume.  Each read of a device value is a host sync
-(`device.counters["host_syncs"]`).
+Execution is a host loop (`run_chunks`): blocks of `bars_per_block`
+barriers, their tables built on the host and uploaded `blocks_per_call`
+blocks at a time; inside a block, sweep -> read the death barrier ->
+chain search -> resume.  The loop takes and returns the search's carry
+between blocks (`WitnessCarry`), so the online frontier
+(streaming/frontier.py) continues it as the history grows.  Each read
+of a device value is a host sync (`device.counters["host_syncs"]`).
 
 Soundness: every transition is a legal linearization step, so a lane
 alive after the final barrier is a witness — `valid=True` is exact.
@@ -33,7 +35,7 @@ dead frontier proves nothing: it returns None and callers escalate.
 from __future__ import annotations
 
 import time
-from typing import Optional, Union
+from typing import Iterator, NamedTuple, Optional, Union
 
 import numpy as np
 import torch
@@ -257,8 +259,9 @@ class _Block:
 
     def __init__(self, pm: PackedModel, tab: torch.Tensor, B: int,
                  compact: int, hv: torch.Tensor,
-                 init: Optional[torch.Tensor]):
+                 init: Optional[torch.Tensor], depth: int):
         self.pm = pm
+        self.depth = depth
         self.init = init
         # tab (5, W): inv, f, a0, a1, bar_rank of the window rows.
         self.inv_w, self.f_w, self.a0_w, self.a1_w, self.rank_w = tab
@@ -290,14 +293,14 @@ class _Block:
 
     def heavy(self, member, states, alive, a, r, bf, ba0, ba1, k_rank):
         """Chain search at one barrier: direct -> targeted h·a ->
-        expand-any, bounded by CHAIN_DEPTH rounds.  Two host syncs per
+        expand-any, bounded by `depth` rounds.  Two host syncs per
         round."""
         _device.count("heavy_rounds")
         pm = self.pm
         # Membership of ops whose barrier already passed is implied.
         implied = self.rank_w < k_rank
         base_avail = (~implied & (self.inv_w < r) & (self.col != a))[:, None]
-        for _ in range(CHAIN_DEPTH):
+        for _ in range(self.depth):
             # try_direct
             ns, legal = pm.torch_step(states, bf, ba0, ba1)
             has = member[a]
@@ -388,68 +391,57 @@ class _Block:
         return new_member, child_states[pos], new_alive
 
 
-def check_wgl_witness(
-    packed: PackedOps,
-    pm: PackedModel,
-    *,
-    info_window: Optional[int] = NARROW_INFO_WINDOW,
-    width_hint: int = 0,
-    time_limit_s: Optional[float] = None,
-    rank_override: Optional[np.ndarray] = None,
-    out_info: Optional[dict] = None,
-    device: Union[str, torch.device, None] = "cuda",
-) -> Optional[WGLResult]:
-    """Runs the witness search on `device` (the card by default; raises
-    when CUDA is asked for but missing).
+class WitnessCarry(NamedTuple):
+    """The search's state between blocks: the (W, B) member window, the
+    (B, SW) beam states and (B,) alive mask on the device, and the
+    previous block's window rows (host; None before the first block),
+    which the next block's re-gather maps from."""
 
-    Returns an exact `WGLResult(valid=True)` when a witness
-    linearization survives, or None when the search dies, overflows
-    `MAX_WINDOW` or times out — meaning "escalate", never "invalid".
+    member: torch.Tensor
+    states: torch.Tensor
+    alive: torch.Tensor
+    prev_active: Optional[np.ndarray]
 
-    `width_hint` forces at least that window width.  The chain rounds'
-    compact candidate tile is max(64, min(W // 2, info_window)) rows
-    wide (W // 8 without a window bound).  `rank_override` gives
-    non-barrier rows a synthetic barrier rank (see `_plan_blocks`): the
-    many-key stream (ops/wgl_stream.py) fences each key's indeterminate
-    ops at its RESET with it.  `out_info`, when given, receives
-    "died_at_rank": the global rank of the first barrier the chain
-    search could not linearize (None when the death was not
-    localized)."""
-    dev = _device.resolve(device)
-    t0 = time.monotonic()
-    n = packed.n
-    if n == 0 or packed.n_ok == 0:
-        return WGLResult(valid=True, configs_explored=1,
-                         elapsed_s=time.monotonic() - t0)
-    try:
-        bars, bar_rank, inv32, ret32, blocks, _ = _plan_blocks(
-            packed, BARS_PER_BLOCK, info_window, rank_override)
-    except OverflowError:
-        return None  # the witness tier can't represent it: escalate
-    widest = max(len(a) for _, _, a in blocks)
-    if widest > MAX_WINDOW:
-        return None
 
-    SW = pm.state_width
-    B = BEAM
-    K = BARS_PER_BLOCK
-    W = _bucket(max(widest, width_hint, 1))
-    compact = max(64, min(
-        W // 2, info_window if info_window is not None else W // 8))
-    hv = torch.from_numpy(_state_hash_vec(SW)).to(dev)
-    init = (torch.tensor(pm.init_state, dtype=torch.int32, device=dev)
-            if pm.stream else None)
-
+def initial_carry(pm: PackedModel, W: int, B: int,
+                  dev: torch.device) -> WitnessCarry:
+    """The carry before the first block: an empty window, every lane at
+    the initial state, lane 0 alone alive."""
     member = torch.zeros((W, B), dtype=torch.bool, device=dev)
     states = torch.tensor(pm.init_state, dtype=torch.int32,
                           device=dev).repeat(B, 1)
     alive = torch.zeros(B, dtype=torch.bool, device=dev)
     alive[0] = True
-    rank32 = np.minimum(bar_rank, NO_BAR)
-    prev_active: Optional[np.ndarray] = None
+    return WitnessCarry(member, states, alive, None)
 
-    for c0 in range(0, len(blocks), BLOCKS_PER_CALL):
-        chunk = blocks[c0 : c0 + BLOCKS_PER_CALL]
+
+def compact_width(W: int, info_window: Optional[int]) -> int:
+    """The chain rounds' compact candidate tile for window width W:
+    max(64, min(W // 2, info_window)), or W // 8 without a bound."""
+    return max(64, min(W // 2, info_window if info_window is not None
+                       else W // 8))
+
+
+def run_chunks(pm: PackedModel, packed: PackedOps, plan, blocks: list,
+               carry: WitnessCarry, *, K: int, NB: int, D: int,
+               compact: int, dev: torch.device
+               ) -> Iterator[tuple[WitnessCarry, int, bool, int]]:
+    """Runs `blocks` (entries of `_plan_blocks`'s block list, in order,
+    the first one following `carry`) from `carry`, NB blocks per table
+    upload.  The beam width B and window width W are the carry's.
+    Yields after each chunk (carry, blocks in the chunk, failed,
+    died_rank): `failed` when a block's chain search could not
+    linearize a barrier (died_rank its global rank), after which it
+    stops.  The one-shot search (`check_wgl_witness`) and the online
+    frontier (streaming/frontier.py) both run their blocks here."""
+    _, bar_rank, inv32, ret32 = plan[:4]
+    member, states, alive, prev_active = carry
+    W, B = member.shape
+    hv = torch.from_numpy(_state_hash_vec(pm.state_width)).to(dev)
+    init = (torch.tensor(pm.init_state, dtype=torch.int32, device=dev)
+            if pm.stream else None)
+    for c0 in range(0, len(blocks), NB):
+        chunk = blocks[c0 : c0 + NB]
         nblk = len(chunk)
         # The chunk's tables, built on the host and uploaded together.
         bars_np = np.zeros((nblk, 6, K), dtype=np.int32)
@@ -472,7 +464,7 @@ def check_wgl_witness(
             tab_np[bi, 1, :nw] = packed.f[active]
             tab_np[bi, 2, :nw] = packed.a0[active]
             tab_np[bi, 3, :nw] = packed.a1[active]
-            tab_np[bi, 4, :nw] = rank32[active]
+            tab_np[bi, 4, :nw] = np.minimum(bar_rank[active], NO_BAR)
             if prev_active is not None:
                 # The very first block keeps member all-False.
                 perm, present = window_regather(prev_active, active)
@@ -484,22 +476,86 @@ def check_wgl_witness(
         perm_d = torch.from_numpy(perm_np).to(dev)
         present_d = torch.from_numpy(present_np).to(dev)
 
+        failed, died = False, NO_BAR
         for bi, (k0, _, _) in enumerate(chunk):
             # Re-lay the member window onto this block's rows.
             member = member[perm_d[bi]] & present_d[bi][:, None]
-            blk = _Block(pm, tab_d[bi], B, compact, hv, init)
+            blk = _Block(pm, tab_d[bi], B, compact, hv, init, D)
             member, states, alive, failed, died = blk.run(
                 member, states, alive, bars_d[bi], bars_np[bi], k0)
             if failed:
-                if out_info is not None:
-                    out_info["died_at_rank"] = (None if died == NO_BAR
-                                                else int(died))
-                return None
+                break
+        yield (WitnessCarry(member, states, alive, prev_active), nblk,
+               failed, died)
+        if failed:
+            return
+
+
+def check_wgl_witness(
+    packed: PackedOps,
+    pm: PackedModel,
+    *,
+    beam: int = BEAM,
+    bars_per_block: int = BARS_PER_BLOCK,
+    blocks_per_call: int = BLOCKS_PER_CALL,
+    depth: int = CHAIN_DEPTH,
+    info_window: Optional[int] = NARROW_INFO_WINDOW,
+    width_hint: int = 0,
+    time_limit_s: Optional[float] = None,
+    rank_override: Optional[np.ndarray] = None,
+    out_info: Optional[dict] = None,
+    device: Union[str, torch.device, None] = "cuda",
+) -> Optional[WGLResult]:
+    """Runs the witness search on `device` (the card by default; raises
+    when CUDA is asked for but missing).
+
+    Returns an exact `WGLResult(valid=True)` when a witness
+    linearization survives, or None when the search dies, overflows
+    `MAX_WINDOW` or times out — meaning "escalate", never "invalid".
+
+    `beam` lanes (bucketed up from 8), `bars_per_block` barriers per
+    block, `blocks_per_call` blocks per table upload and `depth` chain
+    rounds per barrier are the reference's knobs.  `width_hint` forces
+    at least that window width.  The chain rounds' compact candidate
+    tile is `compact_width(W, info_window)` rows.  `rank_override`
+    gives non-barrier rows a synthetic barrier rank (see
+    `_plan_blocks`): the many-key stream (ops/wgl_stream.py) fences
+    each key's indeterminate ops at its RESET with it.  `out_info`,
+    when given, receives "died_at_rank": the global rank of the first
+    barrier the chain search could not linearize (None when the death
+    was not localized)."""
+    dev = _device.resolve(device)
+    t0 = time.monotonic()
+    n = packed.n
+    if n == 0 or packed.n_ok == 0:
+        return WGLResult(valid=True, configs_explored=1,
+                         elapsed_s=time.monotonic() - t0)
+    try:
+        plan = _plan_blocks(packed, bars_per_block, info_window,
+                            rank_override)
+    except OverflowError:
+        return None  # the witness tier can't represent it: escalate
+    bars, blocks = plan[0], plan[4]
+    widest = max(len(a) for _, _, a in blocks)
+    if widest > MAX_WINDOW:
+        return None
+
+    W = _bucket(max(widest, width_hint, 1))
+    carry = initial_carry(pm, W, _bucket(beam, lo=8), dev)
+    for carry, _, failed, died in run_chunks(
+            pm, packed, plan, blocks, carry, K=bars_per_block,
+            NB=blocks_per_call, D=depth,
+            compact=compact_width(W, info_window), dev=dev):
+        if failed:
+            if out_info is not None:
+                out_info["died_at_rank"] = (None if died == NO_BAR
+                                            else int(died))
+            return None
         if (time_limit_s is not None
                 and time.monotonic() - t0 > time_limit_s):
             return None  # budget blown: escalate
 
-    if not _device.host(alive.any()):
+    if not _device.host(carry.alive.any()):
         if out_info is not None:
             out_info["died_at_rank"] = None  # not localized
         return None

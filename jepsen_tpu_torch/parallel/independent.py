@@ -8,9 +8,12 @@ through the reference's hand-wired ladder (its `JEPSEN_PLAN=0` route):
 
   1. keys that do not pack (or that the model's `validate_packed`
      refuses) run the base checker one by one (the host-model search);
-  2. keys over 2,000 ops run `Linearizable("wgl-tpu")` one by one;
-  3. the rest ride the stream witness (ops/wgl_stream.py) together;
-  4. the keys it leaves undecided settle as a cohort: identical
+  2. keys an online session (`test["streaming-session"]`, streaming/)
+     proved while the run was still going take its verdict, when the
+     key's packed digest equals the one the proof covered;
+  3. keys over 2,000 ops run `Linearizable("wgl-tpu")` one by one;
+  4. the rest ride the stream witness (ops/wgl_stream.py) together;
+  5. the keys it leaves undecided settle as a cohort: identical
      subhistories share one verdict (the settle memo), the refutation
      screens refute what they can, the batched BFS (ops/wgl_batched.py)
      runs on the survivors, and the exact CPU engine settles the rest.
@@ -20,9 +23,8 @@ raises when CUDA is asked for but missing).  Unlike the reference, no
 tier catches a device fault to fall back: a kernel that does not build
 or launch raises out of `check` (see checker/core.py `check_safe`).
 
-Left out: the plan-executor route, online verdicts from a streaming
-session, mesh sharding, the batched BFS's packed lanes, per-key
-artifacts, telemetry.  The result adds "tiers": how many keys each tier
+Left out: the plan-executor route, mesh sharding, the batched BFS's
+packed lanes, per-key artifacts, telemetry.  The result adds "tiers": how many keys each tier
 settled.
 """
 
@@ -103,6 +105,28 @@ def _settle_digest(p, pm) -> str:
     return h.hexdigest()
 
 
+def _online_digest(sess, pm, sub) -> Optional[str]:
+    """The digest of one key's subhistory in the online session's code
+    space, for `sess.consume`.  Register encoders intern values in
+    first-seen order, so a fresh packed model assigns other codes than
+    the session's (which interned in journal order), and the caller's
+    own pack could never match the digest the proof recorded.
+    Re-packing with the session's encoder instance reuses its interner
+    and reproduces the bytes the proof covered.  None (never consume)
+    when the session checked another model shape or the re-pack
+    fails."""
+    spm = sess.pm
+    if (spm.name != pm.name
+            or tuple(int(v) for v in spm.init_state)
+            != tuple(int(v) for v in pm.init_state)
+            or spm.state_width != pm.state_width):
+        return None
+    try:
+        return _settle_digest(pack_history(sub, spm.encode), spm)
+    except (ValueError, OverflowError):
+        return None  # the post-hoc path decides
+
+
 def _sanitize_settle(res: dict) -> dict:
     """A memo-shareable copy of a settle result: the verdict and its
     metadata without the positional fields."""
@@ -135,6 +159,15 @@ def clear_settle_memo() -> None:
     (benchmarks clear it before every repetition)."""
     with _settle_memo_lock:
         _settle_memo.clear()
+
+
+def invalidate_settle_memo(digest: str) -> None:
+    """Evicts one digest's memoized verdict.  The online session
+    memoizes a key's proof when the key goes quiet; when the key takes
+    more ops later, that entry describes a prefix no finished history
+    will equal, so the session drops exactly its own entry."""
+    with _settle_memo_lock:
+        _settle_memo.pop(digest, None)
 
 
 # ---------------------------------------------------------------------------
@@ -190,15 +223,18 @@ class IndependentChecker(Checker):
     """Applies `base` to each key's subhistory and merges validity
     (independent.clj:327-377).  A packed-model `Linearizable` base takes
     the tier ladder of the module docstring on `device`; any other
-    checker runs per key under bounded_pmap."""
+    checker runs per key under bounded_pmap.  With `streaming` (the
+    default), keys proven by the test's online session
+    (`test["streaming-session"]`) take its verdict."""
 
     #: Detail budget for keys the batched BFS already refuted exactly:
     #: the CPU pass there only adds a certificate.
     REFUTED_DETAIL_BUDGET_S = 10.0
 
-    def __init__(self, base: Checker, *,
+    def __init__(self, base: Checker, *, streaming: bool = True,
                  device: Union[str, torch.device, None] = "cuda"):
         self.base = base
+        self.streaming = streaming
         self.device = device
 
     def _per_key(self, checker: Checker, test: dict, subs: dict,
@@ -274,6 +310,21 @@ class IndependentChecker(Checker):
             tiers["unpackable"] += len(unpackable)
             results.update(self._per_key(lin, test, subs, unpackable, opts))
             keys = [k for k in keys if k in all_packs]
+
+        # Online verdicts: a key whose re-packed digest equals the one
+        # its proof recorded; a key that changed since settles here.
+        sess = test.get("streaming-session")
+        if self.streaming and sess is not None:
+            online = {}
+            for k in keys:
+                d = _online_digest(sess, pm, subs[k])
+                r = sess.consume(k, d) if d is not None else None
+                if r is not None:
+                    online[k] = r
+            if online:
+                results.update(online)
+                tiers["online"] += len(online)
+            keys = [k for k in keys if k not in online]
 
         # Long keys take the single-history device search, built for
         # length; the batched tiers pad every key to the longest.

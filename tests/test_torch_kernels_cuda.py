@@ -482,3 +482,46 @@ def test_cuda_recorded_sweeps_match_plain(name, monkeypatch):
         assert d == want[2]
         assert torch.equal(s2.cpu(), want[0])
         assert torch.equal(al2.cpu(), want[1])
+
+
+@pytest.mark.cuda
+def test_cuda_frontier_carry_equals_the_cpu_carry():
+    """A 20k-op stream advanced in the same slices by a frontier on the
+    card (the sweep kernel) and one on the CPU (the plain sweep): the
+    carries are equal after every advance, and both prove the stream."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the sweep kernel has no CPU mode")
+    from jepsen_tpu_torch.history.packed import PackedBuilder
+    from jepsen_tpu_torch.streaming import FrontierCarry
+    from jepsen_tpu_torch.utils.histgen import random_register_history
+
+    pm = cas_register().packed()
+    h = random_register_history(20_000, procs=16, info_rate=0.05, seed=77)
+    b = PackedBuilder(pm.encode)
+    on_card = FrontierCarry(pm, bars_per_block=256, device="cuda")
+    on_cpu = FrontierCarry(pm, bars_per_block=256, device="cpu")
+    before = kernels.launches["witness_sweep"]
+
+    def same():
+        assert (on_card.blocks_done, on_card.chunks, on_card.dead) == (
+            on_cpu.blocks_done, on_cpu.chunks, on_cpu.dead)
+        assert on_card._W == on_cpu._W
+        for a, c in ((on_card._member, on_cpu._member),
+                     (on_card._states, on_cpu._states),
+                     (on_card._alive, on_cpu._alive)):
+            assert torch.equal(a.cpu(), c)
+        assert np.array_equal(on_card._prev_active, on_cpu._prev_active)
+
+    for i, op in enumerate(h):
+        b.append(op)
+        if i % 2500 == 2499:
+            packed, s = b.snapshot()
+            on_card.advance(packed, s)
+            on_cpu.advance(packed, s)
+            if on_cpu.blocks_done:
+                same()
+    final = b.finish()
+    assert on_card.finalize(final) is True
+    assert on_cpu.finalize(final) is True
+    same()
+    assert kernels.launches["witness_sweep"] > before
