@@ -176,10 +176,13 @@ class PackedBuilder:
     chunk encodes without re-packing the prefix — the online checker's
     ingest (streaming/).
 
-    For any history h, appending its ops one by one (or in chunks with
-    `append_many`) and calling `finish()` gives a pack byte-identical
-    to `pack_history(h, encode)`: the pairing below is pack_history's,
-    driven one op at a time.  Keep the two in lockstep.
+    For any history h, appending its ops one by one and calling
+    `finish()` gives `pack_history(h, encode)` byte for byte:
+    pack_history is this builder fed op by op.  `append_many` pairs the
+    same rows but hands the encoder its ops in another order, so an
+    encoder that interns values may number them otherwise; its pack is
+    byte-identical once the encoder has seen h's values, and equal to
+    the reference builder's on the same chunks.
 
     Mid-run, `snapshot()` returns the STABLE ROW PREFIX: rows whose
     invocation event index is < s, where s = min invocation index over
@@ -192,15 +195,21 @@ class PackedBuilder:
     __slots__ = ("encode", "_e", "_pending", "_rows", "_stable",
                  "_finished")
 
-    #: Below this many client ops the numpy pairing of `append_many`
-    #: costs more than it saves; the scalar loop runs instead.
+    #: Below this many client ops `append_many` runs the scalar loop.
+    #: The two pairings hand the encoder its ops in different orders,
+    #: so the choice sets the order in which values intern: it stays
+    #: the reference builder's, so that both give the same codes for
+    #: the same chunks.  (Speed alone would put it near 256: on the host
+    #: of an H100 machine, `tools/port_ab.py` read append() at 0.99-1.21
+    #: µs per cas-register op, the numpy path at 2.44-2.48 µs in 16-op
+    #: chunks, 1.36-1.40 at 64, 0.94-0.98 at 256.)
     _MANY_MIN = 16
 
     def __init__(self, encode: OpEncoderFn):
         self.encode = encode
-        #: next dense event index over client ops (pack_history's e)
+        #: next dense event index over client ops
         self._e = 0
-        #: process -> (inv_e, invoke Op), pack_history's pending map
+        #: process -> (inv_e, invoke Op) of the op in flight
         self._pending: dict[Any, tuple[int, Op]] = {}
         #: emitted rows not yet moved to the stable prefix, in emit order
         self._rows: list[tuple[int, ...]] = []
@@ -230,7 +239,6 @@ class PackedBuilder:
 
     def _emit(self, inv_e: int, invoke_op: Op, ret_e: int,
               comp: Optional[Op]) -> None:
-        # pack_history's emit() — keep in lockstep.
         if comp is not None and comp.type == FAIL:
             return  # certainly never happened
         status = ST_OK if (comp is not None and comp.type == OK) else ST_INFO
@@ -464,7 +472,7 @@ class PackedBuilder:
         if self._finished:
             raise RuntimeError("PackedBuilder already finished")
         self._finished = True
-        # Pending dict order, as pack_history's final loop.
+        # In pending dict order: the order the encoder sees them.
         for inv_e, inv_op in self._pending.values():
             self._emit(inv_e, inv_op, -1, None)
         self._pending.clear()
@@ -482,48 +490,12 @@ def pack_history(h: History, encode: OpEncoderFn) -> PackedOps:
          (ret = NO_RET);
       5. encode (f, value) via the model's encoder; encoders may drop
          no-effect indeterminate ops (e.g. :info reads).
+    This is `PackedBuilder` fed one op at a time: the encoder sees the
+    ops in journal order, so values intern in the order the reference's
+    pack_history interns them (`append_many` encodes in another order).
     """
-    client = [o for o in h if o.is_client_op]
-    rows: list[tuple[int, int, int, int, int, int, int, int]] = []
-    # Pairing runs on the client-only event sequence, so inv/ret are
-    # dense event positions in that sequence.
-    pending: dict[Any, tuple[int, Op]] = {}
-
-    def emit(inv_e: int, invoke_op: Op, ret_e: int, comp: Op | None) -> None:
-        if comp is not None and comp.type == FAIL:
-            return  # certainly never happened
-        status = ST_OK if (comp is not None and comp.type == OK) else ST_INFO
-        enc = encode(invoke_op, comp)
-        if enc is None:
-            return
-        fc, a0, a1 = enc
-        rows.append((
-            inv_e,
-            ret_e if status == ST_OK else NO_RET,
-            invoke_op.process,
-            status,
-            fc,
-            a0,
-            a1,
-            invoke_op.index,
-        ))
-
-    for e, o in enumerate(client):
-        if o.type == INVOKE:
-            prev = pending.get(o.process)
-            if prev is not None:
-                # Double invoke without completion (torn history): the
-                # earlier op is indeterminate.
-                emit(prev[0], prev[1], -1, None)
-            pending[o.process] = (e, o)
-        else:
-            inv = pending.pop(o.process, None)
-            if inv is None:
-                continue  # completion without invocation: tolerate
-            emit(inv[0], inv[1], e, o)
-    # Unfinished invocations are indeterminate.
-    for inv_e, inv_op in pending.values():
-        emit(inv_e, inv_op, -1, None)
-
-    rows.sort(key=lambda r: r[0])
-    return _rows_to_packed(rows, with_preds=True)
+    b = PackedBuilder(encode)
+    for o in h:
+        if o.is_client_op:
+            b._append_client(o)
+    return b.finish()

@@ -83,7 +83,6 @@ class RollingChecker:
         blocks_per_call: int = 4,
         beam: int = 8,
         advance_rows: int = 1024,
-        retain_blocks: int = 1,
         discard: bool = True,
         max_window: int = 32768,
         info_window: Optional[int] = None,
@@ -94,7 +93,6 @@ class RollingChecker:
         self.NB = blocks_per_call
         self.beam = beam
         self.advance_rows = max(1, advance_rows)
-        self.retain_blocks = max(1, retain_blocks)
         self.discard = discard
         self.max_window = max_window
         self.info_window = info_window
@@ -147,11 +145,8 @@ class RollingChecker:
             return
         if not self.discard:
             return
-        # Keep `retain_blocks` processed blocks resident beyond the one
-        # discard_stable_prefix always keeps.
-        eff_blocks = ks.frontier.blocks_done - (self.retain_blocks - 1)
         rows, bars, _ = ks.packer.discard_stable_prefix(
-            bars_per_block=self.K, blocks_done=eff_blocks)
+            bars_per_block=self.K, blocks_done=ks.frontier.blocks_done)
         if rows:
             ks.frontier.rebase(rows, bars)
             if ks.frontier.dead:

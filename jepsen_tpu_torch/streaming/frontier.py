@@ -41,7 +41,10 @@ post-hoc checkers, so a death costs latency, never the verdict): the
 planner's int32 overflow, a window wider than `max_window`, a witness
 death, and a device out-of-memory error (recorded as a degradation
 step).  Nothing else: a kernel that does not build or launch, or a
-missing card, raises out of `advance` and `finalize`.
+missing card, raises out of `advance` and `finalize`.  A fault raised
+in the middle of a run of chunks leaves the carry between two blocks,
+so the frontier keeps it and raises it again from every later call: it
+never advances past the fault, and never reports True.
 """
 
 from __future__ import annotations
@@ -99,6 +102,8 @@ class FrontierCarry:
 
         self.dead = False
         self.dead_reason: Optional[str] = None
+        #: a fault raised out of a chunk run, raised again by every call
+        self.fault: Optional[BaseException] = None
         self.blocks_done = 0
         self.bars_done = 0
         self.chunks = 0
@@ -144,13 +149,14 @@ class FrontierCarry:
         if W_need > self.max_window:
             self._die(f"window {W_need} exceeds max {self.max_window}")
             return False
-        self._ensure_width(W_need)
-        if self._member is None:
-            self._member, self._states, self._alive, _ = initial_carry(
-                self.pm, self._W, self.B, self.dev)
-        carry = (self._member, self._states, self._alive, self._prev_active)
         t0 = time.monotonic()
         try:
+            self._ensure_width(W_need)
+            if self._member is None:
+                self._member, self._states, self._alive, _ = initial_carry(
+                    self.pm, self._W, self.B, self.dev)
+            carry = (self._member, self._states, self._alive,
+                     self._prev_active)
             for carry, nblk, failed, _ in run_chunks(
                     self.pm, packed, plan, todo, carry, K=self.K,
                     NB=self.NB, D=self.D,
@@ -162,18 +168,19 @@ class FrontierCarry:
                 self.blocks_done += nblk
                 self.bars_done = sum(len(b[1])
                                      for b in blocks[:self.blocks_done])
-                self._prev_active = carry.prev_active
+                (self._member, self._states, self._alive,
+                 self._prev_active) = carry
                 if failed:
                     self._die("frontier died (witness cannot prove)")
                     return False
                 t0 = time.monotonic()
         except Exception as e:  # noqa: BLE001 — only out-of-memory ends it
             if not degrade.is_resource_error(e):
+                self.fault = e
                 raise
             degrade.record("frontier", "die", e)
             self._die(f"device out of memory: {type(e).__name__}: {e}")
             return False
-        self._member, self._states, self._alive = carry[:3]
         return True
 
     def _plan(self, packed: PackedOps):
@@ -221,6 +228,8 @@ class FrontierCarry:
         snapshot (`packed`, stable bound `s`).  Only full blocks of K
         barriers with ret < s run; the rest wait for the next call or
         for finalize()."""
+        if self.fault is not None:
+            raise self.fault
         if self.dead or packed.n == 0 or packed.n_ok == 0:
             return
         _device.count("online_advances")
@@ -236,6 +245,8 @@ class FrontierCarry:
         """Runs the remaining blocks over the finished pack: True = a
         witness survives (the stream is linearizable), None = escalate
         post-hoc."""
+        if self.fault is not None:
+            raise self.fault
         if self.dead:
             return None
         if packed.n == 0 or packed.n_ok == 0:

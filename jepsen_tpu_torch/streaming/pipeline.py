@@ -115,7 +115,6 @@ class StreamingSession:
         swap_interval_s: float = SWAP_INTERVAL_S,
         swap_ops: int = SWAP_OPS,
         advance_rows: int = ADVANCE_ROWS,
-        frontier_rows: int = FRONTIER_ROWS,
         recheck_min_rows: int = RECHECK_MIN_ROWS,
         device: Union[str, torch.device, None] = "cuda",
     ):
@@ -124,7 +123,6 @@ class StreamingSession:
         self.swap_interval_s = swap_interval_s
         self.swap_ops = swap_ops
         self.advance_rows = advance_rows
-        self.frontier_rows = frontier_rows
         self.recheck_min_rows = recheck_min_rows
 
         self.mode: Optional[str] = None
@@ -293,7 +291,7 @@ class StreamingSession:
         their own, advanced as their stable prefix grows."""
         for k in touched:
             b = self._packers[k]
-            if b.n_rows < self.frontier_rows:
+            if b.n_rows < FRONTIER_ROWS:
                 continue
             fr = self._frontiers.get(k)
             if fr is None:

@@ -249,19 +249,30 @@ def test_snapshot_is_prefix_of_final():
 # Sessions
 
 
+def _keyed_streams(gen, kv, shapes, seed):
+    """One register stream per (ops, bad) shape, each op's value wrapped
+    as key k<i>'s; processes disjoint per key."""
+    streams = []
+    for i, (n, bad) in enumerate(shapes):
+        sub = gen(n, procs=2, info_rate=0.0, cas=False, seed=seed + i,
+                  bad=bad)
+        streams.append([o.replace(value=kv(f"k{i}", o.value),
+                                  process=i * 4 + o.process) for o in sub])
+    return streams
+
+
 def _keyed_mixed_history(n_keys, ops_per_key, *, bad_every=7,
                          seed=45100) -> History:
     """n_keys register streams, every `bad_every`-th with an impossible
-    read, merged round-robin; processes disjoint per key."""
-    streams = []
-    for i in range(n_keys):
-        sub = random_register_history(ops_per_key, procs=2, info_rate=0.0,
-                                      cas=False, seed=seed + i,
-                                      bad=(i % bad_every == 0))
-        streams.append([o.replace(value=KV(f"k{i}", o.value),
-                                  process=i * 4 + o.process) for o in sub])
+    read, merged round-robin."""
+    return history(_round_robin(_keyed_streams(
+        random_register_history, KV,
+        [(ops_per_key, i % bad_every == 0) for i in range(n_keys)], seed)))
+
+
+def _round_robin(streams) -> list:
     merged = []
-    pos = [0] * n_keys
+    pos = [0] * len(streams)
     remaining = sum(len(s) for s in streams)
     while remaining:
         for i, s in enumerate(streams):
@@ -269,7 +280,7 @@ def _keyed_mixed_history(n_keys, ops_per_key, *, bad_every=7,
                 merged.append(s[pos[i]])
                 pos[i] += 1
                 remaining -= 1
-    return history(merged)
+    return merged
 
 
 def _feed_all(sess, h) -> dict:
@@ -316,6 +327,63 @@ def test_parity_200_key_mixed_validity():
     assert len(consumed) == online["tiers"]["online"] == 200 - n_bad
     assert D.counters["online_consumed"] == 200 - n_bad
     assert "online" not in posthoc["tiers"]
+
+
+def test_big_keys_run_frontiers_as_in_the_jax_session(monkeypatch):
+    """Keys past FRONTIER_ROWS leave the batched stream proofs for a
+    FrontierCarry each, advanced while the batch is ingested and
+    concluded at finish().  Both packages' sessions give the same keys
+    frontiers that run the same blocks and die alike, and prove the same
+    keys online; every online verdict is the exact post-hoc one."""
+    import jepsen_tpu.history.core as ref_hc
+    from jepsen_tpu.parallel.independent import KV as RefKV
+    from jepsen_tpu.streaming.pipeline import StreamingSession as RefSession
+
+    monkeypatch.setenv("JEPSEN_PLAN", "0")
+    monkeypatch.setattr(pipeline, "FRONTIER_ROWS", 512)
+    pm, ref_pm = _pair()
+    # Three keys past 512 rows (one bad) and three small ones (one bad).
+    shapes = [(3000, False), (2600, True), (2400, False), (60, False),
+              (60, True), (80, False)]
+    h = history(_round_robin(_keyed_streams(
+        random_register_history, KV, shapes, 700)))
+    ref_h = ref_hc.history(_round_robin(_keyed_streams(
+        ref_gen, RefKV, shapes, 700)))
+    sess = StreamingSession(pm, advance_rows=256, recheck_min_rows=4,
+                            **ONE_BATCH)
+    ref = RefSession(ref_pm, swap_ops=1 << 30, swap_interval_s=3600.0,
+                     frontier_rows=512, advance_rows=256,
+                     recheck_min_rows=4)
+    D.counters.clear()
+    stats = _feed_all(sess, h)
+    ref_stats = _feed_all(ref, ref_h)
+    assert not sess.broken and not ref.broken
+    assert sorted(sess._frontiers) == sorted(ref._frontiers) == [
+        "k0", "k1", "k2"]
+    assert stats["key-frontiers"] == ref_stats["key-frontiers"] == 3
+    for k, fr in sess._frontiers.items():
+        rf = ref._frontiers[k]
+        assert (fr.dead, fr.blocks_done, fr.bars_done) == (
+            rf.dead, rf.blocks_done, rf.bars_done), k
+    assert sess._frontiers["k1"].dead
+    assert D.counters["online_advances"] == 3  # one per big key, mid-ingest
+    assert ({k: v["res"] for k, v in sess._verdicts.items()}
+            == {k: v["res"] for k, v in ref._verdicts.items()})
+    assert sorted(sess._verdicts) == ["k0", "k2", "k3", "k5"]
+
+    online = IndependentChecker(Linearizable(cas_register(), device="cpu"),
+                                device="cpu").check(
+        {"streaming-session": sess}, h, {})
+    clear_settle_memo()
+    posthoc = IndependentChecker(Linearizable(cas_register(), device="cpu"),
+                                 streaming=False, device="cpu").check({}, h, {})
+    for k, r in posthoc["results"].items():
+        assert online["results"][k]["valid"] == r["valid"], k
+    assert sorted(online["failures"]) == sorted(posthoc["failures"]) == [
+        "k1", "k4"]
+    assert sorted(k for k, r in online["results"].items()
+                  if r.get("algorithm") == "wgl-online") == [
+        "k0", "k2", "k3", "k5"]
 
 
 def test_single_stream_consumed_by_linearizable():
@@ -485,9 +553,51 @@ def test_kernel_fault_raises_out_of_advance(monkeypatch):
     fr = FrontierCarry(pm, bars_per_block=64, device="cpu")
     with pytest.raises(KernelLaunchError):
         fr.advance(*b.snapshot())
-    assert not fr.dead
+    assert not fr.dead and isinstance(fr.fault, KernelLaunchError)
     with pytest.raises(KernelLaunchError):
         fr.finalize(b.finish())
+
+
+def _fault_from_the_second_chunk(monkeypatch):
+    """The sweep raises from the second chunk of each run of chunks on:
+    the fault lands after the carry has moved."""
+    from jepsen_tpu_torch.streaming import frontier as frontier_mod
+
+    real = frontier_mod.run_chunks
+
+    def sweep(*a, **kw):
+        raise KernelLaunchError("witness_sweep: lost hand-off (death -1)")
+
+    def run_chunks(*a, **kw):
+        it = real(*a, **kw)
+        yield next(it)
+        monkeypatch.setattr(wgl_witness, "sweep", sweep)
+        yield from it
+
+    monkeypatch.setattr(frontier_mod, "run_chunks", run_chunks)
+
+
+def test_a_fault_after_a_chunk_stops_the_frontier_for_good(monkeypatch):
+    """A fault after the first chunk of an advance: the frontier keeps
+    it, and every later advance or finalize raises it again, even once
+    the card works: the carry never resumes past the fault, and the
+    frontier never reports True."""
+    pm = cas_register().packed()
+    b = PackedBuilder(pm.encode)
+    for op in random_register_history(3000, procs=4, info_rate=0.0, seed=2):
+        b.append(op)
+    _fault_from_the_second_chunk(monkeypatch)
+    fr = FrontierCarry(pm, bars_per_block=64, blocks_per_call=2,
+                       device="cpu")
+    with pytest.raises(KernelLaunchError):
+        fr.advance(*b.snapshot())
+    assert (fr.chunks, fr.blocks_done, fr.dead) == (1, 2, False)
+    monkeypatch.undo()  # the card works again
+    with pytest.raises(KernelLaunchError):
+        fr.advance(*b.snapshot())
+    with pytest.raises(KernelLaunchError):
+        fr.finalize(b.finish())
+    assert (fr.chunks, fr.blocks_done) == (1, 2)
 
 
 @pytest.mark.parametrize("where", ["checker-thread", "finalize", "keyed"])

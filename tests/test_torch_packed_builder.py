@@ -166,6 +166,28 @@ def test_snapshots_and_finish_equal_the_jax_builder(seed):
     assert packed_bytes(b.finish()) == packed_bytes(ref_b.finish())
 
 
+@pytest.mark.parametrize("case", [
+    lambda: test_chunked_finish_equals_pack_history([7, 0, 3]),
+    lambda: test_chunked_finish_equals_pack_history([1, 50, 0, 2]),
+    test_snapshots_do_not_change_finish,
+    test_scalar_and_chunked_fuzz,
+    test_edge_pairings,
+    test_empty_builder_and_finish_twice,
+    lambda: test_snapshots_and_finish_equal_the_jax_builder(31),
+    lambda: test_discards_equal_the_jax_builder(0.05),
+], ids=["chunked", "chunked-small", "snapshots", "fuzz", "edges", "empty",
+        "jax-snapshots", "jax-discards"])
+def test_numpy_pairing_on_every_chunk(case, monkeypatch):
+    """The chunk tests above, with append_many's numpy pairing taking
+    every chunk, down to one op and the empty chunk (the builders fall
+    back to append() below `_MANY_MIN` client ops; the JAX builder's
+    threshold moves with the port's, as the two must pick the same
+    pairing to intern values in the same order)."""
+    monkeypatch.setattr(PackedBuilder, "_MANY_MIN", 0)
+    monkeypatch.setattr(ref_packed.PackedBuilder, "_MANY_MIN", 0)
+    case()
+
+
 def _serial(n_pairs, pm):
     """n_pairs sequential writes: row i has inv 2i, ret 2i+1."""
     b = PackedBuilder(pm.encode)

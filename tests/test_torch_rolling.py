@@ -185,6 +185,44 @@ def test_kernel_fault_raises_out_of_the_monitor(monkeypatch):
     assert c.status()["epoch-restarts"] == 0
 
 
+def test_a_fault_mid_advance_never_yields_a_verdict(monkeypatch):
+    """A fault after the first chunk of an advance, caught by a monitor
+    loop that keeps feeding: every later advance of that key raises it
+    again, and finish() raises it instead of a verdict, even once the
+    card works."""
+    from jepsen_tpu_torch.streaming import frontier as frontier_mod
+
+    pm, _ = _pms()
+    real = frontier_mod.run_chunks
+
+    def sweep(*a, **kw):
+        raise KernelLaunchError("witness_sweep: lost hand-off (death -1)")
+
+    def run_chunks(*a, **kw):
+        it = real(*a, **kw)
+        yield next(it)
+        monkeypatch.setattr(wgl_witness, "sweep", sweep)
+        yield from it
+
+    monkeypatch.setattr(frontier_mod, "run_chunks", run_chunks)
+    c = RollingChecker(pm, discard=True, device="cpu", **_kw())
+    faults = 0
+    for i, (key, op) in enumerate(_events(3000)):
+        try:
+            c.feed(key, _port_op(op), float(i))
+        except KernelLaunchError:
+            faults += 1
+    assert faults > len(c._keys) == 3  # each key, and again after
+    blocks = {k: ks.frontier.blocks_done for k, ks in c._keys.items()}
+    monkeypatch.undo()
+    with pytest.raises(KernelLaunchError):
+        c.pump()
+    with pytest.raises(KernelLaunchError):
+        c.finish()
+    assert blocks == {k: ks.frontier.blocks_done for k, ks in c._keys.items()}
+    assert c.status()["epoch-restarts"] == 0
+
+
 def _serial_builder(pm, n_pairs):
     """n_pairs sequential writes: row i has inv 2i, ret 2i+1."""
     b = PackedBuilder(pm.encode)
