@@ -6,9 +6,9 @@
 Needs one CUDA card and the CUDA toolkit (nvcc): the witness sweep
 kernel is built from jepsen_tpu_torch/csrc/ into build/jepsen_tpu_torch/
 at first use.  Exits non-zero, printing no result, when torch sees no
-CUDA device or the package is missing.  Eight phases, each raising on
-failure, run in the order 1, 2, 5, 6, 7, 1b, 3, 4 (every host-clock and
-CUDA-event timing before the profiler first runs):
+CUDA device or the package is missing.  Nine phases, each raising on
+failure, run in the order 1, 2, 5, 6, 7, 8, 1b, 3, 4 (every host-clock
+and CUDA-event timing before the profiler first runs):
 
 1. The sweep kernel against its plain PyTorch version at the bench
    shapes (B = 8, SW = 1, K = 2048, W = the bench history's planned
@@ -77,10 +77,30 @@ CUDA-event timing before the profiler first runs):
    IndependentChecker: 30 failures, every verdict the exact CPU
    engine's, 170 keys online; (7e) RollingChecker over a 200k-op stream
    with and without discards: equal verdicts, resident rows bounded.
+8. Elle (checker/elle, ops/scc.py): seeded concurrent list-append and
+   rw-register runs (`elle_ops`: 10 processes, 5% :info, the reference
+   workloads' defaults) through AppendChecker / WrChecker on the card,
+   under serializable and strict-serializable, median of 3 each.
+   (8a) 1,000 committed list-append transactions: valid, screened at
+   V = 1,024, result equal to device="off"; (8b) the same run with a
+   G0, a G1c and a G-single injected: invalid, the anomaly types of
+   device="off", every cycle extracted on the card (K = 4 layers at
+   V = 1,024) a real closed cycle carrying its layer's edge type;
+   (8b-chain) as 8b with one G-single whose cycle runs through a ww
+   chain of 100 transactions, so the extraction's BFS walks 99 levels;
+   (8c) rw-register, valid and with a G-single, as 8a and 8b; (8d) 512
+   random graphs of 16-128 vertices through one screen call, flags
+   equal host sccs(); (8e) 2,000 transactions, past the screen's 1,024
+   vertices: host route, no device call, the verdict of device="off".
+   Per check: wall time, host analysis time before the cycle search,
+   closure and extraction ms (CUDA events), BFS levels, host syncs.
+   Phase 3 profiles the closure, the extraction, one screen call and
+   one 8b check.
 
-The last lines are the kernels JSON line (one entry per timed
-instantiation), the card's name and power limit from nvidia-smi, and
-{"ok": true, "device": {...}}.
+The last lines are the device-program JSON line (the closure screen and
+the extraction, plain PyTorch: time, launches per check, bound), the
+kernels JSON line (one entry per timed instantiation), the card's name
+and power limit from nvidia-smi, and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -1513,6 +1533,479 @@ def phase_online(torch, pm, packed, history, dev=None,
     }
 
 
+# ---------------------------------------------------------------------------
+# Elle (phase 8): list-append and rw-register checking, with the closure
+# screen and the witness-cycle extraction on the card.  The history
+# generators are shared with the tests.
+
+#: Committed transactions of phase 8's histories: about the most the
+#: device path takes (1,000 vertices pad to V = 1,024, the screen's
+#: max_device_vertices), and past it for 8e.
+ELLE_TXNS, ELLE_BIG_TXNS, ELLE_SEED = 1000, 2000, 45100
+ELLE_MODELS = ("serializable", "strict-serializable")
+#: 8d: random graphs of 16-128 vertices through one screen call.
+SCREEN_GRAPHS = 512
+#: Dense bfloat16 peak of one H100 SXM (NVIDIA data sheet), for the bound.
+BF16_FLOP_PER_S = 989e12
+
+#: The transactions of each anomaly phase 8 injects, as committed (the
+#: micro-ops with what the reads returned), on keys no other
+#: transaction touches.  They run concurrently, so realtime orders none
+#: of them against another.
+ELLE_ANOMALIES = {
+    "append": {
+        # ww both ways: x is 0 (first) then 1 (second); y the reverse.
+        "G0": [[["append", "g0-x", 0], ["append", "g0-y", 1]],
+               [["append", "g0-y", 0], ["append", "g0-x", 1]],
+               [["r", "g0-x", [0, 1]], ["r", "g0-y", [0, 1]]]],
+        # wr both ways: each reads the other's append.
+        "G1c": [[["append", "g1c-x", 0], ["r", "g1c-y", [0]]],
+                [["append", "g1c-y", 0], ["r", "g1c-x", [0]]]],
+        # read skew: the first misses the second's x (rw) but reads its
+        # y (wr); the third fixes x's order.
+        "G-single": [[["r", "gs-x", []], ["r", "gs-y", [0]]],
+                     [["append", "gs-x", 0], ["append", "gs-y", 0]],
+                     [["r", "gs-x", [0]]]],
+    },
+    "wr": {
+        "G1c": [[["w", "g1c-x", 1], ["r", "g1c-y", 1]],
+                [["w", "g1c-y", 1], ["r", "g1c-x", 1]]],
+        # the initial x (rw to its writer) beside that writer's y (wr).
+        "G-single": [[["r", "gs-x", None], ["r", "gs-y", 1]],
+                     [["w", "gs-x", 1], ["w", "gs-y", 1]]],
+    },
+}
+#: Transactions of the long G-single ("G-single-chain"): ELLE_CHAIN
+#: appends to one key, put in order by a final read (a chain of ww
+#: edges), the last of which missed the first's append to another key
+#: (one rw edge back to the first).  Its cycle runs through all of
+#: them, so the extraction's BFS walks ELLE_CHAIN - 1 levels.
+ELLE_CHAIN = 100
+ELLE_ANOMALIES["append"]["G-single-chain"] = (
+    [[["append", "lc-x", 0], ["append", "lc-y", 0]]]
+    + [[["append", "lc-x", i]] for i in range(1, ELLE_CHAIN - 1)]
+    + [[["append", "lc-x", ELLE_CHAIN - 1], ["r", "lc-y", []]]]
+    + [[["r", "lc-x", list(range(ELLE_CHAIN))], ["r", "lc-y", [0]]]])
+
+
+def elle_ops(kind: str, n_txns: int, seed: int, *, inject=()) -> list:
+    """One seeded concurrent run of the port's AppendGen ("append") or
+    WrGen ("wr") at the reference workloads' defaults (10 keys, 1-4
+    micro-ops, 32 appends per key), as op dicts (type, f, value,
+    process) in history order, with `n_txns` committed transactions.
+
+    10 workers; a seeded random.Random picks which one moves next:
+    an idle worker invokes its generator's next transaction, a busy one
+    completes.  A completion applies the transaction atomically to an
+    in-memory store, as the reference's InMemoryAppendClient and
+    InMemoryWrClient do, and is :ok; with probability 0.05 it is
+    :info instead, the transaction applied or not (a seeded coin), and
+    the worker goes on under a fresh process.  So the history is strict
+    serializable.  Each name in `inject` (a key of ELLE_ANOMALIES[kind])
+    adds that anomaly's transactions, spaced evenly through the run:
+    all invoked, then all completed :ok, on processes of their own."""
+    from collections import defaultdict
+
+    from jepsen_tpu_torch.checker.elle import AppendGen, WrGen
+
+    procs, info = 10, 0.05
+    gen = (AppendGen if kind == "append" else WrGen)(rng=random.Random(seed))
+    rng = random.Random(seed + 1)
+    state: dict = defaultdict(list) if kind == "append" else {}
+
+    def apply(txn):
+        out = []
+        for f, k, v in txn:
+            if f == "append":
+                state[k].append(v)
+            elif f == "w":
+                state[k] = v
+            else:
+                v = list(state[k]) if kind == "append" else state.get(k)
+            out.append([f, k, v])
+        return out
+
+    marks = [(i + 1) * n_txns // (len(inject) + 1)
+             for i in range(len(inject))]
+    todo = list(zip(marks, inject))
+    ops: list = []
+    pids = list(range(procs))
+    next_pid, inject_pid = procs, 1 << 20
+    pending: dict = {}
+    committed = 0
+    while committed < n_txns or pending:
+        w = rng.randrange(procs)
+        if w in pending:
+            txn = pending.pop(w)
+            if rng.random() < info:
+                if rng.random() < 0.5:
+                    apply(txn)
+                ops.append({"type": "info", "f": "txn", "value": txn,
+                            "process": pids[w]})
+                pids[w], next_pid = next_pid, next_pid + 1
+                continue
+            ops.append({"type": "ok", "f": "txn", "value": apply(txn),
+                        "process": pids[w]})
+            committed += 1
+            while todo and committed >= todo[0][0]:
+                txns = ELLE_ANOMALIES[kind][todo.pop(0)[1]]
+                for p, txn in enumerate(txns):
+                    ops.append({"type": "invoke", "f": "txn",
+                                "value": [[f, k, None if f == "r" else v]
+                                          for f, k, v in txn],
+                                "process": inject_pid + p})
+                for p, txn in enumerate(txns):
+                    ops.append({"type": "ok", "f": "txn", "value": txn,
+                                "process": inject_pid + p})
+                inject_pid += len(txns)
+        elif committed + len(pending) < n_txns:
+            pending[w] = gen()["value"]
+            ops.append({"type": "invoke", "f": "txn", "value": pending[w],
+                        "process": pids[w]})
+    return ops
+
+
+def random_dep_graphs(n: int, seed: int, DepGraph) -> list:
+    """`n` random dependency graphs (either package's DepGraph) of 16-128
+    vertices: a random DAG of about 3 edges per vertex with random
+    types; in about half of them one edge doubled by a back edge,
+    closing a cycle."""
+    rng = random.Random(seed)
+    graphs = []
+    for _ in range(n):
+        V = rng.randint(16, 128)
+        order = list(range(V))
+        rng.shuffle(order)
+        g = DepGraph()
+        for x in range(V):
+            g.add_vertex(x)
+        for _ in range(3 * V):
+            a, b = sorted(rng.sample(range(V), 2))
+            g.add_edge(order[a], order[b], rng.choice(("ww", "wr", "rw")))
+        if rng.random() < 0.5:
+            a, b = sorted(rng.sample(range(V), 2))
+            g.add_edge(order[a], order[b], "ww")
+            g.add_edge(order[b], order[a], "rw")
+        graphs.append(g)
+    return graphs
+
+
+#: The edge type each layer's cycle must carry (graph.check_cycles).
+LAYER_TYPES = {"G0": {"ww"}, "G1c": {"wr"}, "G-single": {"rw"},
+               "G2-item": {"rw"}}
+
+
+def check_device_cycles(g, res: dict) -> int:
+    """Raises unless every cycle record in `res` is a closed cycle of
+    real edges of `g` that carries its layer's edge type, with its SCC
+    size -> the number of records."""
+    n = 0
+    for recs in res["anomalies"].values():
+        for r in recs:
+            if not (isinstance(r, dict) and "cycle" in r):
+                continue
+            c = r["cycle"]
+            carried = set()
+            for a, b in zip(c, c[1:]):
+                if not g.edge_types(a, b):
+                    raise AssertionError(f"cycle {c} uses no edge {a}->{b}")
+                carried |= g.edge_types(a, b)
+            need = LAYER_TYPES.get(r["type"], set())
+            if (len(c) < 3 or c[0] != c[-1] or (need and not carried & need)
+                    or not isinstance(r["scc-size"], int)
+                    or r["scc-size"] < len(c) - 1):
+                raise AssertionError(f"bad device cycle record {r}")
+            n += 1
+    return n
+
+
+def elle_check(torch, dev, kind: str, model: str, history,
+               reps: int) -> tuple:
+    """`reps` counted checks of `history` through the port's
+    AppendChecker or WrChecker on `dev`, and one with device="off" ->
+    (reading, device result, host result, the dependency graph)."""
+    from jepsen_tpu_torch.checker.elle import (AppendChecker, WrChecker,
+                                               analyze_append, analyze_wr)
+    from jepsen_tpu_torch.ops import scc
+
+    make = AppendChecker if kind == "append" else WrChecker
+    analyze = analyze_append if kind == "append" else analyze_wr
+    host = make(model, device="off").check({}, history, {})
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        res, _, counts = counted(
+            torch, dev, lambda: make(model, device=dev).check({}, history, {}))
+        times.append(time.perf_counter() - t0)
+    seen = {}
+
+    def spy(g):
+        seen["t"], seen["g"] = time.perf_counter(), g
+        return scc.check_cycles_device([g], device=dev)[0]
+
+    t0 = time.perf_counter()
+    analyze(history.client_ops(), consistency_model=model, cycle_fn=spy)
+    g = seen["g"]
+    n_ok = sum(1 for o in history if o.is_ok)
+    r = {
+        "kind": kind, "model": model, "committed": n_ok,
+        "vertices": len(g.vertices),
+        "edges": res["edges"], "valid": res["valid"],
+        "anomaly_types": res["anomaly-types"],
+        "wall_s": times, "median_s": statistics.median(times),
+        "txns_per_s": n_ok / statistics.median(times),
+        "graph_build_s": seen["t"] - t0,
+        "screens": counts.get("scc_screens", 0),
+        "extractions": counts.get("scc_extractions", 0),
+        "bfs_levels": counts.get("scc_bfs_levels", 0),
+        "bfs_graph_levels": counts.get("scc_bfs_graph_levels", 0),
+        "host_syncs": counts.get("host_syncs", 0),
+    }
+    if dev.type == "cuda" and r["screens"]:
+        adj = torch.from_numpy(scc.pack_adjacency([g])[0]).to(dev)
+        r["screen_shape"] = list(adj.shape)
+        r["closure_ms"] = cuda_ms(
+            lambda: scc.has_cycle(adj, torch.bfloat16), reps=20)
+    if dev.type == "cuda" and r["extractions"]:
+        layers = scc.layer_entries(g)
+        a_all, a_req, _ = scc.pack_required([x[0] for x in layers],
+                                            [x[1] for x in layers])
+        A, R = (torch.from_numpy(x).to(dev) for x in (a_all, a_req))
+        r["extract_shape"] = list(A.shape)
+        r["extract_ms"] = cuda_ms(
+            lambda: scc.extract_batch(A, R, torch.bfloat16), reps=5)
+    return r, res, host, g
+
+
+def closure_ops(K: int, V: int) -> float:
+    """Floating-point operations of one closure: ceil(log2 V) batched
+    V x V products, 2 V^3 each per graph."""
+    from jepsen_tpu_torch.ops import scc
+
+    return scc._steps(V) * 2.0 * K * V ** 3
+
+
+def bound(ops: float, n_bytes: float) -> tuple:
+    """(bound ms, "operations" or "bytes"): the larger of the operations
+    at the bfloat16 peak and the bytes at the memory rate."""
+    t_ops, t_bytes = ops / BF16_FLOP_PER_S * 1e3, n_bytes / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def phase_elle(torch, dev=None) -> dict:
+    """Phase 8 on `dev` (the card by default): 8a-8e of the module doc.
+    Raises on any failed check."""
+    from jepsen_tpu_torch.checker.elle import AppendChecker, DepGraph
+    from jepsen_tpu_torch.history.core import Op, history
+    from jepsen_tpu_torch.ops import scc
+
+    dev = torch.device("cuda") if dev is None else torch.device(dev)
+    cuda = dev.type == "cuda"
+    t_phase = time.perf_counter()
+    out: dict = {"checks": [], "graphs": {}}
+    chain = ELLE_ANOMALIES["append"]["G-single-chain"]
+    # (sub-phase, generator, injected anomalies, transactions generated,
+    # anomaly types the device result must hold)
+    cases = [("8a", "append", (), ELLE_TXNS, set()),
+             ("8b", "append", ("G0", "G1c", "G-single"), ELLE_TXNS,
+              {"G0", "G1c", "G-single"}),
+             ("8b-chain", "append", ("G-single-chain",),
+              ELLE_TXNS - len(chain), {"G-single"}),
+             ("8c", "wr", (), ELLE_TXNS, set()),
+             ("8c", "wr", ("G-single",), ELLE_TXNS, {"G-single"})]
+    for sub, kind, inject, n_txns, want in cases:
+        h = history([Op(**d) for d in elle_ops(kind, n_txns, ELLE_SEED,
+                                                inject=inject)])
+        bad = bool(inject)
+        for model in ELLE_MODELS:
+            r, res, host, g = elle_check(torch, dev, kind, model, h, reps=3)
+            r["sub_phase"], r["injected"] = sub, bad
+            if r["screens"] != 1 or scc._bucket(len(g.vertices), 8) != 1024:
+                raise AssertionError(f"{sub}: not screened at V = 1,024: {r}")
+            if not bad:
+                if res["valid"] is not True or res != host:
+                    raise AssertionError(f"{sub} {model}: {res} != {host}")
+                if r["extractions"]:
+                    raise AssertionError(f"{sub}: extraction on a valid run")
+            else:
+                if (res["valid"] is not False
+                        or res["anomaly-types"] != host["anomaly-types"]
+                        or not want <= set(res["anomaly-types"])):
+                    raise AssertionError(
+                        f"{sub} {model}: {res['valid']} "
+                        f"{res['anomaly-types']} (host "
+                        f"{host['anomaly-types']})")
+                if r["extractions"] != 1 or len(scc.layer_entries(g)) != 4:
+                    raise AssertionError(f"{sub}: not extracted as K = 4 "
+                                         f"on the device: {r}")
+                r["device_cycles"] = check_device_cycles(g, res)
+            if sub == "8b-chain":
+                # The G-single closes through every chain transaction,
+                # and the BFS walks the chain level by level.
+                lens = [len(x["cycle"]) - 1 for x in res["anomalies"]
+                        ["G-single"] if "cycle" in x]
+                if (lens != [ELLE_CHAIN]
+                        or r["bfs_levels"] < ELLE_CHAIN - 1):
+                    raise AssertionError(f"8b-chain: cycles of {lens} "
+                                         f"transactions, {r}")
+            log(f"phase{sub}: " + json.dumps(r))
+            out["checks"].append(r)
+            out["graphs"].setdefault(sub, g)
+            if sub == "8b":
+                out["profile_check"] = (h, model)
+
+    if cuda:
+        # The library call of the closure: its ceil(log2 V) bmm products
+        # alone, at 8a's shape.
+        a16 = torch.from_numpy(
+            scc.pack_adjacency([out["graphs"]["8a"]])[0]).to(dev).to(
+                torch.bfloat16)
+
+        def bmm_steps():
+            for _ in range(scc._steps(a16.shape[-1])):
+                torch.bmm(a16, a16)
+
+        out["bmm_ms"] = cuda_ms(bmm_steps, reps=20)
+        log(f"phase8a: the closure's {scc._steps(a16.shape[-1])} bare "
+            f"torch.bmm calls at {list(a16.shape)}: {out['bmm_ms']:.6f} ms "
+            f"(CUDA events)")
+
+    # 8d: many graphs through one screen call (K > 1).
+    graphs = random_dep_graphs(SCREEN_GRAPHS, ELLE_SEED, DepGraph)
+    t0 = time.perf_counter()
+    flags, _, counts = counted(
+        torch, dev, lambda: scc.screen_cycles(graphs, device=dev))
+    wall = time.perf_counter() - t0
+    want = [bool(g.sccs()) for g in graphs]
+    if flags.tolist() != want or counts.get("scc_screens") != 1:
+        raise AssertionError("8d: screen flags differ from host sccs()")
+    adj = torch.from_numpy(scc.pack_adjacency(graphs)[0]).to(dev)
+    d = {"graphs": len(graphs), "cyclic": sum(want),
+         "shape": list(adj.shape), "wall_s": wall}
+    if not 0.3 < d["cyclic"] / len(graphs) < 0.7:
+        raise AssertionError(f"8d: {d['cyclic']} cyclic graphs of "
+                             f"{len(graphs)}")
+    if cuda:
+        d["closure_ms"] = cuda_ms(
+            lambda: scc.has_cycle(adj, torch.bfloat16), reps=20)
+    log("phase8d: " + json.dumps(d))
+    out["screen_batch"] = d
+
+    # 8e: past max_device_vertices, the host route with no device call.
+    h = history([Op(**x) for x in elle_ops("append", ELLE_BIG_TXNS,
+                                           ELLE_SEED)])
+    t0 = time.perf_counter()
+    res, _, counts = counted(
+        torch, dev, lambda: AppendChecker(device=dev).check({}, h, {}))
+    e = {"txns": ELLE_BIG_TXNS, "wall_s": time.perf_counter() - t0,
+         "valid": res["valid"], "screens": counts.get("scc_screens", 0),
+         "extractions": counts.get("scc_extractions", 0)}
+    if (e["screens"] or e["extractions"]
+            or res != AppendChecker(device="off").check({}, h, {})
+            or res["valid"] is not True):
+        raise AssertionError(f"8e: {e}")
+    log("phase8e: " + json.dumps(e))
+    out["big"] = e
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"phase8: {out['wall_s']:.3f} s")
+    return out
+
+
+def elle_programs(torch, elle: dict) -> list:
+    """The device-program entries (B7 and B8) of phase 8 for the JSON
+    line before the kernels line: CUDA-event times from phase 8, device
+    time and operations per call from torch.profiler (phase 3), and the
+    bound from this run's shapes and BFS levels."""
+    import inspect
+
+    from jepsen_tpu_torch.checker.elle import AppendChecker
+    from jepsen_tpu_torch.ops import scc
+
+    dev = torch.device("cuda")
+    a8 = next(r for r in elle["checks"] if r["sub_phase"] == "8a")
+    b8 = next(r for r in elle["checks"] if r["sub_phase"] == "8b")
+    g_a, g_b = elle["graphs"]["8a"], elle["graphs"]["8b"]
+
+    adj = torch.from_numpy(scc.pack_adjacency([g_a])[0]).to(dev)
+    K, V = adj.shape[0], adj.shape[1]
+    seen = profile_device(torch, lambda: scc.has_cycle(adj, torch.bfloat16),
+                          reps=20)
+    b7_bound = bound(closure_ops(K, V), K * V * V + K)
+    b7 = {"name": "scc_closure_screen", "route": "torch",
+          "source": "jepsen_tpu_torch/ops/scc.py:"
+                    f"{inspect.getsourcelines(scc.has_cycle)[1]}",
+          "replaces": "jepsen_tpu/ops/scc.py:81",
+          "shape": list(adj.shape), "launches": a8["screens"],
+          "ms": a8["closure_ms"],
+          "device_ms": sum(us for _, us in seen.values()) / 20 / 1e3,
+          "device_ops_per_call": sum(n for n, _ in seen.values()) / 20,
+          "bound_ms": b7_bound[0], "bound_by": b7_bound[1],
+          "library_ms": elle["bmm_ms"],
+          "batch_shape": elle["screen_batch"]["shape"],
+          "batch_ms": elle["screen_batch"]["closure_ms"]}
+    seen = profile_device(torch, lambda: scc.screen_cycles([g_a], device=dev),
+                          reps=5)
+    b7["screen_call_device_ops"] = sum(n for n, _ in seen.values()) / 5
+
+    layers = scc.layer_entries(g_b)
+    a_all, a_req, _ = scc.pack_required([x[0] for x in layers],
+                                        [x[1] for x in layers])
+    A, R = (torch.from_numpy(x).to(dev) for x in (a_all, a_req))
+    K8, V8 = A.shape[0], A.shape[1]
+    seen = profile_device(
+        torch, lambda: scc.extract_batch(A, R, torch.bfloat16), reps=1)
+    b8_bound = bound(closure_ops(K8, V8)
+                     + b8["bfs_graph_levels"] * 2.0 * V8 * V8,
+                     2 * K8 * V8 * V8 + 4 * K8 * (V8 + 4))
+    b8e = {"name": "scc_extract", "route": "torch",
+           "source": "jepsen_tpu_torch/ops/scc.py:"
+                     f"{inspect.getsourcelines(scc.extract_batch)[1]}",
+           "replaces": "jepsen_tpu/ops/scc.py:162",
+           "shape": list(A.shape), "launches": b8["extractions"],
+           "bfs_levels": b8["bfs_levels"], "ms": b8["extract_ms"],
+           "device_ms": sum(us for _, us in seen.values()) / 1e3,
+           "device_ops_per_call": sum(n for n, _ in seen.values()),
+           "bound_ms": b8_bound[0], "bound_by": b8_bound[1],
+           "library_ms": None}
+    h, model = elle["profile_check"]
+    seen = profile_device(
+        torch, lambda: AppendChecker(model, device=dev).check({}, h, {}),
+        reps=1)
+    b8e["check_device_ms"] = sum(us for _, us in seen.values()) / 1e3
+    b8e["check_device_ops"] = sum(n for n, _ in seen.values())
+
+    # The many-level extraction (8b-chain) beside the one-level one
+    # (8b), both serializable and at the same shape: the difference per
+    # extra level is one level's cost (a host read, an index upload and
+    # the level's device work).
+    one = next(r for r in elle["checks"] if r["sub_phase"] == "8b"
+               and r["model"] == b8["model"])
+    many = next(r for r in elle["checks"] if r["sub_phase"] == "8b-chain"
+                and r["model"] == b8["model"])
+    layers = scc.layer_entries(elle["graphs"]["8b-chain"])
+    a_all, a_req, _ = scc.pack_required([x[0] for x in layers],
+                                        [x[1] for x in layers])
+    A, R = (torch.from_numpy(x).to(dev) for x in (a_all, a_req))
+    seen = profile_device(
+        torch, lambda: scc.extract_batch(A, R, torch.bfloat16), reps=1)
+    long_bound = bound(closure_ops(K8, V8)
+                       + many["bfs_graph_levels"] * 2.0 * V8 * V8,
+                       2 * K8 * V8 * V8 + 4 * K8 * (V8 + 4))
+    b8e["long_chain"] = {
+        "shape": list(A.shape), "bfs_levels": many["bfs_levels"],
+        "bfs_graph_levels": many["bfs_graph_levels"],
+        "ms": many["extract_ms"],
+        "device_ms": sum(us for _, us in seen.values()) / 1e3,
+        "device_ops_per_call": sum(n for n, _ in seen.values()),
+        "bound_ms": long_bound[0], "bound_by": long_bound[1],
+        "one_level_ms": one["extract_ms"],
+        "ms_per_extra_level": (many["extract_ms"] - one["extract_ms"])
+        / (many["bfs_levels"] - one["bfs_levels"])}
+    for e in (b7, b8e):
+        log(f"profile: {e['name']}: " + json.dumps(e))
+    return [b7, b8e]
+
+
 def ptxas_report(build_log: str) -> dict:
     """{"MODEL,SW,NW,stream": {"registers", "spill_stores",
     "spill_loads"}} of each witness_sweep_kernel instantiation, from the
@@ -1619,6 +2112,7 @@ def main() -> int:
     mixed_r = phase_mixed(torch, recorder)
     models_r = phase_models(torch, recorder)
     online_r = phase_online(torch, pm, packed, history)
+    elle_r = phase_elle(torch)
     entry["launches_online"] = {
         "carry": online_r["carry"]["sweep_launches"],
         "scale": online_r["scale"]["sweep_launches"],
@@ -1666,6 +2160,7 @@ def main() -> int:
         log(f"profile: batched BFS {model_name}: {b['levels']} levels, device "
             f"time {b['device_ms']:.3f} ms in {b['device_ops']} device "
             f"operations, wall {b['wall_s']:.3f} s")
+    programs = elle_programs(torch, elle_r)
     main_r["breakdown"] = breakdown(torch, history)
     log("profile: main path breakdown " + json.dumps(main_r["breakdown"]))
     bad_r = phase_invalid(torch)
@@ -1676,7 +2171,9 @@ def main() -> int:
         f"{mixed_r['all_valid']['ops_per_s']:.1f} ops/s; online "
         f"{online_r['scale']['ops']} ops, verdict lag "
         f"{online_r['scale']['verdict_lag_s']:.3f} s, lag_fraction "
-        f"{online_r['scale']['lag_fraction']:.4f}")
+        f"{online_r['scale']['lag_fraction']:.4f}; Elle phase 8 "
+        f"{elle_r['wall_s']:.3f} s")
+    print(json.dumps({"device_programs": programs}))
     print(json.dumps({"kernels": [entry] + more}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

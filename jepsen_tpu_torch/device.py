@@ -26,8 +26,10 @@ import torch
 #: that waited for the card), "heavy_rounds" (witness chain searches),
 #: "bfs_levels" (frontier and batched BFS levels), the many-key
 #: path's "stream_passes", "stream_restarts" and "stream_keys_proven",
-#: and online checking's "online_advances", "online_chunks",
-#: "frontier_deaths", "online_rechecks" and "online_consumed".
+#: online checking's "online_advances", "online_chunks",
+#: "frontier_deaths", "online_rechecks" and "online_consumed", and the
+#: Elle cycle search's "scc_screens", "scc_extractions",
+#: "scc_bfs_levels" and "scc_bfs_graph_levels" (ops/scc.py).
 #: Process-wide: callers reset by `.clear()`.
 counters: Counter = Counter()
 _counters_lock = threading.Lock()

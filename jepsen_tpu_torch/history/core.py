@@ -1,14 +1,15 @@
 """Operations and histories — the port's copy of
-`jepsen_tpu/history/core.py`, trimmed to what history generation and
-packing need: the `Op` record, the op types, and a dense-indexed
-`History` sequence.  Pairing, filtered views and folds wait for the
-slices that use them.
+`jepsen_tpu/history/core.py`, trimmed to what history generation,
+packing and the Elle analyses need: the `Op` record, the op types, a
+dense-indexed `History` sequence with invoke/completion pairing, and
+the filtered views `filter` and `client_ops`.  Folds and the other
+views wait for the slices that use them.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, Iterable, Iterator, Sequence
+from typing import Any, Callable, Iterable, Iterator, Optional, Sequence
 
 # Op types (the reference uses keywords :invoke :ok :fail :info).
 INVOKE = "invoke"
@@ -69,9 +70,10 @@ class Op:
 class History(Sequence[Op]):
     """An immutable sequence of Ops with dense indices.  Indices are
     (re)assigned densely unless the ops already carry them, and missing
-    times are filled from indices."""
+    times are filled from indices.  The pairing of invocations with
+    completions is computed on first use (the packers never need it)."""
 
-    __slots__ = ("ops",)
+    __slots__ = ("ops", "_pairs")
 
     def __init__(self, ops: Iterable[Op], *, reindex: bool | None = None):
         rows = list(ops)
@@ -83,6 +85,68 @@ class History(Sequence[Op]):
                 for i, o in enumerate(rows)
             ]
         self.ops: tuple[Op, ...] = tuple(rows)
+        self._pairs: Optional[tuple[dict[int, int], dict[int, int]]] = None
+
+    # -- pairing ----------------------------------------------------------
+
+    def _index(self) -> tuple[dict[int, int], dict[int, int]]:
+        """(Op.index -> paired Op.index, Op.index -> position in
+        self.ops); the two differ on filtered views, which keep the
+        original indices.
+
+        An invocation pairs with the next op on the same process (its
+        completion); a client :info completion crashes the process and
+        the next op of that worker comes under a fresh process, so
+        same-process pairing is unambiguous.  A double invoke without a
+        completion leaves the earlier op unpaired."""
+        if self._pairs is None:
+            pair: dict[int, int] = {}
+            pending: dict[Any, int] = {}
+            for o in self.ops:
+                if o.is_invoke:
+                    pending[o.process] = o.index
+                else:
+                    j = pending.pop(o.process, None)
+                    if j is not None:
+                        pair[j] = o.index
+                        pair[o.index] = j
+            by_index = {o.index: pos for pos, o in enumerate(self.ops)}
+            self._pairs = (pair, by_index)
+        return self._pairs
+
+    def completion(self, o: "Op | int") -> Optional[Op]:
+        """The completion op of an invocation, or None if it never
+        completed.  Works on filtered views: lookups key on Op.index."""
+        pair, by_index = self._index()
+        i = o if isinstance(o, int) else o.index
+        j = pair.get(i, -1)
+        if j > i and j in by_index:
+            return self.ops[by_index[j]]
+        return None
+
+    def invocation(self, o: "Op | int") -> Optional[Op]:
+        """The invocation op of a completion, or None."""
+        pair, by_index = self._index()
+        i = o if isinstance(o, int) else o.index
+        j = pair.get(i, -1)
+        if 0 <= j < i and j in by_index:
+            return self.ops[by_index[j]]
+        return None
+
+    def pair_index(self, i: int) -> int:
+        return self._index()[0].get(i, -1)
+
+    # -- filtered views ----------------------------------------------------
+
+    def filter(self, pred: Callable[[Op], bool]) -> "History":
+        """A new history of the ops matching `pred`.  Indices are kept,
+        so pairing against the original stays meaningful via .index."""
+        return History([o for o in self.ops if pred(o)], reindex=False)
+
+    def client_ops(self) -> "History":
+        return self.filter(lambda o: o.is_client_op)
+
+    # -- sequence protocol -------------------------------------------------
 
     def __len__(self) -> int:
         return len(self.ops)

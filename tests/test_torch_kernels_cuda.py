@@ -525,3 +525,42 @@ def test_cuda_frontier_carry_equals_the_cpu_carry():
     assert on_cpu.finalize(final) is True
     same()
     assert kernels.launches["witness_sweep"] > before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [0, 1])
+def test_cuda_scc_screen_and_extraction_equal_the_cpu(seed):
+    """The Elle closure screen and the witness-cycle extraction on the
+    card (bfloat16 products) equal the CPU's (float32) on the same
+    batches: flags, and found, u, v, parent and scc_size element for
+    element; and the layered records of a 1,000-vertex ring."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from chip_smoke import random_dep_graphs
+    from jepsen_tpu_torch.checker.elle.graph import DepGraph
+    from jepsen_tpu_torch.ops import scc
+
+    graphs = random_dep_graphs(96, seed, DepGraph)
+    assert np.array_equal(scc.screen_cycles(graphs, device="cuda"),
+                          scc.screen_cycles(graphs, device="cpu"))
+    layers = [x for g in graphs[:8] for x in scc.layer_entries(g)]
+    a_all, a_req, _ = scc.pack_required([x[0] for x in layers],
+                                        [x[1] for x in layers])
+    cpu = scc.extract_batch(torch.from_numpy(a_all),
+                            torch.from_numpy(a_req), torch.float32)
+    card = scc.extract_batch(torch.from_numpy(a_all).cuda(),
+                             torch.from_numpy(a_req).cuda(), torch.bfloat16)
+    for name, c, g in zip(("found", "u", "v", "parent", "scc_size"),
+                          cpu, card):
+        assert torch.equal(g.cpu(), c), name
+
+    ring = DepGraph()
+    for i in range(1000):
+        ring.add_edge(i, (i + 1) % 1000, "ww")
+    rng = np.random.default_rng(seed)
+    for _ in range(2000):
+        a, b = sorted(rng.integers(0, 1000, size=2))
+        if a != b:
+            ring.add_edge(int(a), int(b), "wr" if rng.random() < 0.5 else "rw")
+    assert (scc.check_cycles_layered_device(ring, device="cuda")
+            == scc.check_cycles_layered_device(ring, device="cpu"))
