@@ -6,9 +6,11 @@
 Needs one CUDA card and the CUDA toolkit (nvcc): the witness sweep
 kernel is built from jepsen_tpu_torch/csrc/ into build/jepsen_tpu_torch/
 at first use.  Exits non-zero, printing no result, when torch sees no
-CUDA device or the package is missing.  Nine phases, each raising on
-failure, run in the order 1, 2, 5, 6, 7, 8, 1b, 3, 4 (every host-clock
-and CUDA-event timing before the profiler first runs):
+CUDA device or the package is missing.  Ten phases, each raising on
+failure, run in the order 1, 2, 5, 6, 7, 8, 9, 1b, 3, 4 (every
+host-clock and CUDA-event timing before the profiler first runs).  The
+checkers' default route is the compiled plan (JEPSEN_PLAN unset), so
+phases 1-8 run it; phase 9 holds it against the legacy ladder:
 
 1. The sweep kernel against its plain PyTorch version at the bench
    shapes (B = 8, SW = 1, K = 2048, W = the bench history's planned
@@ -96,6 +98,24 @@ and CUDA-event timing before the profiler first runs):
    closure and extraction ms (CUDA events), BFS levels, host syncs.
    Phase 3 profiles the closure, the extraction, one screen call and
    one 8b check.
+9. The plan route (plan/, telemetry/): (9a) the bench history through
+   Linearizable with JEPSEN_PLAN on and off in turns (on, off, off, on,
+   on, off): equal verdicts, labels, sweep launches, chain rounds and
+   host syncs, no fallback to the legacy ladder, both medians printed;
+   (9b) phase 5's history (three each) and the 2,000-key all-valid one
+   (two each) through IndependentChecker, on and off: equal per-key
+   verdicts and labels, failure count, tiers, stream passes, restarts
+   and sweep launches, the wgl.settle.* counters printed; (9c) the
+   persistent plan memo in a temp directory: a second check of the
+   bench history is a memo hit with no sweep launch, and again after
+   the memo is dropped and its journal replayed (a restarted process);
+   a new budget misses; (9d) the fault hook on a 2,000-op history:
+   JEPSEN_WGL_FAULT=witness retries at half the block shape, falls
+   through and the frontier BFS proves the history on the card; "all"
+   raises after the halved retry with the card probe's result; (9e)
+   telemetry on, a profile store: the records of one bench check and
+   one phase 5 check equal the JAX package's (REF_PROFILE), name the
+   card, and the Chrome trace loads.
 
 The last lines are the device-program JSON line (the closure screen and
 the extraction, plain PyTorch: time, launches per check, bound), the
@@ -1911,6 +1931,349 @@ def phase_elle(torch, dev=None) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# The plan route (phase 9): the checkers' default route against the legacy
+# ladder (JEPSEN_PLAN=0), the persistent plan memo, the fault hook and the
+# profile records.
+
+#: Alternation of the plan route ("on") and the legacy ladder ("off") in
+#: the timed comparisons: three checks each, in turns.
+PLAN_ORDER = ("on", "off", "off", "on", "on", "off")
+#: The 2,000-key all-valid check, two each.
+PLAN_ORDER_BIG = ("on", "off", "off", "on")
+#: Phase 9d's valid history: 2,000 ops.
+FAULT_OPS = 2000
+
+#: The JAX package's profile records for phase 9e's checks of the bench
+#: history and of phase 5's history, on its plan route
+#: (JEPSEN_WGL_PACKED=0, on the CPU: pass names, shape features and
+#: knobs are counts, whatever the device), as (pass, features, plan);
+#: its "packed" knob is left out (the port has no packed lanes).
+#: tests/test_torch_telemetry.py holds the two packages' records equal
+#: on the same shapes at a smaller size.
+REF_PROFILE = {
+    "bench": [
+        ("witness", {"ok": 71304, "ops": 74614},
+         {"bars_per_block": 2048, "blocks_per_call": 32,
+          "info_window": 512, "width_hint": 0})],
+    "mixed": [
+        ("stream", {"keys": 200, "ops": 40364, "passes": 37,
+                    "restarts": 30},
+         {"bars_per_block": 2048, "blocks_per_call": 32,
+          "max_restarts": 100, "segment": 25}),
+        ("settle", {"keys": 30, "ops": 2249}, {})],
+}
+
+
+def set_env(name: str, value) -> None:
+    """Sets (None: removes) one environment variable."""
+    if value is None:
+        os.environ.pop(name, None)
+    else:
+        os.environ[name] = value
+
+
+def plan_runs(torch, dev, check, order) -> dict:
+    """check() once per entry of `order` with JEPSEN_PLAN on or off, the
+    settle memo cleared and the counts set to 0 just before each, read
+    just after -> {"on": [...], "off": [...]} of (result, wall s,
+    launches, counters, plan executions, plan fallbacks)."""
+    from jepsen_tpu_torch import telemetry
+    from jepsen_tpu_torch.parallel import clear_settle_memo
+
+    runs: dict = {"on": [], "off": []}
+    try:
+        for mode in order:
+            set_env("JEPSEN_PLAN", "1" if mode == "on" else "0")
+            clear_settle_memo()
+            telemetry.reset()
+            t0 = time.perf_counter()
+            res, launches, counts = counted(torch, dev, check)
+            dt = time.perf_counter() - t0
+            runs[mode].append((res, dt, launches, counts,
+                               telemetry.counter_value("wgl.plan.execute"),
+                               telemetry.counter_value("wgl.plan.fallback")))
+    finally:
+        set_env("JEPSEN_PLAN", None)
+    for mode, want_exec in (("on", 1), ("off", 0)):
+        for r in runs[mode]:
+            if (r[4] >= 1) != bool(want_exec) or r[5] != 0:
+                raise AssertionError(
+                    f"plan {mode}: {r[4]} plan executions, {r[5]} "
+                    f"fallbacks to the legacy ladder")
+    return runs
+
+
+def plan_counts(run) -> dict:
+    _, _, launches, counts, _, _ = run
+    return {"sweep_launches": launches.get("witness_sweep", 0),
+            **{k: counts.get(k, 0) for k in (
+                "heavy_rounds", "host_syncs", "bfs_levels",
+                "stream_passes", "stream_restarts")}}
+
+
+def plan_single(torch, dev, history) -> dict:
+    """9a: the bench history through Linearizable with the plan on and
+    off, in turns: equal verdicts, labels and counts."""
+    from jepsen_tpu_torch.checker import Linearizable
+    from jepsen_tpu_torch.models import cas_register
+
+    runs = plan_runs(torch, dev, lambda: Linearizable(
+        cas_register(), "wgl-tpu", device=dev).check({}, history, {}),
+        PLAN_ORDER)
+    counts = {m: [plan_counts(r) for r in rs] for m, rs in runs.items()}
+    labels = {(r[0]["valid"], r[0]["algorithm"]) for rs in runs.values()
+              for r in rs}
+    r = {"ops": len(history) // 2, "order": list(PLAN_ORDER),
+         "median_s": {m: statistics.median(x[1] for x in rs)
+                      for m, rs in runs.items()},
+         "wall_s": {m: [x[1] for x in rs] for m, rs in runs.items()},
+         "verdicts": sorted(labels), "counts": counts["on"][0]}
+    log("phase9a: " + json.dumps(r))
+    if labels != {(True, "wgl-tpu")} or any(
+            c != counts["on"][0] for cs in counts.values() for c in cs):
+        raise AssertionError(f"phase9a: plan on and off differ: verdicts "
+                             f"{labels}, counts {counts}")
+    need_launches("phase9a", dev, runs["on"][0][2])
+    return r
+
+
+def plan_many(torch, dev, what: str, history, order, failures: int) -> dict:
+    """9b: one many-key history through IndependentChecker with the plan
+    on and off: equal per-key verdicts and labels, failure count, tiers,
+    stream passes, restarts and sweep launches."""
+    from jepsen_tpu_torch import telemetry
+    from jepsen_tpu_torch.checker import Linearizable
+    from jepsen_tpu_torch.models import cas_register
+    from jepsen_tpu_torch.parallel import IndependentChecker
+
+    runs = plan_runs(torch, dev, lambda: IndependentChecker(
+        Linearizable(cas_register(), time_limit_s=120, device=dev),
+        device=dev).check({}, history, {}), order)
+    settle = telemetry.settle_counters()
+    first = runs["on"][0][0]
+    want = {k: (v["valid"], v["algorithm"])
+            for k, v in first["results"].items()}
+    diff = []
+    for mode, rs in runs.items():
+        for res, _, _, _, _, _ in rs:
+            got = {k: (v["valid"], v["algorithm"])
+                   for k, v in res["results"].items()}
+            if (got != want or res["failure-count"] != failures
+                    or res["tiers"] != first["tiers"]):
+                diff.append((mode, res["failure-count"], res["tiers"]))
+    counts = {m: [{k: c[k] for k in ("sweep_launches", "stream_passes",
+                                      "stream_restarts")}
+                  for c in map(plan_counts, rs)] for m, rs in runs.items()}
+    r = {"history": what, "ops": len(history) // 2,
+         "order": list(order),
+         "median_s": {m: statistics.median(x[1] for x in rs)
+                      for m, rs in runs.items()},
+         "wall_s": {m: [x[1] for x in rs] for m, rs in runs.items()},
+         "failure_count": first["failure-count"], "tiers": first["tiers"],
+         "counts": counts["on"][0], "settle_counters": settle}
+    log(f"phase9b: {what} " + json.dumps(r))
+    if diff or any(c != counts["on"][0] for cs in counts.values()
+                   for c in cs):
+        raise AssertionError(f"phase9b {what}: plan on and off differ: "
+                             f"{diff[:4]}, counts {counts}")
+    return r
+
+
+def plan_memo(torch, dev, history) -> dict:
+    """9c: the persistent plan memo in a temp directory: the second check
+    of the bench history is a memo hit with no sweep; a fresh process
+    state replays it from the journal; a new budget misses."""
+    import tempfile
+
+    from jepsen_tpu_torch.checker import Linearizable
+    from jepsen_tpu_torch.models import cas_register
+    from jepsen_tpu_torch.plan import cache as plan_cache
+
+    def check(limit=None):
+        t0 = time.perf_counter()
+        res, launches, _ = counted(torch, dev, lambda: Linearizable(
+            cas_register(), "wgl-tpu", time_limit_s=limit,
+            device=dev).check({}, history, {}))
+        return (res, launches.get("witness_sweep", 0),
+                time.perf_counter() - t0)
+
+    with tempfile.TemporaryDirectory() as d:
+        set_env("JEPSEN_PLAN_CACHE", d)
+        plan_cache.reset_for_tests()
+        try:
+            cold = check()
+            warm = check()
+            plan_cache.reset_for_tests()  # a restarted process
+            replay = check()
+            loaded = plan_cache.active_memo().loaded
+            other = check(limit=600.0)
+            st = plan_cache.stats()["memo"]
+        finally:
+            set_env("JEPSEN_PLAN_CACHE", None)
+            plan_cache.reset_for_tests()
+    r = {name: {"valid": x[0]["valid"], "algorithm": x[0]["algorithm"],
+                "memo_hit": bool(x[0].get("memo-hit")),
+                "sweep_launches": x[1], "wall_s": x[2]}
+         for name, x in (("cold", cold), ("warm", warm),
+                         ("replayed", replay), ("new_budget", other))}
+    r["journal_entries_loaded"] = loaded
+    r["memo"] = st
+    log("phase9c: " + json.dumps(r))
+    on_card = dev.type == "cuda"  # the CPU runs the plain sweep
+    ok = (not r["cold"]["memo_hit"]
+          and (r["cold"]["sweep_launches"] > 0 or not on_card)
+          and r["warm"]["memo_hit"] and r["warm"]["sweep_launches"] == 0
+          and r["replayed"]["memo_hit"]
+          and r["replayed"]["sweep_launches"] == 0 and loaded >= 1
+          and not r["new_budget"]["memo_hit"]
+          and (r["new_budget"]["sweep_launches"] > 0 or not on_card)
+          and {x["valid"] for k, x in r.items() if isinstance(x, dict)
+               and "valid" in x} == {True})
+    if not ok:
+        raise AssertionError(f"phase9c: memo readings {r}")
+    return r
+
+
+def plan_faults(torch, dev) -> dict:
+    """9d: the fault hook on the card.  A witness fault retries at half
+    the block shape, falls through, and the frontier BFS still proves the
+    history; with every tier faulted the check raises after the one
+    halved retry, carrying the card probe's result."""
+    from jepsen_tpu_torch.checker import Linearizable
+    from jepsen_tpu_torch.models import cas_register
+    from jepsen_tpu_torch.ops import degrade
+    from jepsen_tpu_torch.utils.histgen import random_register_history
+
+    h = random_register_history(FAULT_OPS, procs=8, info_rate=0.05,
+                                seed=BENCH_SEED)
+    r: dict = {"ops": FAULT_OPS}
+    try:
+        set_env(degrade.FAULT_ENV, "witness")
+        t0 = time.perf_counter()
+        res, launches, counts = counted(torch, dev, lambda: Linearizable(
+            cas_register(), device=dev).check({}, h, {}))
+        r["witness"] = {
+            "valid": res["valid"], "algorithm": res["algorithm"],
+            "degradations": [(s["tier"], s["action"])
+                             for s in res.get("degradations", ())],
+            "bfs_levels": counts.get("bfs_levels", 0),
+            "sweep_launches": launches.get("witness_sweep", 0),
+            "wall_s": time.perf_counter() - t0}
+        set_env(degrade.FAULT_ENV, "all")
+        t0 = time.perf_counter()
+        try:
+            Linearizable(cas_register(), device=dev).check({}, h, {})
+        except degrade.CardExhausted as e:
+            r["all"] = {"raised": type(e).__name__, "probe": e.probe,
+                        "wall_s": time.perf_counter() - t0}
+        else:
+            raise AssertionError("phase9d: every tier faulted and the "
+                                 "check did not raise")
+    finally:
+        set_env(degrade.FAULT_ENV, None)
+    log("phase9d: " + json.dumps(r))
+    w = r["witness"]
+    if (w["valid"] is not True or w["degradations"] != [
+            ("witness", "retry-halved"), ("witness", "fall-through")]
+            or w["bfs_levels"] <= 0):
+        raise AssertionError(f"phase9d: witness fault gave {w}")
+    if dev.type == "cuda" and not r["all"]["probe"]["ok"]:
+        raise AssertionError(f"phase9d: card probe failed: {r['all']}")
+    return r
+
+
+def plan_profiles(torch, dev, history, mixed, kind: str,
+                  ref=REF_PROFILE) -> dict:
+    """9e: telemetry on and a profile store in a temp directory; one
+    check of the bench history and one of phase 5's history.  At full
+    size the records' passes, features and knobs equal the reference's;
+    each names the card, and the Chrome trace loads."""
+    import tempfile
+
+    from jepsen_tpu_torch import telemetry
+    from jepsen_tpu_torch.checker import Linearizable
+    from jepsen_tpu_torch.models import cas_register
+    from jepsen_tpu_torch.parallel import IndependentChecker, \
+        clear_settle_memo
+    from jepsen_tpu_torch.telemetry import profile
+
+    got: dict = {}
+    with tempfile.TemporaryDirectory() as d:
+        telemetry.enable(True)
+        telemetry.reset()
+        profile.set_store(d)
+        try:
+            for name, check in (
+                    ("bench", lambda: Linearizable(
+                        cas_register(), "wgl-tpu", device=dev).check(
+                        {}, history, {})),
+                    ("mixed", lambda: IndependentChecker(Linearizable(
+                        cas_register(), time_limit_s=120, device=dev),
+                        device=dev).check({}, mixed, {}))):
+                clear_settle_memo()
+                n0 = profile.count_records()
+                check()
+                got[name] = profile.read(profile.store_path())[n0:]
+            paths = telemetry.export(d)
+            with open(paths[1]) as f:
+                trace = json.load(f)
+            spans = telemetry.summary()["spans"]
+        finally:
+            profile.set_store(None)
+            telemetry.reset()
+            telemetry.enable(False)
+    rows = {name: [(x["pass"], x["features"],
+                    {k: v for k, v in x["plan"].items() if k != "mesh"})
+                   for x in recs] for name, recs in got.items()}
+    r = {"records": {name: [dict(zip(("pass", "features", "plan"), row),
+                                 timing=x["timing"], device=x["device"])
+                            for row, x in zip(rows[name], got[name])]
+                     for name in rows},
+         "trace_events": len(trace["traceEvents"]),
+         "spans": {k: v["count"] for k, v in spans.items()}}
+    log("phase9e: " + json.dumps(r))
+    # The reference's records are for the full-size histories.
+    if len(history) // 2 == BENCH_OPS and rows != ref:
+        raise AssertionError(f"phase9e: records {rows} != the "
+                             f"reference's {ref}")
+    kinds = {x["device"]["device_kind"] for recs in got.values()
+             for x in recs}
+    if kinds != {kind}:
+        raise AssertionError(f"phase9e: records name {kinds}, not {kind}")
+    if not any(e["ph"] == "X" for e in trace["traceEvents"]):
+        raise AssertionError("phase9e: the Chrome trace holds no span")
+    return r
+
+
+def phase_plan(torch, history, dev=None, mixed_keys: int = MIXED_KEYS,
+               big_keys: int = BIG_KEYS) -> dict:
+    """Phase 9, the plan route, on `dev` (the card by default)."""
+    from jepsen_tpu_torch import telemetry
+
+    dev = torch.device("cuda") if dev is None else torch.device(dev)
+    kind = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+            else dev.type)
+    mixed = mixed_history(mixed_keys, MIXED_BAD)
+    telemetry.enable(True)
+    try:
+        out = {
+            "single": plan_single(torch, dev, history),
+            "mixed": plan_many(torch, dev, "mixed", mixed, PLAN_ORDER,
+                               MIXED_BAD),
+            "all_valid": plan_many(torch, dev, "all-valid",
+                                   mixed_history(big_keys, 0),
+                                   PLAN_ORDER_BIG, 0),
+        }
+    finally:
+        telemetry.reset()
+        telemetry.enable(False)
+    out["memo"] = plan_memo(torch, dev, history)
+    out["faults"] = plan_faults(torch, dev)
+    out["profiles"] = plan_profiles(torch, dev, history, mixed, kind)
+    return out
+
+
 def elle_programs(torch, elle: dict) -> list:
     """The device-program entries (B7 and B8) of phase 8 for the JSON
     line before the kernels line: CUDA-event times from phase 8, device
@@ -2113,6 +2476,7 @@ def main() -> int:
     models_r = phase_models(torch, recorder)
     online_r = phase_online(torch, pm, packed, history)
     elle_r = phase_elle(torch)
+    plan_r = phase_plan(torch, history)
     entry["launches_online"] = {
         "carry": online_r["carry"]["sweep_launches"],
         "scale": online_r["scale"]["sweep_launches"],
@@ -2172,7 +2536,9 @@ def main() -> int:
         f"{online_r['scale']['ops']} ops, verdict lag "
         f"{online_r['scale']['verdict_lag_s']:.3f} s, lag_fraction "
         f"{online_r['scale']['lag_fraction']:.4f}; Elle phase 8 "
-        f"{elle_r['wall_s']:.3f} s")
+        f"{elle_r['wall_s']:.3f} s; plan route on/off median "
+        f"{plan_r['single']['median_s']['on']:.4f} / "
+        f"{plan_r['single']['median_s']['off']:.4f} s")
     print(json.dumps({"device_programs": programs}))
     print(json.dumps({"kernels": [entry] + more}))
     print(smi)

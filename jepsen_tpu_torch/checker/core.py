@@ -9,7 +9,8 @@ false > unknown > true.
 kernel that did not build or launch, CUDA asked for and missing, a CUDA
 error; `ops.degrade.is_device_fault`) propagates instead of becoming an
 "unknown" verdict, so a run meant for the card cannot hide a failing
-card or kernel.  The reference's wall-clock budget watchdog is left out.
+card or kernel.  Each call is a `checker.<Name>` telemetry span, as in
+the reference.  The reference's wall-clock budget watchdog is left out.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from __future__ import annotations
 import traceback
 from typing import Any, Iterable, Optional
 
+from .. import telemetry
 from ..history.core import History
 from ..ops import degrade
 
@@ -49,11 +51,20 @@ class Checker:
         raise NotImplementedError
 
 
+def checker_name(c: Any) -> str:
+    """A checker's span label: its `name` attribute or its class name."""
+    n = getattr(c, "name", None)
+    return n if isinstance(n, str) and n else type(c).__name__
+
+
 def check_safe(c: Checker, test: dict, history: History,
                opts: Optional[dict] = None) -> dict:
     """`c.check`, with any exception but a device fault turned into a
     {"valid": "unknown"} result (checker.clj:79-90)."""
     try:
+        if telemetry.enabled():
+            with telemetry.span(f"checker.{checker_name(c)}"):
+                return c.check(test, history, opts or {})
         return c.check(test, history, opts or {})
     except Exception as e:  # noqa: BLE001
         if degrade.is_device_fault(e):

@@ -20,22 +20,35 @@ Before any engine runs, a verdict an online session
 still going is taken ("wgl-online"), when the packed history's digest
 equals the one the proof covered; `streaming=False` ignores sessions.
 
-The port of `jepsen_tpu/checker/linearizable.py`; the plan executor
-waits for a later slice.
+The port of `jepsen_tpu/checker/linearizable.py`.  With `JEPSEN_PLAN`
+on (the default) the device paths run as a compiled plan
+(plan/compiler.py `run_single`): the device-first ladder as one pass,
+fronted by the persistent plan memo when a cache directory is set.  As
+in the reference, the legacy ladder is the net for a plan failure, but
+only for one that is neither a device fault nor a resource error: those
+raise (the resource ladder already ran inside the plan).
+
+A device out-of-memory error retries the whole device search once at
+half size on the same card; when that retry runs out too, the check
+raises with `degrade.probe_card`'s result attached, where the reference
+settles on its CPU engine.
 """
 
 from __future__ import annotations
 
+import logging
 import time
 from typing import Optional, Union
 
 import torch
 
 from .. import device as _device
+from .. import telemetry
 from ..history.core import History
 from ..history.packed import pack_history
 from ..models.base import Model, PackedModel
 from ..ops import degrade
+from ..telemetry import profile
 from .core import Checker
 from .refute import check_refute
 from .wgl_cpu import WGLResult, check_wgl_cpu, check_wgl_host_model
@@ -47,6 +60,12 @@ DEFAULT_SETTLE_BUDGET_S = 120.0
 
 CPU_ALGORITHMS = ("wgl", "linear", "cpu", "event")
 _DEVICE_ALGORITHMS = ("wgl-tpu", "competition")
+
+#: The WGLResult reason of a device search whose tiers ran out of
+#: device resources (ops/wgl.py).
+DEVICE_RESOURCE_ERROR = "device-resource-error"
+
+log = logging.getLogger(__name__)
 
 
 class Linearizable(Checker):
@@ -86,13 +105,13 @@ class Linearizable(Checker):
         # Record every degradation step taken while checking, so the
         # result shows the path taken to the verdict.
         with degrade.capture() as steps:
-            out = self._check(test or {}, history, model, dev)
+            out = self._check(test or {}, history, opts or {}, model, dev)
         if steps:
             out["degradations"] = steps
         return out
 
-    def _check(self, test: dict, history: History, model: Model,
-               dev: torch.device) -> dict:
+    def _check(self, test: dict, history: History, opts: dict,
+               model: Model, dev: torch.device) -> dict:
         try:
             pm = model.packed()
         except NotImplementedError:
@@ -131,6 +150,21 @@ class Linearizable(Checker):
                     1.0, self.time_limit_s - (time.monotonic() - t0))
             res, engine = self._cpu_exact(packed, pm, time_limit_s=remaining)
             return self._render(res, packed, engine, pm)
+        from ..plan import enabled as _plan_enabled
+
+        if _plan_enabled():
+            from ..plan.compiler import run_single
+
+            try:
+                return run_single(self, packed, pm, model, self.algorithm,
+                                  test, opts, dev)
+            except Exception as e:  # noqa: BLE001 — the legacy ladder is
+                # the net, for failures of the plan layer only
+                if degrade.is_device_fault(e) or degrade.is_resource_error(e):
+                    raise
+                telemetry.count("wgl.plan.fallback")
+                log.warning("plan executor failed; using the legacy ladder",
+                            exc_info=True)
         return self._device_first(packed, pm, dev)
 
     def _host_fallback(self, history: History, model: Model, label: str,
@@ -168,18 +202,34 @@ class Linearizable(Checker):
                                     device=dev)
 
         try:
-            res = _device_search(self.beam, self.max_beam, self.block,
-                                 budget_left)
+            res, err = _device_search(self.beam, self.max_beam, self.block,
+                                      budget_left), None
         except Exception as e:
             if not degrade.is_resource_error(e):
                 raise
-            # The device ran out of memory: retry the search once at half
-            # size on the same device.  A second failure raises — the
-            # verdict never silently moves to the CPU engines.
-            degrade.record("dispatch", "retry-halved", e)
-            res = _device_search(max(self.beam // 2, 64),
-                                 max(self.max_beam // 2, 64),
-                                 max(self.block // 2, 32), _budget_now())
+            res, err = None, e
+        if err is not None or (res.valid == "unknown"
+                               and res.reason == DEVICE_RESOURCE_ERROR):
+            # The device ran out of resources (raised, or every tier
+            # fell through): retry the search once at half size on the
+            # same device.  If that runs out too, raise with the card's
+            # probe — the verdict never silently moves to the CPU.
+            degrade.record("dispatch", "retry-halved",
+                           err if err is not None else DEVICE_RESOURCE_ERROR)
+            try:
+                res = _device_search(max(self.beam // 2, 64),
+                                     max(self.max_beam // 2, 64),
+                                     max(self.block // 2, 32), _budget_now())
+            except Exception as e:
+                if degrade.is_resource_error(e):
+                    probe = _probe(dev)
+                    e.probe = probe
+                    e.add_note(f"after the halved retry; card probe: {probe}")
+                raise
+            if res.valid == "unknown" and res.reason == DEVICE_RESOURCE_ERROR:
+                raise degrade.CardExhausted(
+                    "the device search ran out of device resources again "
+                    "after the halved retry", _probe(dev))
         used = "wgl-tpu"
         if res.valid is False and not res.final_configs:
             # The device BFS settles the verdict but carries no
@@ -221,12 +271,22 @@ class Linearizable(Checker):
         walk with the info-class quotient when indeterminate ops are
         present, else the memoized DFS."""
         limit = self.time_limit_s if time_limit_s is None else time_limit_s
-        if algorithm == "event" or (
-                algorithm != "wgl" and packed.n > packed.n_ok):
-            return check_wgl_event(packed, pm, max_configs=self.max_configs,
-                                   time_limit_s=limit), "event"
-        return check_wgl_cpu(packed, pm, max_configs=self.max_configs,
-                             time_limit_s=limit), "wgl"
+        with profile.capture("exact-cpu", device="cpu", ops=int(packed.n),
+                             ok=int(packed.n_ok)) as _pc:
+            _pc.knob(max_configs=self.max_configs, time_limit_s=limit)
+            if algorithm == "event" or (
+                    algorithm != "wgl" and packed.n > packed.n_ok):
+                res, engine = check_wgl_event(
+                    packed, pm, max_configs=self.max_configs,
+                    time_limit_s=limit), "event"
+            else:
+                res, engine = check_wgl_cpu(
+                    packed, pm, max_configs=self.max_configs,
+                    time_limit_s=limit), "wgl"
+            _pc.knob(engine=engine)
+            _pc.outcome = res.valid
+            _pc.feature(explored=int(res.configs_explored))
+        return res, engine
 
     def _render(self, res: WGLResult, packed, algorithm: str,
                 pm: Optional[PackedModel]) -> dict:
@@ -250,6 +310,15 @@ class Linearizable(Checker):
                        if pm.describe_op else None),
             }
         return out
+
+
+def _probe(dev: torch.device) -> dict:
+    """`degrade.probe_card` for a search on the card; a CPU search has
+    no card to probe."""
+    if dev.type == "cuda":
+        return degrade.probe_card()
+    return {"ok": None, "name": None,
+            "detail": "not probed: the search ran on the CPU"}
 
 
 def linearizable(model=None, algorithm: str = "wgl-tpu", **kw) -> Linearizable:

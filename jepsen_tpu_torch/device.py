@@ -57,21 +57,49 @@ def resolve(device: Union[str, torch.device, None] = "cuda") -> torch.device:
     return dev
 
 
+_tf32_lock = threading.Lock()
+_tf32_depth = 0
+_tf32_saved: Any = None
+
+
+def _tf32_swap(value: Any) -> Any:
+    """Sets the process-wide float32 matmul precision of CUDA products
+    to `value` (full precision when None) and returns the setting it
+    replaced.  Uses `fp32_precision` where torch has it: reading the
+    legacy `allow_tf32` after a caller set the new API raises."""
+    m = torch.backends.cuda.matmul
+    if hasattr(m, "fp32_precision"):
+        prev = m.fp32_precision
+        m.fp32_precision = "ieee" if value is None else value
+    else:
+        prev = m.allow_tf32
+        m.allow_tf32 = False if value is None else value
+    return prev
+
+
 @contextmanager
 def exact_float32() -> Iterator[None]:
     """Float32 matrix products at full precision inside the block.
 
     The search paths hash configurations with float32 products and
     rely on equal configurations hashing equal; TF32 would round the
-    operands to 10 mantissa bits.  PyTorch's default is already off
-    (`torch.backends.cuda.matmul.allow_tf32` False); this pins it for
-    the block and restores the caller's setting."""
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
+    operands to 10 mantissa bits.  The setting is process-wide and the
+    many-key checker runs searches in threads, so entries are counted
+    under a lock: the first thread in saves the caller's setting and
+    pins full precision, the last one out restores it."""
+    global _tf32_depth, _tf32_saved
+    with _tf32_lock:
+        if _tf32_depth == 0:
+            _tf32_saved = _tf32_swap(None)
+        _tf32_depth += 1
     try:
         yield
     finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
+        with _tf32_lock:
+            _tf32_depth -= 1
+            if _tf32_depth == 0:
+                _tf32_swap(_tf32_saved)
+                _tf32_saved = None
 
 
 def host(t: torch.Tensor) -> Any:

@@ -23,6 +23,7 @@ from typing import Any, Callable, Optional
 
 import numpy as np
 
+from .. import telemetry
 from .core import FAIL, INVOKE, OK, History, Op
 
 #: Sentinel for "never returns" event index.
@@ -461,9 +462,11 @@ class PackedBuilder:
         """(stable-prefix pack, s): exactly the rows with inv < s.  The
         pack is witness-only: preds/horizon stay zero (the witness never
         reads them; finish() gives the full pack)."""
-        s = self.stable_bound()
-        self._advance_stable(s)
-        return _rows_to_packed(self._stable, with_preds=False), s
+        with telemetry.span("ingest.snapshot", rows=self.n_rows):
+            telemetry.count("ingest.snapshots")
+            s = self.stable_bound()
+            self._advance_stable(s)
+            return _rows_to_packed(self._stable, with_preds=False), s
 
     def finish(self) -> PackedOps:
         """Closes the pack: unfinished invocations become
@@ -472,13 +475,14 @@ class PackedBuilder:
         if self._finished:
             raise RuntimeError("PackedBuilder already finished")
         self._finished = True
-        # In pending dict order: the order the encoder sees them.
-        for inv_e, inv_op in self._pending.values():
-            self._emit(inv_e, inv_op, -1, None)
-        self._pending.clear()
-        rows = self._stable + self._rows
-        rows.sort(key=lambda r: r[0])
-        return _rows_to_packed(rows, with_preds=True)
+        with telemetry.span("ingest.finish", rows=self.n_rows):
+            # In pending dict order: the order the encoder sees them.
+            for inv_e, inv_op in self._pending.values():
+                self._emit(inv_e, inv_op, -1, None)
+            self._pending.clear()
+            rows = self._stable + self._rows
+            rows.sort(key=lambda r: r[0])
+            return _rows_to_packed(rows, with_preds=True)
 
 
 def pack_history(h: History, encode: OpEncoderFn) -> PackedOps:

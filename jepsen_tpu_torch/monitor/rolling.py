@@ -33,6 +33,7 @@ from typing import Any, Hashable, Optional, Union
 
 import torch
 
+from .. import telemetry
 from ..history.packed import PackedBuilder
 from ..models.base import PackedModel
 from ..ops import degrade
@@ -130,6 +131,7 @@ class RollingChecker:
         ks.discarded_rows = 0
         ks.discarded_bars = 0
         ks.lag_points.clear()
+        telemetry.count("monitor.epoch-restarts")
         log.warning("monitor key %r: epoch restart (%s)", key, reason)
 
     def _advance(self, key: Hashable, ks: _KeyState,
@@ -156,6 +158,8 @@ class RollingChecker:
             ks.discarded_rows += rows
             ks.discarded_bars += bars
             ks.rows_at_advance = ks.packer.n_rows
+            telemetry.count("monitor.discards")
+            telemetry.count("monitor.discarded-rows", rows)
 
     # -- API ----------------------------------------------------------------
 

@@ -34,9 +34,12 @@ import numpy as np
 import torch
 
 from .. import device as _device
+from .. import telemetry
 from ..checker.wgl_cpu import WGLResult
 from ..history.packed import ST_OK, PackedOps
 from ..models.base import PackedModel
+from ..telemetry import profile
+from . import degrade
 
 #: int32 "never" sentinel (ret of indeterminate ops, padding).  A
 #: Python int so torch ops against int32 tensors stay int32.
@@ -270,7 +273,10 @@ def check_wgl_device(
     one; each rung gets the budget that remains.  If no witness is
     found, the frontier BFS settles the verdict: exact until
     `max_beam`/`MAX_WINDOW` overflow, after which invalid degrades to
-    "unknown"."""
+    "unknown".  A device resource error in a BFS block (an
+    out-of-memory error, or the `JEPSEN_WGL_FAULT` hook's "device"
+    tier) retries the block once at half the beam on the same device,
+    then returns "unknown" with reason "device-resource-error"."""
     dev = _device.resolve(device)
     t0 = time.monotonic()
     N = packed.n
@@ -291,21 +297,49 @@ def check_wgl_device(
         from .wgl_witness import (NARROW_INFO_WINDOW, WIDE_INFO_WINDOW,
                                   check_wgl_witness, plan_drops)
 
-        wres = check_wgl_witness(
-            packed, pm, info_window=NARROW_INFO_WINDOW,
-            time_limit_s=remaining(), width_hint=width_hint, device=dev)
-        if wres is None and not timed_out() and plan_drops(
-                packed, info_window=NARROW_INFO_WINDOW):
-            wres = check_wgl_witness(
-                packed, pm, info_window=WIDE_INFO_WINDOW,
-                time_limit_s=remaining(), width_hint=width_hint, device=dev)
+        with profile.capture("witness", device=dev, ops=int(N),
+                             ok=int(packed.n_ok)) as _pw:
+            _pw.knob(info_window=NARROW_INFO_WINDOW, width_hint=width_hint)
+            with telemetry.span("wgl.witness"):
+                wres = check_wgl_witness(
+                    packed, pm, info_window=NARROW_INFO_WINDOW,
+                    time_limit_s=remaining(), width_hint=width_hint,
+                    device=dev)
+                if wres is None and not timed_out() and plan_drops(
+                        packed, info_window=NARROW_INFO_WINDOW):
+                    _pw.knob(info_window=WIDE_INFO_WINDOW)
+                    wres = check_wgl_witness(
+                        packed, pm, info_window=WIDE_INFO_WINDOW,
+                        time_limit_s=remaining(), width_hint=width_hint,
+                        device=dev)
+            _pw.outcome = "hit" if wres is not None else "miss"
         if wres is not None:
+            telemetry.count("wgl.witness.hit")
             return wres
+        telemetry.count("wgl.witness.miss")
         if timed_out():
             return WGLResult(valid="unknown", configs_explored=0,
                              reason="time-limit",
                              elapsed_s=time.monotonic() - t0)
 
+    # The BFS pass record: the reference's shape features and knobs
+    # (no mesh here, and no packed member lanes).
+    with profile.capture("bfs", device=dev, ops=int(N),
+                         ok=int(packed.n_ok)) as _pb:
+        _pb.knob(beam=int(_bucket(beam, lo=256)), block=int(block),
+                 max_beam=int(max_beam), max_window=int(MAX_WINDOW),
+                 mesh=False)
+        res = _bfs(packed, pm, beam, max_beam, block, t0, timed_out, dev)
+        _pb.outcome = (f"unknown:{res.reason}" if res.valid == "unknown"
+                       else res.valid)
+        _pb.feature(explored=int(res.configs_explored))
+    return res
+
+
+def _bfs(packed: PackedOps, pm: PackedModel, beam: int, max_beam: int,
+         block: int, t0: float, timed_out, dev: torch.device) -> WGLResult:
+    """The frontier BFS of `check_wgl_device`, block by block."""
+    N = packed.n
     SW = pm.state_width
     n0 = 0
     B = _bucket(beam, lo=256)
@@ -313,6 +347,7 @@ def check_wgl_device(
     member = states = alive = None
     explored_total = 0
     soft_incomplete = False  # gave up on exactness somewhere
+    device_retried = False  # one halved-beam retry on resource errors
 
     while n0 < N:
         win = _window_tables(packed, n0, block, MAX_WINDOW)
@@ -346,10 +381,39 @@ def check_wgl_device(
 
         iters = min(block, N - n0)
         snap = (member, states, alive)  # block start, for beam retries
+        if telemetry.enabled():
+            telemetry.gauge("wgl.bfs.beam", B)
+            telemetry.gauge("wgl.bfs.window", W)
         while True:
-            (member, states, alive, accepted, incomplete, explored,
-             it_done) = _run_block(member, states, alive, iters, tables, B,
-                                   CAND_FACTOR * B, pm)
+            try:
+                degrade.maybe_fault("device")
+                with telemetry.span("wgl.bfs.block"):
+                    (member, states, alive, accepted, incomplete, explored,
+                     it_done) = _run_block(member, states, alive, iters,
+                                           tables, B, CAND_FACTOR * B, pm)
+            except Exception as e:  # noqa: BLE001 — only resource errors
+                if not degrade.is_resource_error(e):
+                    raise
+                # The device, not the search, gave out: retry the block
+                # once at half the beam from its snapshot, then leave
+                # the verdict "unknown" for the caller.
+                if device_retried or B <= 64:
+                    degrade.record("device", "fall-through", e)
+                    return WGLResult(valid="unknown",
+                                     configs_explored=explored_total,
+                                     reason="device-resource-error",
+                                     elapsed_s=time.monotonic() - t0)
+                device_retried = True
+                degrade.record("device", "retry-halved", e)
+                B //= 2
+                m0, s0, a0 = snap
+                # Rows are packed alive-first: cutting live rows past the
+                # new beam forfeits exactness (invalid becomes unknown).
+                if _device.host(a0[B:].any()):
+                    soft_incomplete = True
+                member, states, alive = m0[:B], s0[:B], a0[:B]
+                snap = (member, states, alive)
+                continue
             if accepted:
                 return WGLResult(valid=True,
                                  configs_explored=explored_total + explored,

@@ -31,8 +31,10 @@ import numpy as np
 import torch
 
 from .. import device as _device
+from .. import telemetry
 from ..history.packed import ST_OK, PackedOps
 from ..models.base import PackedModel
+from ..telemetry import profile
 from . import degrade
 
 #: int32 "never" sentinel (padding ops, info returns), a Python int so
@@ -279,8 +281,9 @@ def check_wgl_batched(
     by default; raises when CUDA is asked for but missing).  Keys whose
     search overflowed the beam retry together at twice the beam; at
     `max_beam` they report "unknown".  The time limit is checked
-    between retry rounds.  A device resource error retries once at half
-    the beam on the same device, then reports the unsettled keys
+    between retry rounds.  A device resource error (the
+    `JEPSEN_WGL_FAULT` hook's "batched" tier included) retries once at
+    half the beam on the same device, then reports the unsettled keys
     "unknown"; any other error raises."""
     dev = _device.resolve(device)
     t0 = time.monotonic()
@@ -292,51 +295,75 @@ def check_wgl_batched(
     todo = list(range(K))
     B = _bucket(beam, lo=32)
     batch_retried = False
-    while todo:
-        t = _Tables(bp, np.asarray(todo), pm, dev)
-        try:
-            acc, alive_end, inc, expl = _search(t, B, CAND_FACTOR * B, pm)
-        except Exception as e:  # noqa: BLE001 — only resource errors
-            if not degrade.is_resource_error(e):
-                raise
-            if batch_retried or B <= 32:
-                degrade.record("batched", "fall-through", e)
-                for k in todo:
-                    verdict[k] = "unknown"
-                todo = []
+    # One cost record per batched pass: the reference's features and
+    # knobs (no mesh here, and no packed member lanes).
+    with profile.capture("batched", device=dev, keys=K,
+                         ops=int(sum(p.n for p in packs))) as _pb:
+        _pb.knob(beam=B, max_beam=int(max_beam), cand_factor=CAND_FACTOR,
+                 mesh=False)
+        while todo:
+            t = _Tables(bp, np.asarray(todo), pm, dev)
+            try:
+                degrade.maybe_fault("batched")
+                with telemetry.span("wgl.batched.block", keys=len(todo),
+                                    beam=B):
+                    acc, alive_end, inc, expl = _search(
+                        t, B, CAND_FACTOR * B, pm)
+            except Exception as e:  # noqa: BLE001 — only resource errors
+                if not degrade.is_resource_error(e):
+                    raise
+                if batch_retried or B <= 32:
+                    degrade.record("batched", "fall-through", e)
+                    for k in todo:
+                        verdict[k] = "unknown"
+                    todo = []
+                    continue
+                batch_retried = True
+                degrade.record("batched", "retry-halved", e)
+                B //= 2
+                max_beam = min(max_beam, B)
                 continue
-            batch_retried = True
-            degrade.record("batched", "retry-halved", e)
-            B //= 2
-            max_beam = min(max_beam, B)
-            continue
-        retry = []
-        for i, k in enumerate(todo):
-            explored[k] += int(expl[i])
-            if acc[i]:
-                verdict[k] = True
-            elif inc[i]:
-                # Inexact (beam or candidate overflow): a wider beam can
-                # settle it.
-                if B < max_beam:
-                    retry.append(k)
+            retry = []
+            for i, k in enumerate(todo):
+                explored[k] += int(expl[i])
+                if acc[i]:
+                    verdict[k] = True
+                elif inc[i]:
+                    # Inexact (beam or candidate overflow): a wider beam
+                    # can settle it.
+                    if B < max_beam:
+                        retry.append(k)
+                    else:
+                        verdict[k] = "unknown"
+                elif alive_end[i]:
+                    # An exact search that ended alive without acceptance
+                    # should not happen; a wider beam cannot change an
+                    # exact outcome, so leave it to the CPU settle.
+                    verdict[k] = "unknown"
                 else:
-                    verdict[k] = "unknown"
-            elif alive_end[i]:
-                # An exact search that ended alive without acceptance
-                # should not happen; a wider beam cannot change an exact
-                # outcome, so leave it to the CPU settle.
-                verdict[k] = "unknown"
-            else:
-                verdict[k] = False  # exact search exhausted: invalid
-        todo = retry
-        if todo:
-            if (time_limit_s is not None
-                    and time.monotonic() - t0 > time_limit_s):
-                for k in todo:
-                    verdict[k] = "unknown"
-                todo = []
-            else:
-                B *= 2
+                    verdict[k] = False  # exact search exhausted: invalid
+            todo = retry
+            if todo:
+                if (time_limit_s is not None
+                        and time.monotonic() - t0 > time_limit_s):
+                    for k in todo:
+                        verdict[k] = "unknown"
+                    todo = []
+                else:
+                    B *= 2
+        _pb.outcome = {
+            "proven": sum(1 for v in verdict if v is True),
+            "refuted": sum(1 for v in verdict if v is False),
+            "unknown": sum(1 for v in verdict if v == "unknown"),
+        }
+        _pb.degraded = batch_retried or None
+    if telemetry.enabled():
+        telemetry.count("wgl.batched.keys", K)
+        telemetry.count("wgl.batched.proven",
+                        sum(1 for v in verdict if v is True))
+        telemetry.count("wgl.batched.refuted",
+                        sum(1 for v in verdict if v is False))
+        telemetry.count("wgl.batched.unknown",
+                        sum(1 for v in verdict if v == "unknown"))
     return BatchedWGLResult(valid=verdict, explored=explored,
                             elapsed_s=time.monotonic() - t0, beam_used=B)

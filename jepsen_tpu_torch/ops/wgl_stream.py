@@ -36,8 +36,10 @@ import numpy as np
 import torch
 
 from .. import device as _device
+from .. import telemetry
 from ..history.packed import NO_RET, ST_OK, PackedOps
 from ..models.base import PackedModel
+from ..telemetry import profile
 from . import degrade
 from .wgl_witness import INF, check_wgl_witness
 
@@ -197,15 +199,19 @@ def check_wgl_witness_stream(
     pm: PackedModel,
     *,
     time_limit_s: Optional[float] = None,
+    max_restarts: Optional[int] = None,
+    segment_keys: Optional[int] = None,
     device: Union[str, torch.device, None] = "cuda",
 ) -> list[Any]:
     """Per-key verdicts via the concatenated stream: True (proven
     linearizable) or None (undecided: settle exactly); never False.
 
     The first pass concatenates every key; after a death the stream
-    resumes in segments of max(8, ceil(K / 8)) keys, so a dead key
-    costs a re-plan of its segment, not of everything after it.  Past
-    max(8, K // 2) restarts the rest stay None.  A device resource error on a pass leaves
+    resumes in segments of `segment_keys` keys (default max(8,
+    ceil(K / 8))), so a dead key costs a re-plan of its segment, not of
+    everything after it.  Past `max_restarts` restarts (default
+    max(8, K // 2)) the rest stay None.  A device resource error on a
+    pass (the `JEPSEN_WGL_FAULT` hook's "stream" tier included) leaves
     the remaining keys None for the per-key tiers on the same device;
     any other error, a kernel's included, raises.  Counts
     "stream_passes", "stream_restarts" and "stream_keys_proven" in
@@ -223,57 +229,74 @@ def check_wgl_witness_stream(
         return verdicts
     spm = stream_model(pm)
     t0 = time.monotonic()
-    max_restarts = max(8, K // 2)
-    seg = max(8, -(-K // 8))
+    if max_restarts is None:
+        max_restarts = max(8, K // 2)
+    seg = (max(1, segment_keys) if segment_keys is not None
+           else max(8, -(-K // 8)))
     start = 0
-    restarts = 0
+    restarts = passes = 0
     span = K  # the first pass spans every key
-    while start < K:
-        remaining = None
-        if time_limit_s is not None:
-            remaining = time_limit_s - (time.monotonic() - t0)
-            if remaining <= 0:
+    with profile.capture("stream", device=dev, keys=K,
+                         ops=int(stream_timeline_len(packs))) as _pp, \
+            telemetry.span("wgl.stream", keys=K):
+        _pp.knob(segment=seg, max_restarts=max_restarts)
+        while start < K:
+            remaining = None
+            if time_limit_s is not None:
+                remaining = time_limit_s - (time.monotonic() - t0)
+                if remaining <= 0:
+                    break
+            end = min(K, start + span)
+            combined, override, key_of_bar = concat_packs(packs[start:end])
+            info: dict = {}
+            passes += 1
+            _device.count("stream_passes")
+            try:
+                degrade.maybe_fault("stream")
+                r = check_wgl_witness(combined, spm, rank_override=override,
+                                      out_info=info, time_limit_s=remaining,
+                                      device=dev)
+            except Exception as e:  # noqa: BLE001 — only resource errors
+                if not degrade.is_resource_error(e):
+                    raise
+                # The concatenated stream is too big for the device: leave
+                # the remaining keys to the per-key tiers.
+                degrade.record("stream", "fall-through", e)
+                log.warning("stream witness exhausted device resources; "
+                            "per-key tiers for %d keys", K - start,
+                            exc_info=True)
                 break
-        end = min(K, start + span)
-        combined, override, key_of_bar = concat_packs(packs[start:end])
-        info: dict = {}
-        _device.count("stream_passes")
-        try:
-            r = check_wgl_witness(combined, spm, rank_override=override,
-                                  out_info=info, time_limit_s=remaining,
-                                  device=dev)
-        except Exception as e:  # noqa: BLE001 — only resource errors
-            if not degrade.is_resource_error(e):
-                raise
-            # The concatenated stream is too big for the device: leave
-            # the remaining keys to the per-key tiers.
-            degrade.record("stream", "fall-through", e)
-            log.warning("stream witness exhausted device resources; "
-                        "per-key tiers for %d keys", K - start,
-                        exc_info=True)
-            break
-        if r is not None and r.valid is True:
-            for k in range(start, end):
-                verdicts[k] = True
-            start = end
-            continue
-        died = info.get("died_at_rank")
-        if died is None:
-            break  # budget blown or not localized: the rest stay None
-        bad = int(key_of_bar[died])
-        # Every barrier of the keys before the dead one was linearized
-        # before the death: those keys are proven.
-        for k in range(bad):
-            verdicts[start + k] = True
-        start += bad + 1
-        span = seg
-        restarts += 1
-        _device.count("stream_restarts")
-        if restarts >= max_restarts:
-            log.info("stream witness: %d restarts (max %d); %d keys left "
-                     "for the exact engines", restarts, max_restarts,
-                     K - start)
-            break
-    _device.count("stream_keys_proven",
-                  sum(1 for v in verdicts if v is True))
+            if r is not None and r.valid is True:
+                for k in range(start, end):
+                    verdicts[k] = True
+                start = end
+                continue
+            died = info.get("died_at_rank")
+            if died is None:
+                break  # budget blown or not localized: the rest stay None
+            bad = int(key_of_bar[died])
+            # Every barrier of the keys before the dead one was linearized
+            # before the death: those keys are proven.
+            for k in range(bad):
+                verdicts[start + k] = True
+            start += bad + 1
+            span = seg
+            restarts += 1
+            _device.count("stream_restarts")
+            if restarts >= max_restarts:
+                log.info("stream witness: %d restarts (max %d); %d keys "
+                         "left for the exact engines", restarts,
+                         max_restarts, K - start)
+                break
+        _pp.feature(restarts=restarts, passes=passes)
+        _pp.outcome = {
+            "proven": sum(1 for v in verdicts if v is True),
+            "escalated": sum(1 for v in verdicts if v is None),
+        }
+    n_proven = sum(1 for v in verdicts if v is True)
+    _device.count("stream_keys_proven", n_proven)
+    if telemetry.enabled():
+        telemetry.count("wgl.stream.keys-proven", n_proven)
+        telemetry.count("wgl.stream.restarts", restarts)
+        telemetry.count("wgl.stream.passes", passes)
     return verdicts

@@ -34,6 +34,7 @@ dead frontier proves nothing: it returns None and callers escalate.
 
 from __future__ import annotations
 
+import logging
 import time
 from typing import Iterator, NamedTuple, Optional, Union
 
@@ -41,11 +42,15 @@ import numpy as np
 import torch
 
 from .. import device as _device
+from .. import telemetry
 from ..checker.wgl_cpu import WGLResult
 from ..history.packed import ST_OK, PackedOps
 from ..models.base import PackedModel
-from . import kernels
+from ..telemetry import profile
+from . import degrade, kernels
 from .wgl import _bucket, nonzero_static, window_regather
+
+log = logging.getLogger(__name__)
 
 #: int32 sentinels, as Python ints so torch ops keep int32 tensors int32.
 INF = 2**31 - 1
@@ -58,10 +63,11 @@ NARROW_INFO_WINDOW = 512
 WIDE_INFO_WINDOW = 4096
 
 #: Block shape: barriers per block and blocks per table upload — the
-#: reference's heuristic default (plan/costmodel.py
-#: heuristic_witness_block_knobs).  Block boundaries decide which info
-#: ops each block's window keeps, so verdicts match the JAX package
-#: only at equal knobs.
+#: values of the cost model's heuristic
+#: (plan/costmodel.py heuristic_witness_block_knobs), which a caller
+#: that passes no shape gets unless a trained model covers the pass.
+#: Block boundaries decide which info ops each block's window keeps, so
+#: verdicts match the JAX package only at equal knobs.
 BARS_PER_BLOCK = 2048
 BLOCKS_PER_CALL = 32
 
@@ -161,11 +167,21 @@ def _plan_blocks(packed: PackedOps, bars_per_block: int,
     return bars, bar_rank, inv32, ret32, blocks, any_dropped
 
 
-def plan_width(packed: PackedOps, bars_per_block: int = BARS_PER_BLOCK,
+def _block_knobs(packed: PackedOps) -> tuple[dict, str]:
+    """The cost model's block shape for `packed` (plan/costmodel.py):
+    ({bars_per_block, blocks_per_call}, source)."""
+    from ..plan.costmodel import choose_witness_block_knobs
+
+    return choose_witness_block_knobs(packed.n, int(packed.n_ok))
+
+
+def plan_width(packed: PackedOps, bars_per_block: Optional[int] = None,
                info_window: Optional[int] = NARROW_INFO_WINDOW) -> int:
     """The window width a witness run over `packed` will use."""
     if packed.n == 0 or packed.n_ok == 0:
         return 0
+    if bars_per_block is None:
+        bars_per_block = _block_knobs(packed)[0]["bars_per_block"]
     try:
         blocks = _plan_blocks(packed, bars_per_block, info_window)[4]
     except OverflowError:
@@ -173,7 +189,7 @@ def plan_width(packed: PackedOps, bars_per_block: int = BARS_PER_BLOCK,
     return _bucket(max(max(len(a) for _, _, a in blocks), 1))
 
 
-def plan_drops(packed: PackedOps, bars_per_block: int = BARS_PER_BLOCK,
+def plan_drops(packed: PackedOps, bars_per_block: Optional[int] = None,
                info_window: Optional[int] = NARROW_INFO_WINDOW) -> bool:
     """Whether a witness plan at this info_window would drop any info
     columns — when False, a wider window plans identically."""
@@ -181,6 +197,8 @@ def plan_drops(packed: PackedOps, bars_per_block: int = BARS_PER_BLOCK,
         return False
     if packed.n - packed.n_ok <= info_window:
         return False  # fewer info ops than the window
+    if bars_per_block is None:
+        bars_per_block = _block_knobs(packed)[0]["bars_per_block"]
     try:
         return _plan_blocks(packed, bars_per_block, info_window)[5]
     except OverflowError:
@@ -496,8 +514,8 @@ def check_wgl_witness(
     pm: PackedModel,
     *,
     beam: int = BEAM,
-    bars_per_block: int = BARS_PER_BLOCK,
-    blocks_per_call: int = BLOCKS_PER_CALL,
+    bars_per_block: Optional[int] = None,
+    blocks_per_call: Optional[int] = None,
     depth: int = CHAIN_DEPTH,
     info_window: Optional[int] = NARROW_INFO_WINDOW,
     width_hint: int = 0,
@@ -505,6 +523,7 @@ def check_wgl_witness(
     rank_override: Optional[np.ndarray] = None,
     out_info: Optional[dict] = None,
     device: Union[str, torch.device, None] = "cuda",
+    _degraded: bool = False,
 ) -> Optional[WGLResult]:
     """Runs the witness search on `device` (the card by default; raises
     when CUDA is asked for but missing).
@@ -515,24 +534,43 @@ def check_wgl_witness(
 
     `beam` lanes (bucketed up from 8), `bars_per_block` barriers per
     block, `blocks_per_call` blocks per table upload and `depth` chain
-    rounds per barrier are the reference's knobs.  `width_hint` forces
-    at least that window width.  The chain rounds' compact candidate
-    tile is `compact_width(W, info_window)` rows.  `rank_override`
-    gives non-barrier rows a synthetic barrier rank (see
-    `_plan_blocks`): the many-key stream (ops/wgl_stream.py) fences
-    each key's indeterminate ops at its RESET with it.  `out_info`,
-    when given, receives "died_at_rank": the global rank of the first
-    barrier the chain search could not linearize (None when the death
-    was not localized)."""
+    rounds per barrier are the reference's knobs; a block shape the
+    caller leaves None comes from the cost model
+    (`choose_witness_block_knobs`: the heuristic's 2,048 x 32 unless a
+    trained model covers the pass).  `width_hint` forces at least that
+    window width.  The chain rounds' compact candidate tile is
+    `compact_width(W, info_window)` rows.  `rank_override` gives
+    non-barrier rows a synthetic barrier rank (see `_plan_blocks`): the
+    many-key stream (ops/wgl_stream.py) fences each key's indeterminate
+    ops at its RESET with it.  `out_info`, when given, receives
+    "died_at_rank": the global rank of the first barrier the chain
+    search could not linearize (None when the death was not localized).
+
+    A device resource error in a chunk (an out-of-memory error, or the
+    `JEPSEN_WGL_FAULT` hook's "witness" tier) retries the search once
+    with half the block shape on the same device, then returns None for
+    the next tier (degradation steps "retry-halved", "fall-through");
+    any other error raises."""
     dev = _device.resolve(device)
     t0 = time.monotonic()
     n = packed.n
     if n == 0 or packed.n_ok == 0:
         return WGLResult(valid=True, configs_explored=1,
                          elapsed_s=time.monotonic() - t0)
+    if bars_per_block is None or blocks_per_call is None:
+        knobs, source = _block_knobs(packed)
+        if bars_per_block is None:
+            bars_per_block = knobs["bars_per_block"]
+        if blocks_per_call is None:
+            blocks_per_call = knobs["blocks_per_call"]
+        telemetry.count(f"wgl.plan.witness-block-{source}")
+    # The shape that ran, on the enclosing pass record.
+    profile.annotate(bars_per_block=int(bars_per_block),
+                     blocks_per_call=int(blocks_per_call))
     try:
-        plan = _plan_blocks(packed, bars_per_block, info_window,
-                            rank_override)
+        with telemetry.span("wgl.witness.plan", n=n):
+            plan = _plan_blocks(packed, bars_per_block, info_window,
+                                rank_override)
     except OverflowError:
         return None  # the witness tier can't represent it: escalate
     bars, blocks = plan[0], plan[4]
@@ -541,11 +579,48 @@ def check_wgl_witness(
         return None
 
     W = _bucket(max(widest, width_hint, 1))
-    carry = initial_carry(pm, W, _bucket(beam, lo=8), dev)
-    for carry, _, failed, died in run_chunks(
-            pm, packed, plan, blocks, carry, K=bars_per_block,
-            NB=blocks_per_call, D=depth,
-            compact=compact_width(W, info_window), dev=dev):
+    B = _bucket(beam, lo=8)
+    if telemetry.enabled():
+        telemetry.gauge("wgl.witness.window", W)
+        telemetry.gauge("wgl.witness.beam", B)
+        telemetry.gauge("wgl.witness.blocks", len(blocks))
+
+    def retry_smaller(e: BaseException) -> Optional[WGLResult]:
+        if _degraded or bars_per_block <= 64:
+            degrade.record("witness", "fall-through", e)
+            log.warning("witness tier out of device resources after "
+                        "halving; escalating to the next tier",
+                        exc_info=True)
+            return None
+        degrade.record("witness", "retry-halved", e)
+        log.warning("witness chunk exhausted device resources; retrying "
+                    "once at bars_per_block=%d", bars_per_block // 2,
+                    exc_info=True)
+        remaining = None
+        if time_limit_s is not None:
+            remaining = time_limit_s - (time.monotonic() - t0)
+            if remaining <= 0:
+                return None
+        return check_wgl_witness(
+            packed, pm, beam=beam, bars_per_block=bars_per_block // 2,
+            blocks_per_call=max(blocks_per_call // 2, 1), depth=depth,
+            info_window=info_window, width_hint=width_hint,
+            time_limit_s=remaining, rank_override=rank_override,
+            out_info=out_info, device=dev, _degraded=True)
+
+    carry = initial_carry(pm, W, B, dev)
+    chunks = run_chunks(pm, packed, plan, blocks, carry, K=bars_per_block,
+                        NB=blocks_per_call, D=depth,
+                        compact=compact_width(W, info_window), dev=dev)
+    for _ in range(-(-len(blocks) // blocks_per_call)):
+        try:
+            degrade.maybe_fault("witness")
+            with telemetry.span("wgl.witness.chunk"):
+                carry, _, failed, died = next(chunks)
+        except Exception as e:  # noqa: BLE001 — only resource errors
+            if not degrade.is_resource_error(e):
+                raise
+            return retry_smaller(e)
         if failed:
             if out_info is not None:
                 out_info["died_at_rank"] = (None if died == NO_BAR

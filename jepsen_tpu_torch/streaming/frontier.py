@@ -57,6 +57,7 @@ import numpy as np
 import torch
 
 from .. import device as _device
+from .. import telemetry
 from ..history.packed import ST_OK, PackedOps
 from ..models.base import PackedModel
 from ..ops import degrade
@@ -124,6 +125,7 @@ class FrontierCarry:
         # A dead frontier never resumes: free the device carry.
         self._member = self._states = self._alive = None
         _device.count("frontier_deaths")
+        telemetry.count("wgl.online.frontier-deaths")
         log.info("online frontier died: %s (after %d blocks)",
                  reason, self.blocks_done)
 
@@ -157,14 +159,17 @@ class FrontierCarry:
                     self.pm, self._W, self.B, self.dev)
             carry = (self._member, self._states, self._alive,
                      self._prev_active)
-            for carry, nblk, failed, _ in run_chunks(
-                    self.pm, packed, plan, todo, carry, K=self.K,
-                    NB=self.NB, D=self.D,
-                    compact=compact_width(self._W, self.info_window),
-                    dev=self.dev):
+            chunks = run_chunks(
+                self.pm, packed, plan, todo, carry, K=self.K, NB=self.NB,
+                D=self.D, compact=compact_width(self._W, self.info_window),
+                dev=self.dev)
+            for _ in range(-(-len(todo) // self.NB)):
+                with telemetry.span("wgl.online.chunk"):
+                    carry, nblk, failed, _ = next(chunks)
                 self.device_s += time.monotonic() - t0
                 self.chunks += 1
                 _device.count("online_chunks")
+                telemetry.count("wgl.online.chunks")
                 self.blocks_done += nblk
                 self.bars_done = sum(len(b[1])
                                      for b in blocks[:self.blocks_done])
@@ -216,6 +221,8 @@ class FrontierCarry:
             return
         self.blocks_done -= blocks_gone
         self.bars_done -= bars_dropped
+        telemetry.count("wgl.online.rebase")
+        telemetry.count("wgl.online.rebase-bars", bars_dropped)
         if self._prev_active is not None:
             if (self._prev_active.size
                     and int(self._prev_active.min()) < rows_dropped):
@@ -233,13 +240,14 @@ class FrontierCarry:
         if self.dead or packed.n == 0 or packed.n_ok == 0:
             return
         _device.count("online_advances")
-        plan = self._plan(packed)
-        if plan is None:
-            return
-        n_stable_bars = int(np.count_nonzero(
-            (packed.status == ST_OK) & (packed.ret < s)))
-        upto = min(n_stable_bars // self.K, len(plan[4]))
-        self._run_blocks(packed, plan, upto)
+        with telemetry.span("wgl.online.advance", rows=packed.n):
+            plan = self._plan(packed)
+            if plan is None:
+                return
+            n_stable_bars = int(np.count_nonzero(
+                (packed.status == ST_OK) & (packed.ret < s)))
+            upto = min(n_stable_bars // self.K, len(plan[4]))
+            self._run_blocks(packed, plan, upto)
 
     def finalize(self, packed: PackedOps) -> Optional[bool]:
         """Runs the remaining blocks over the finished pack: True = a

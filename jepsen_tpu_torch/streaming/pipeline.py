@@ -32,8 +32,13 @@ thread, and raises if the thread does not stop, so two threads never
 touch the packers or launch on the card at once.
 
 Counts "online_rechecks" and "online_consumed" in `device.counters`
-(the frontiers count theirs).  Not ported: the telemetry spans, profile
-capture, SLO and timeseries hooks, the remote checkerd feed.
+(the frontiers count theirs), and the reference's `wgl.online.*`
+telemetry; finish() writes the "frontier" profile record.  With
+`JEPSEN_PLAN` on (the default) each stream batch takes its segment and
+restart knobs from the cost model (`choose_stream_knobs`) and the
+finalize its chunk rows (`choose_finalize_chunk_rows`); untrained,
+both are the legacy formulas.  Not ported: the SLO and time-series
+hooks and the remote checkerd feed.
 """
 
 from __future__ import annotations
@@ -46,10 +51,12 @@ from typing import Any, Optional, Union
 import torch
 
 from .. import device as _device
+from .. import telemetry
 from ..history.core import Op
 from ..history.packed import PackedBuilder
 from ..models.base import PackedModel
 from ..ops import degrade
+from ..telemetry import profile
 from .frontier import FrontierCarry
 
 log = logging.getLogger(__name__)
@@ -166,6 +173,7 @@ class StreamingSession:
         self._ops_ingested = 0
         self._swaps = 0
         self._rechecks = 0
+        self._checks = 0  # stream-witness batches
 
         self._thread = threading.Thread(
             target=self._loop, name="streaming-checker", daemon=True)
@@ -203,25 +211,28 @@ class StreamingSession:
                exc: Optional[BaseException] = None) -> None:
         self.broken = True
         self.broken_reason = reason
+        telemetry.count("wgl.online.broken")
         log.warning("streaming session broken, falling back post-hoc: %s",
                     reason, exc_info=exc)
 
     def _ingest(self, batch: list) -> None:
         self._swaps += 1
         self._ops_ingested += len(batch)
-        if self.mode is None:
-            if self._carry:
-                batch = self._carry + batch
-                self._carry = []
-            self._detect_mode(batch)
-        if self.mode == self.MODE_KEYED:
-            self._ingest_keyed(batch)
-        elif self.mode == self.MODE_SINGLE:
-            self._ingest_single(batch)
-        else:
-            # No client invoke yet: hold the ops, in order, until the
-            # mode-deciding invoke lands.
-            self._carry = batch
+        telemetry.count("wgl.online.ops-ingested", len(batch))
+        with telemetry.span("wgl.online.swap", ops=len(batch)):
+            if self.mode is None:
+                if self._carry:
+                    batch = self._carry + batch
+                    self._carry = []
+                self._detect_mode(batch)
+            if self.mode == self.MODE_KEYED:
+                self._ingest_keyed(batch)
+            elif self.mode == self.MODE_SINGLE:
+                self._ingest_single(batch)
+            else:
+                # No client invoke yet: hold the ops, in order, until
+                # the mode-deciding invoke lands.
+                self._carry = batch
 
     def _detect_mode(self, batch: list) -> None:
         from ..parallel.independent import KV
@@ -278,6 +289,7 @@ class StreamingSession:
                 self._invalidate(v["digest"])
                 self._rechecks += 1
                 _device.count("online_rechecks")
+                telemetry.count("wgl.online.rechecks")
         self._advance_big_keys(routed_by_key)
         self._check_quiet_keys()
 
@@ -298,6 +310,7 @@ class StreamingSession:
                 fr = self._frontiers[k] = FrontierCarry(self.pm,
                                                         device=self.dev)
                 self._fr_rows[k] = 0
+                telemetry.count("wgl.online.key-frontiers")
             if fr.dead:
                 continue
             if b.n_rows - self._fr_rows[k] >= self.advance_rows:
@@ -333,11 +346,22 @@ class StreamingSession:
         against each pack's digest."""
         from ..ops.wgl_stream import check_wgl_witness_stream
         from ..parallel.independent import _memo_put, _settle_digest
+        from ..plan import enabled as _plan_enabled
 
+        self._checks += 1
+        telemetry.count("wgl.online.keys-checked", len(keys))
         digests = [_settle_digest(p, self.pm) for p in packs]
-        self._stream_rows_hwm = max(self._stream_rows_hwm,
-                                    sum(int(p.n) for p in packs))
-        verdicts = check_wgl_witness_stream(packs, self.pm, device=self.dev)
+        rows = sum(int(p.n) for p in packs)
+        self._stream_rows_hwm = max(self._stream_rows_hwm, rows)
+        kw: dict = {}
+        if _plan_enabled():
+            from ..plan import costmodel
+
+            knobs, _ = costmodel.choose_stream_knobs(len(packs), rows)
+            kw["segment_keys"] = knobs["segment"]
+            kw["max_restarts"] = knobs["max_restarts"]
+        verdicts = check_wgl_witness_stream(packs, self.pm, device=self.dev,
+                                            **kw)
         for k, d, v in zip(keys, digests, verdicts):
             self._attempted[k] = d
             if v is True:
@@ -386,16 +410,31 @@ class StreamingSession:
             raise self.fault
         if not self.broken:
             try:
-                batch = self._buf.take()
-                if batch:
-                    self._ingest(batch)
-                self._finalize()
+                # The session's cost record: the final drain's device
+                # work folds in through the span hook; the mid-run
+                # frontier time rides as a feature.
+                with profile.capture(
+                        "frontier", device=self.dev,
+                        keys=len(self._packers) or 1,
+                        ops=int(self._ops_ingested)) as _pf:
+                    _pf.knob(mode=self.mode, advance_rows=self.advance_rows)
+                    batch = self._buf.take()
+                    if batch:
+                        self._ingest(batch)
+                    self._finalize()
+                    frontiers = list(self._frontiers.values())
+                    if self._frontier is not None:
+                        frontiers.append(self._frontier)
+                    _pf.feature(checks=self._checks, device_s=round(
+                        sum(fr.device_s for fr in frontiers), 6))
+                    _pf.outcome = {"proven": len(self._verdicts)}
             except Exception as e:  # noqa: BLE001 — as the checker thread
                 if degrade.is_device_fault(e):
                     self.fault = e
                     raise
                 self._break(f"{type(e).__name__}: {e}", e)
         self.verdict_lag_s = time.monotonic() - t0
+        telemetry.gauge("wgl.online.verdict-lag-s", self.verdict_lag_s)
         return self.stats()
 
     def _finalize(self) -> None:
@@ -435,9 +474,19 @@ class StreamingSession:
                 continue
             rest.append(k)
             packs.append(finals[k])
-        # Batches of half the mid-run high-water mark (the reference's
-        # choice with its cost model off).
-        cap = max(192, self._stream_rows_hwm // 2)
+        # Batches of half the mid-run high-water mark, or, with the plan
+        # on and a trained model covering the shapes, the model's pick
+        # (plan/costmodel.py choose_finalize_chunk_rows).
+        from ..plan import enabled as _plan_enabled
+
+        if _plan_enabled():
+            from ..plan import costmodel
+
+            cap, cap_src = costmodel.choose_finalize_chunk_rows(
+                len(rest), sum(p.n for p in packs), self._stream_rows_hwm)
+            telemetry.count(f"wgl.plan.finalize-chunk-{cap_src}")
+        else:
+            cap = max(192, self._stream_rows_hwm // 2)
         i = 0
         while i < len(rest):
             j, rows = i, 0
@@ -457,6 +506,7 @@ class StreamingSession:
         if v is None or v["digest"] != digest:
             return None
         _device.count("online_consumed")
+        telemetry.count("wgl.online.consumed")
         return dict(v["res"])
 
     @property

@@ -20,7 +20,8 @@ from jepsen_tpu_torch.checker import Linearizable
 from jepsen_tpu_torch.checker.core import check_safe, merge_valid
 from jepsen_tpu_torch.device import DeviceUnavailable
 from jepsen_tpu_torch.history.core import Op, history
-from jepsen_tpu_torch.ops import kernels, wgl_batched, wgl_witness
+from jepsen_tpu_torch.ops import (kernels, wgl_batched, wgl_stream,
+                                  wgl_witness)
 from jepsen_tpu_torch.parallel import (IndependentChecker, clear_settle_memo,
                                        history_keys, kv, subhistories)
 from jepsen_tpu_torch.utils import bounded_pmap
@@ -285,9 +286,11 @@ def test_missing_card_raises():
 
 
 def test_stream_resource_error_falls_through_on_the_same_device(monkeypatch):
-    """An out-of-memory error in the stream leaves its keys to the
-    per-key tiers (recorded as a degradation) and the verdicts stand."""
-    real = wgl_witness.sweep
+    """An out-of-memory error out of the stream's witness pass leaves
+    its keys to the per-key tiers (recorded as a degradation) and the
+    verdicts stand.  (One raised inside a sweep is the witness tier's
+    own: it retries at half the block shape, tests/test_torch_telemetry.py.)"""
+    real = wgl_stream.check_wgl_witness
     calls = {"n": 0}
 
     def oom_once(*a, **k):
@@ -296,7 +299,7 @@ def test_stream_resource_error_falls_through_on_the_same_device(monkeypatch):
             raise torch.cuda.OutOfMemoryError("CUDA out of memory")
         return real(*a, **k)
 
-    monkeypatch.setattr(wgl_witness, "sweep", oom_once)
+    monkeypatch.setattr(wgl_stream, "check_wgl_witness", oom_once)
     res = _checker(time_limit_s=120.0).check({}, _small_history(bad=(4,)),
                                              {})
     assert res["valid"] is False and res["failures"] == ["k4"]

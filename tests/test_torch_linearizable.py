@@ -228,9 +228,16 @@ def test_import_guard_no_jax_no_reference_package():
 
         sys.meta_path.insert(0, Block())
         import jepsen_tpu_torch
+        names = set()
         for m in pkgutil.walk_packages(jepsen_tpu_torch.__path__,
                                        "jepsen_tpu_torch."):
             importlib.import_module(m.name)
+            names.add(m.name)
+        want = {"jepsen_tpu_torch." + n for n in (
+            "telemetry", "telemetry.profile", "store.format", "plan",
+            "plan.ir", "plan.costmodel", "plan.cache", "plan.executor",
+            "plan.compiler")}
+        assert want <= names, sorted(want - names)
         bad = sorted(n for n in sys.modules
                      if n.split(".")[0] in ("jax", "jaxlib", "jepsen_tpu"))
         assert not bad, bad
