@@ -9,8 +9,8 @@ at first use.  Exits non-zero, printing no result, when torch sees no
 CUDA device or the package is missing.  Ten phases, each raising on
 failure, run in the order 1, 2, 5, 6, 7, 8, 9, 1b, 3, 4 (every
 host-clock and CUDA-event timing before the profiler first runs).  The
-checkers' default route is the compiled plan (JEPSEN_PLAN unset), so
-phases 1-8 run it; phase 9 holds it against the legacy ladder:
+checkers' only route is the compiled plan, so phases 1-8 run it;
+phase 9 reads its own parts (JEPSEN_PLAN=0, memo, faults, records):
 
 1. The sweep kernel against its plain PyTorch version at the bench
    shapes (B = 8, SW = 1, K = 2048, W = the bench history's planned
@@ -100,10 +100,12 @@ phases 1-8 run it; phase 9 holds it against the legacy ladder:
    one 8b check.
 9. The plan route (plan/, telemetry/): (9a) the bench history through
    Linearizable with JEPSEN_PLAN on and off in turns (on, off, off, on,
-   on, off): equal verdicts, labels, sweep launches, chain rounds and
-   host syncs, no fallback to the legacy ladder, both medians printed;
-   (9b) phase 5's history (three each) and the 2,000-key all-valid one
-   (two each) through IndependentChecker, on and off: equal per-key
+   on, off; off turns the cost model and the memo off, and still runs
+   the plan): equal verdicts, labels, sweep launches, chain rounds and
+   host syncs, every check through the plan executor, both medians
+   printed; (9b) phase 5's history (three each) and the 2,000-key
+   all-valid one (two each) through IndependentChecker, on and off:
+   equal per-key
    verdicts and labels, failure count, tiers, stream passes, restarts
    and sweep launches, the wgl.settle.* counters printed; (9c) the
    persistent plan memo in a temp directory: a second check of the
@@ -1932,12 +1934,12 @@ def phase_elle(torch, dev=None) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# The plan route (phase 9): the checkers' default route against the legacy
-# ladder (JEPSEN_PLAN=0), the persistent plan memo, the fault hook and the
-# profile records.
+# The plan route (phase 9): the checkers' only route with its cost model
+# and memo allowed and with JEPSEN_PLAN=0, the persistent plan memo, the
+# fault hook and the profile records.
 
-#: Alternation of the plan route ("on") and the legacy ladder ("off") in
-#: the timed comparisons: three checks each, in turns.
+#: Alternation of JEPSEN_PLAN on and off ("on", "off") in the timed
+#: comparisons: three checks each, in turns.
 PLAN_ORDER = ("on", "off", "off", "on", "on", "off")
 #: The 2,000-key all-valid check, two each.
 PLAN_ORDER_BIG = ("on", "off", "off", "on")
@@ -1977,7 +1979,8 @@ def plan_runs(torch, dev, check, order) -> dict:
     """check() once per entry of `order` with JEPSEN_PLAN on or off, the
     settle memo cleared and the counts set to 0 just before each, read
     just after -> {"on": [...], "off": [...]} of (result, wall s,
-    launches, counters, plan executions, plan fallbacks)."""
+    launches, counters, plan executions).  Each check must run the plan
+    executor: it is the only route, whatever JEPSEN_PLAN says."""
     from jepsen_tpu_torch import telemetry
     from jepsen_tpu_torch.parallel import clear_settle_memo
 
@@ -1991,21 +1994,18 @@ def plan_runs(torch, dev, check, order) -> dict:
             res, launches, counts = counted(torch, dev, check)
             dt = time.perf_counter() - t0
             runs[mode].append((res, dt, launches, counts,
-                               telemetry.counter_value("wgl.plan.execute"),
-                               telemetry.counter_value("wgl.plan.fallback")))
+                               telemetry.counter_value("wgl.plan.execute")))
     finally:
         set_env("JEPSEN_PLAN", None)
-    for mode, want_exec in (("on", 1), ("off", 0)):
-        for r in runs[mode]:
-            if (r[4] >= 1) != bool(want_exec) or r[5] != 0:
-                raise AssertionError(
-                    f"plan {mode}: {r[4]} plan executions, {r[5]} "
-                    f"fallbacks to the legacy ladder")
+    for mode, rs in runs.items():
+        for r in rs:
+            if r[4] < 1:
+                raise AssertionError(f"plan {mode}: a check ran no plan")
     return runs
 
 
 def plan_counts(run) -> dict:
-    _, _, launches, counts, _, _ = run
+    _, _, launches, counts, _ = run
     return {"sweep_launches": launches.get("witness_sweep", 0),
             **{k: counts.get(k, 0) for k in (
                 "heavy_rounds", "host_syncs", "bfs_levels",
@@ -2056,7 +2056,7 @@ def plan_many(torch, dev, what: str, history, order, failures: int) -> dict:
             for k, v in first["results"].items()}
     diff = []
     for mode, rs in runs.items():
-        for res, _, _, _, _, _ in rs:
+        for res, _, _, _, _ in rs:
             got = {k: (v["valid"], v["algorithm"])
                    for k, v in res["results"].items()}
             if (got != want or res["failure-count"] != failures

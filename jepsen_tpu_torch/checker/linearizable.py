@@ -20,30 +20,28 @@ Before any engine runs, a verdict an online session
 still going is taken ("wgl-online"), when the packed history's digest
 equals the one the proof covered; `streaming=False` ignores sessions.
 
-The port of `jepsen_tpu/checker/linearizable.py`.  With `JEPSEN_PLAN`
-on (the default) the device paths run as a compiled plan
-(plan/compiler.py `run_single`): the device-first ladder as one pass,
-fronted by the persistent plan memo when a cache directory is set.  As
-in the reference, the legacy ladder is the net for a plan failure, but
-only for one that is neither a device fault nor a resource error: those
-raise (the resource ladder already ran inside the plan).
+The port of `jepsen_tpu/checker/linearizable.py`.  The device paths
+run as a compiled plan (plan/compiler.py `run_single`): the
+device-first ladder as one pass, fronted by the persistent plan memo
+when a cache directory is set.  The plan is the port's only route: a
+failure of the plan layer raises, where the reference falls back to
+its hand-wired ladder (`JEPSEN_PLAN=0` there; here it only turns the
+cost model and the memo off, plan/__init__.py).
 
 A device out-of-memory error retries the whole device search once at
-half size on the same card; when that retry runs out too, the check
-raises with `degrade.probe_card`'s result attached, where the reference
-settles on its CPU engine.
+half size on the same card; when that retry runs out too, or overflows
+its halved beam, the check raises with `degrade.probe_card`'s result
+attached, where the reference settles on its CPU engine.
 """
 
 from __future__ import annotations
 
-import logging
 import time
 from typing import Optional, Union
 
 import torch
 
 from .. import device as _device
-from .. import telemetry
 from ..history.core import History
 from ..history.packed import pack_history
 from ..models.base import Model, PackedModel
@@ -64,8 +62,6 @@ _DEVICE_ALGORITHMS = ("wgl-tpu", "competition")
 #: The WGLResult reason of a device search whose tiers ran out of
 #: device resources (ops/wgl.py).
 DEVICE_RESOURCE_ERROR = "device-resource-error"
-
-log = logging.getLogger(__name__)
 
 
 class Linearizable(Checker):
@@ -150,22 +146,10 @@ class Linearizable(Checker):
                     1.0, self.time_limit_s - (time.monotonic() - t0))
             res, engine = self._cpu_exact(packed, pm, time_limit_s=remaining)
             return self._render(res, packed, engine, pm)
-        from ..plan import enabled as _plan_enabled
+        from ..plan.compiler import run_single
 
-        if _plan_enabled():
-            from ..plan.compiler import run_single
-
-            try:
-                return run_single(self, packed, pm, model, self.algorithm,
-                                  test, opts, dev)
-            except Exception as e:  # noqa: BLE001 — the legacy ladder is
-                # the net, for failures of the plan layer only
-                if degrade.is_device_fault(e) or degrade.is_resource_error(e):
-                    raise
-                telemetry.count("wgl.plan.fallback")
-                log.warning("plan executor failed; using the legacy ladder",
-                            exc_info=True)
-        return self._device_first(packed, pm, dev)
+        return run_single(self, packed, pm, model, self.algorithm, test,
+                          opts, dev)
 
     def _host_fallback(self, history: History, model: Model, label: str,
                        reason: Optional[str] = None) -> dict:
@@ -226,10 +210,16 @@ class Linearizable(Checker):
                     e.probe = probe
                     e.add_note(f"after the halved retry; card probe: {probe}")
                 raise
-            if res.valid == "unknown" and res.reason == DEVICE_RESOURCE_ERROR:
+            if res.valid == "unknown" and res.reason in (
+                    DEVICE_RESOURCE_ERROR, "beam-overflow"):
+                # Out of resources again, or out of the halved beam: the
+                # full-size search never finished, so this "unknown" is
+                # the card's, not the search's.
                 raise degrade.CardExhausted(
-                    "the device search ran out of device resources again "
-                    "after the halved retry", _probe(dev))
+                    "the device search ran out of device resources, and "
+                    "the halved retry " + (
+                        "ran out again" if res.reason == DEVICE_RESOURCE_ERROR
+                        else "overflowed its halved beam"), _probe(dev))
         used = "wgl-tpu"
         if res.valid is False and not res.final_configs:
             # The device BFS settles the verdict but carries no

@@ -57,8 +57,9 @@ class InjectedFault(RuntimeError):
 
 
 class CardExhausted(RuntimeError):
-    """The card ran out of resources again after the halved retry.
-    `probe` holds `probe_card`'s result.  A device fault: no layer
+    """The card ran out of resources, and the halved retry ran out
+    again or overflowed its halved beam.  `probe` holds `probe_card`'s
+    result.  A device fault: no layer
     turns it into a verdict or retries it on the CPU."""
 
     def __init__(self, msg: str, probe: dict):

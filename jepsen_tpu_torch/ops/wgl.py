@@ -276,7 +276,9 @@ def check_wgl_device(
     "unknown".  A device resource error in a BFS block (an
     out-of-memory error, or the `JEPSEN_WGL_FAULT` hook's "device"
     tier) retries the block once at half the beam on the same device,
-    then returns "unknown" with reason "device-resource-error"."""
+    when the frontier fits in half; the search then stays at most that
+    wide.  Otherwise it returns "unknown" with reason
+    "device-resource-error"."""
     dev = _device.resolve(device)
     t0 = time.monotonic()
     N = packed.n
@@ -334,6 +336,16 @@ def check_wgl_device(
                        else res.valid)
         _pb.feature(explored=int(res.configs_explored))
     return res
+
+
+def _device_gave_out(error, explored: int, t0: float) -> WGLResult:
+    """The BFS's last rung on device resource errors: "unknown" with
+    reason "device-resource-error", which `Linearizable` retries once at
+    half size and then raises on — never a CPU verdict."""
+    degrade.record("device", "fall-through", error)
+    return WGLResult(valid="unknown", configs_explored=explored,
+                     reason="device-resource-error",
+                     elapsed_s=time.monotonic() - t0)
 
 
 def _bfs(packed: PackedOps, pm: PackedModel, beam: int, max_beam: int,
@@ -395,23 +407,18 @@ def _bfs(packed: PackedOps, pm: PackedModel, beam: int, max_beam: int,
                 if not degrade.is_resource_error(e):
                     raise
                 # The device, not the search, gave out: retry the block
-                # once at half the beam from its snapshot, then leave
-                # the verdict "unknown" for the caller.
-                if device_retried or B <= 64:
-                    degrade.record("device", "fall-through", e)
-                    return WGLResult(valid="unknown",
-                                     configs_explored=explored_total,
-                                     reason="device-resource-error",
-                                     elapsed_s=time.monotonic() - t0)
+                # once at half the beam from its snapshot, when the
+                # frontier fits in half (rows are packed alive-first).
+                # Else leave "unknown" for the caller's halved retry:
+                # cutting live rows would turn a refutation into a beam
+                # overflow, which the CPU would settle.
+                if (device_retried or B <= 64
+                        or _device.host(snap[2][B // 2:].any())):
+                    return _device_gave_out(e, explored_total, t0)
                 device_retried = True
                 degrade.record("device", "retry-halved", e)
                 B //= 2
-                m0, s0, a0 = snap
-                # Rows are packed alive-first: cutting live rows past the
-                # new beam forfeits exactness (invalid becomes unknown).
-                if _device.host(a0[B:].any()):
-                    soft_incomplete = True
-                member, states, alive = m0[:B], s0[:B], a0[:B]
+                member, states, alive = (t[:B] for t in snap)
                 snap = (member, states, alive)
                 continue
             if accepted:
@@ -424,6 +431,12 @@ def _bfs(packed: PackedOps, pm: PackedModel, beam: int, max_beam: int,
                                  reason="time-limit",
                                  elapsed_s=time.monotonic() - t0)
             if incomplete and B < max_beam:
+                if device_retried:
+                    # Doubling back would undo the halving the device
+                    # forced; the caller's halved retry decides.
+                    return _device_gave_out(
+                        "beam overflow after the halved retry",
+                        explored_total, t0)
                 # Retry this block with a doubled beam, exactly: the
                 # snapshot's rows plus as many dead ones.
                 B *= 2

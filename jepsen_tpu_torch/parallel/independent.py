@@ -4,11 +4,10 @@ The port of `jepsen_tpu/parallel/independent.py`: op values are `(k,
 v)` pairs (`KV`), the history splits into per-key subhistories, and each
 key is checked on its own (the reference's independent.clj:259-377).
 When the base checker is a packed-model `Linearizable`, the keys go
-through the tier ladder below.  With `JEPSEN_PLAN` on (the default) the
-ladder runs as a compiled plan (plan/compiler.py `run_cohort`: the same
-tiers as pass nodes, knobs from the cost model, the persistent plan
-memo when a cache directory is set); `JEPSEN_PLAN=0` keeps the
-hand-wired ladder:
+through the tier ladder below, compiled as a plan (plan/compiler.py
+`run_cohort`: the tiers as pass nodes, knobs from the cost model, the
+persistent plan memo when a cache directory is set) and run by the
+plan executor (plan/executor.py):
 
   1. keys that do not pack (or that the model's `validate_packed`
      refuses) run the base checker one by one (the host-model search);
@@ -24,10 +23,10 @@ hand-wired ladder:
 
 Every device tier runs on the checker's `device` (the card by default;
 raises when CUDA is asked for but missing).  Unlike the reference, no
-tier catches a device fault to fall back: a kernel that does not build
-or launch raises out of `check` (see checker/core.py `check_safe`), and
-the plan route's "legacy ladder is the net" takes only failures that
-are neither device faults nor resource errors.
+tier catches a device fault to fall back, and there is no hand-wired
+ladder to fall back to: a kernel that does not build or launch, or a
+failure of the plan layer, raises out of `check` (see checker/core.py
+`check_safe`).
 
 Left out: mesh sharding, the batched BFS's packed lanes, per-key
 artifacts.  The result adds "tiers": how many keys each tier settled.
@@ -36,9 +35,7 @@ artifacts.  The result adds "tiers": how many keys each tier settled.
 from __future__ import annotations
 
 import hashlib
-import logging
 import threading
-import time
 from collections import Counter, OrderedDict
 from typing import Any, NamedTuple, Optional, Union
 
@@ -46,21 +43,12 @@ import numpy as np
 import torch
 
 from .. import device as _device
-from .. import telemetry
 from ..checker.core import Checker, check_safe, merge_valid
 from ..checker.linearizable import CPU_ALGORITHMS, Linearizable
 from ..history.core import History, Op
 from ..history.packed import pack_history
 from ..ops import degrade
-from ..telemetry import profile
 from ..utils import bounded_pmap
-
-log = logging.getLogger(__name__)
-
-#: Keys longer than this skip the stream and the batched tiers and run
-#: the single-history device search (ops/wgl.py) on their own.
-LONG_KEY_OPS = 2000
-
 
 class KV(NamedTuple):
     """A `[key value]` op payload (independent.clj:18-35): a distinct
@@ -283,8 +271,6 @@ class IndependentChecker(Checker):
 
     def _check_linearizable(self, test: dict, subs: dict, opts: dict,
                             dev: torch.device, tiers: Counter) -> dict:
-        from ..ops.wgl_stream import check_wgl_witness_stream
-
         lin = self.base
         model = lin.model or test.get("model")
         keys = list(subs)
@@ -312,235 +298,8 @@ class IndependentChecker(Checker):
                 continue
             all_packs[k] = p
 
-        from ..plan import enabled as _plan_enabled
+        from ..plan.compiler import run_cohort
 
-        if _plan_enabled():
-            from ..plan.compiler import run_cohort
-
-            try:
-                return run_cohort(self, test, subs,
-                                  [k for k in keys if k in all_packs],
-                                  unpackable, all_packs, model, pm, lin,
-                                  opts, dev, tiers)
-            except Exception as e:  # noqa: BLE001 — the legacy ladder is
-                # the net, for failures of the plan layer only
-                if degrade.is_device_fault(e) or degrade.is_resource_error(e):
-                    raise
-                telemetry.count("wgl.plan.fallback")
-                log.warning("plan executor failed; using the legacy ladder",
-                            exc_info=True)
-                tiers.clear()
-
-        results: dict[Any, dict] = {}
-        if unpackable:
-            tiers["unpackable"] += len(unpackable)
-            results.update(self._per_key(lin, test, subs, unpackable, opts))
-            keys = [k for k in keys if k in all_packs]
-
-        # Online verdicts: a key whose re-packed digest equals the one
-        # its proof recorded; a key that changed since settles here.
-        sess = test.get("streaming-session")
-        if self.streaming and sess is not None:
-            online = {}
-            for k in keys:
-                d = _online_digest(sess, pm, subs[k])
-                r = sess.consume(k, d) if d is not None else None
-                if r is not None:
-                    online[k] = r
-            if online:
-                results.update(online)
-                tiers["online"] += len(online)
-                if telemetry.enabled():
-                    telemetry.count("wgl.settle.online-proven", len(online))
-            keys = [k for k in keys if k not in online]
-
-        # Long keys take the single-history device search, built for
-        # length; the batched tiers pad every key to the longest.
-        long_keys = [k for k in keys if all_packs[k].n > LONG_KEY_OPS]
-        keys = [k for k in keys if all_packs[k].n <= LONG_KEY_OPS]
-        if long_keys:
-            tiers["long"] += len(long_keys)
-            long_chk = Linearizable(
-                model, "wgl-tpu", beam=lin.beam, max_beam=lin.max_beam,
-                time_limit_s=lin.time_limit_s, max_configs=lin.max_configs,
-                device=dev)
-            results.update(self._per_key(long_chk, test, subs, long_keys,
-                                         opts))
-        if not keys:
-            return results
-
-        # One budget for the tiers below: the stream's time comes out of
-        # what the batched BFS and the CPU settle get.
-        t_tiers = time.monotonic()
-
-        def budget_left():
-            if lin.time_limit_s is None:
-                return None
-            return max(1.0, lin.time_limit_s - (time.monotonic() - t_tiers))
-
-        stream_v = check_wgl_witness_stream(
-            [all_packs[k] for k in keys], pm,
-            time_limit_s=lin.time_limit_s, device=dev)
-        for k, v in zip(keys, stream_v):
-            if v is True:
-                results[k] = {
-                    "valid": True,
-                    "algorithm": "wgl-tpu-stream",
-                    "configs-explored": int(all_packs[k].n_ok),
-                }
-        keys = [k for k, v in zip(keys, stream_v) if v is not True]
-        tiers["stream-proven"] += len(stream_v) - len(keys)
-        if telemetry.enabled():
-            telemetry.count("wgl.settle.stream-proven",
-                            len(stream_v) - len(keys))
-        if keys:
-            results.update(self._settle_cohort(
-                keys, all_packs, subs, model, pm, lin, test, opts,
-                budget_left, dev, tiers))
-        return results
-
-    def _settle_cohort(self, cohort_keys, all_packs, subs, model, pm, lin,
-                       test, opts, budget_left, dev, tiers) -> dict:
-        """Decides the keys the stream left undecided, under the shared
-        budget, cheapest tier first: the memo (one representative per
-        distinct subhistory runs the rest, the others share its
-        verdict), the refutation screens, the batched BFS on the screen
-        survivors, and the exact CPU settle of the remainder (screen-
-        refuted keys for their certificate, BFS-refuted keys for a small
-        detail pass, unknowns for the verdict)."""
-        from ..checker.refute import check_refute
-        from ..ops.wgl_batched import check_wgl_batched
-
-        # One cost record for the whole settle pipeline; the batched
-        # BFS's record nests inside it.
-        tiers_now: Counter = Counter()
-        with profile.capture(
-                "settle", device=dev, keys=len(cohort_keys),
-                ops=int(sum(all_packs[k].n for k in cohort_keys))) as _ps:
-            groups: "OrderedDict[str, list]" = OrderedDict()
-            for k in cohort_keys:
-                groups.setdefault(_settle_digest(all_packs[k], pm),
-                                  []).append(k)
-            group_result: dict[str, dict] = {}
-            reps: list[str] = []
-            for d in groups:
-                hit = _memo_get(d)
-                if hit is not None:
-                    group_result[d] = hit
-                else:
-                    reps.append(d)
-            n_memo = sum(len(groups[d]) for d in group_result)
-
-            def screen_one(d: str):
-                b = budget_left()
-                try:
-                    return check_refute(all_packs[groups[d][0]], pm,
-                                        time_limit_s=30.0 if b is None
-                                        else min(b, 30.0))
-                except Exception as e:  # noqa: BLE001 — host numpy
-                    if degrade.is_device_fault(e):
-                        raise
-                    log.warning("refutation screen failed for key %r",
-                                groups[d][0], exc_info=True)
-                    return None  # the search tiers decide
-
-            screened = dict(zip(reps, bounded_pmap(screen_one, reps)))
-            survivors = [d for d in reps if screened[d] is None]
-
-            # Batched frontier BFS over the screen survivors, from a small
-            # beam: the overflow retries re-batch only the keys that need
-            # more (the reference's measured choice).
-            device_verdict: dict[str, Any] = {d: None for d in reps}
-            device_explored: dict[str, int] = {d: 0 for d in reps}
-            if survivors:
-                batch = check_wgl_batched(
-                    [all_packs[groups[d][0]] for d in survivors], pm,
-                    beam=min(lin.beam, 32),
-                    max_beam=max(lin.max_beam, lin.beam),
-                    time_limit_s=budget_left(), device=dev)
-                for i, d in enumerate(survivors):
-                    device_verdict[d] = batch.valid[i]
-                    device_explored[d] = int(batch.explored[i])
-                    if batch.valid[i] is True:
-                        group_result[d] = {
-                            "valid": True,
-                            "algorithm": "wgl-tpu-batched",
-                            "configs-explored": int(batch.explored[i]),
-                        }
-                        _memo_put(d, group_result[d])
-                        tiers_now["batched-proven"] += 1
-
-            todo = [d for d in reps if d not in group_result]
-
-            def settle_one(d: str) -> dict:
-                k = groups[d][0]
-                dv = device_verdict[d]
-                budget = budget_left()
-                if dv is False:
-                    budget = (self.REFUTED_DETAIL_BUDGET_S if budget is None
-                              else min(budget,
-                                       self.REFUTED_DETAIL_BUDGET_S))
-                single = Linearizable(model, "settle", time_limit_s=budget,
-                                      max_configs=lin.max_configs,
-                                      device=dev)
-                r = check_safe(single, test, subs[k],
-                               {**opts, "history_key": k})
-                if dv is not None:
-                    r["device-verdict"] = dv
-                if dv is False:
-                    if r.get("valid") == "unknown":
-                        # The detail pass ran out; the BFS's refutation is
-                        # exact (no overflow) and stands on its own.
-                        r = {
-                            "valid": False,
-                            "algorithm": "wgl-tpu-batched",
-                            "configs-explored": device_explored[d],
-                            "device-verdict": False,
-                        }
-                    elif r.get("valid") is True:
-                        # Two exact engines disagreeing is a checker bug:
-                        # keep the CPU verdict, loudly.
-                        log.error("device/CPU verdict mismatch on key %r: "
-                                  "batched BFS refuted, exact engine proved "
-                                  "valid; keeping the CPU verdict", k)
-                return r
-
-            screen_fired = {d for d in reps if screened[d] is not None}
-            for d, r in zip(todo, bounded_pmap(settle_one, todo)):
-                group_result[d] = r
-                _memo_put(d, r)
-                if device_verdict[d] is False:
-                    tiers_now["batched-refuted"] += 1
-                elif d in screen_fired:
-                    tiers_now["screen-refuted"] += 1
-                else:
-                    tiers_now["cpu-settled"] += 1
-
-            # Fan the verdicts out: a representative keeps its full
-            # result (its certificate cites its own slice); the others
-            # share the sanitized verdict.
-            settled: dict[Any, dict] = {}
-            live = set(reps)
-            for d, members in groups.items():
-                r = group_result[d]
-                if d in live:
-                    settled[members[0]] = r
-                    extra = members[1:]
-                    n_memo += len(extra)
-                else:
-                    extra = members  # a memo hit from an earlier check
-                for k2 in extra:
-                    shared = _sanitize_settle(r)
-                    shared["memo-hit"] = True
-                    settled[k2] = shared
-            tiers.update(tiers_now)
-            tiers["memo-hit"] += n_memo
-            n_tier = {name: tiers_now[name] for name in (
-                "screen-refuted", "batched-proven", "batched-refuted",
-                "cpu-settled")}
-            if telemetry.enabled():
-                for name, v in n_tier.items():
-                    telemetry.count(f"wgl.settle.{name}", v)
-                telemetry.count("wgl.settle.memo-hit", n_memo)
-            _ps.outcome = {**n_tier, "memo-hit": n_memo}
-            return settled
+        return run_cohort(self, test, subs,
+                          [k for k in keys if k in all_packs], unpackable,
+                          all_packs, model, pm, lin, opts, dev, tiers)

@@ -13,13 +13,17 @@ typed fallback edges — and run it through one executor:
   * `costmodel.py` — knob choice: a ridge regressor fitted on the
                      profile store when a model file is given
                      (`JEPSEN_COSTMODEL`), else the hand heuristics, which
-                     are the legacy ladder's formulas
+                     are the hand-wired ladder's formulas
   * `cache.py`     — the persistent plan memo, a journal of settled
                      verdicts that a restarted process replays
 
-Routing is behind `JEPSEN_PLAN` (default on); `JEPSEN_PLAN=0` keeps the
-legacy ladder.  The memo is on disk only when `JEPSEN_PLAN_CACHE=<dir>`
-(or `cache.configure`) names a directory.  Both variables are the
+The plan is the port's only route for the linearizable checkers.
+`JEPSEN_PLAN=0`, which sends the reference back to its hand-wired
+ladder, here turns off what that ladder lacks: the trained cost model
+(every chooser returns its hand formula) and the persistent memo; the
+checks still compile and execute a plan, which does the same work.  The
+memo is on disk only when `JEPSEN_PLAN_CACHE=<dir>` (or
+`cache.configure`) names a directory.  Both variables are the
 reference's names, so one setting steers both packages.
 """
 
@@ -27,14 +31,15 @@ from __future__ import annotations
 
 import os
 
-#: Routing flag: "0"/"false"/"off" disables the plan path.
+#: "0"/"false"/"off" turns the cost model and the persistent memo off.
 PLAN_ENV = "JEPSEN_PLAN"
 #: Persistent plan-memo directory; unset means no on-disk state.
 CACHE_ENV = "JEPSEN_PLAN_CACHE"
 
 
 def enabled() -> bool:
-    """Whether checking routes through the plan compiler/executor."""
+    """Whether the plan may use a trained cost model and the persistent
+    memo (the reference: whether checking routes through the plan)."""
     return os.environ.get(PLAN_ENV, "1").lower() not in ("0", "false", "off")
 
 

@@ -170,11 +170,15 @@ def configure(cache_dir: Optional[str]) -> None:
 
 
 def cache_dir() -> Optional[str]:
+    """The memo's directory: the configured one, else JEPSEN_PLAN_CACHE;
+    None (no memo) with `JEPSEN_PLAN=0`."""
+    from . import CACHE_ENV, enabled
+
+    if not enabled():
+        return None
     with _lock:
         if _configured:
             return _dir
-    from . import CACHE_ENV
-
     return os.environ.get(CACHE_ENV) or None
 
 

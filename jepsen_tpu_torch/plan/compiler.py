@@ -11,9 +11,9 @@ per call site that used to wire the tier ladder by hand:
 * `plan_cycle_fn` — a one-node plan for the Elle cycle pass
 
 Each compiles a Plan whose knobs come from the cost model
-(plan/costmodel.py) — the hand heuristics when untrained, in which case
-every knob equals the legacy formula and the plan does exactly the
-legacy ladder's work — and runs it through plan/executor.py on the
+(plan/costmodel.py) — the hand formulas when untrained or with
+`JEPSEN_PLAN=0`, in which case the plan does exactly the reference's
+hand-wired ladder's work — and runs it through plan/executor.py on the
 checker's device.  The persistent-memo node joins a plan only when a
 cache directory is configured (cache.py).
 """
@@ -70,8 +70,8 @@ def compile_cohort_plan(
     has_unpackable: bool,
 ) -> tuple[Plan, str]:
     """-> (plan, entry-node id for packable keys).  Node order is the
-    legacy ladder's; the cost model only turns knobs (and may drop the
-    stream tier when trained data says it loses)."""
+    reference's ladder's; the cost model only turns knobs (and may drop
+    the stream tier when trained data says it loses)."""
     sess = ((test or {}).get("streaming-session")
             if getattr(checker, "streaming", True) else None)
     cache_on = plan_cache.cache_dir() is not None
@@ -258,7 +258,7 @@ def run_single(lin: Any, packed: Any, pm: Any, model: Any,
     """One history through the executor on `device`: a persistent-memo
     probe (when a cache dir is configured) in front of the device-first
     ladder.  With no cache the plan is the single device-ladder node,
-    whose runner is the legacy ladder."""
+    whose runner is `Linearizable._device_first`."""
     cache_on = plan_cache.cache_dir() is not None
     nodes: list[PassNode] = []
     feats = {"ops": int(packed.n), "ok": int(packed.n_ok)}

@@ -14,7 +14,7 @@ model loads only from a local file (`set_model_path` or
 The contract with correctness: knobs and tier order are performance
 choices — every pass family is sound in its declared direction whatever
 the knobs — so a bad model can only waste time, never flip a verdict.
-The hand heuristics (the legacy ladder's exact formulas: ~K/8 stream
+The hand heuristics (the hand-wired ladder's exact formulas: ~K/8 stream
 segments, `max(8, K//2)` restarts, beam-32 batched starts, 2,048 x 32
 witness blocks, half the high-water mark for finalize chunks) are the
 explicit fallback whenever no model is loaded, the model lacks the
@@ -45,7 +45,7 @@ MIN_SAMPLES = 4
 
 
 def heuristic_stream_knobs(n_keys: int) -> dict:
-    """The legacy formulas from ops/wgl_stream.py: first-pass spans
+    """The hand formulas from ops/wgl_stream.py: first-pass spans
     every key, post-death segments ~K/8, restart cap half the keys."""
     return {
         "segment": max(8, -(-n_keys // 8)),
@@ -105,7 +105,7 @@ FINALIZE_MIN_ROWS = 192
 
 
 def heuristic_finalize_rows(hwm: int) -> int:
-    """The streaming finalize's legacy formula: chunks capped at half
+    """The streaming finalize's hand formula: chunks capped at half
     the high-water mark the mid-run stream batches reached, floored at
     192 rows."""
     return max(FINALIZE_MIN_ROWS, int(hwm) // 2)
@@ -310,7 +310,7 @@ def fit(records: Iterable[dict], *,
             # finalize-chunk chooser only ranks chunk sizes whose
             # per-chunk shape the store has actually recorded.
             # Additive field — models without it simply keep every
-            # shape-gated chooser on the legacy formulas.
+            # shape-gated chooser on the hand formulas.
             "shape_support": shape_support.get(name, {}),
         }
     return CostModel(passes)
@@ -337,7 +337,13 @@ def set_model_path(path: Optional[str]) -> None:
 
 
 def active_model() -> Optional[CostModel]:
+    """The loaded model, or None (the heuristics): none is set, or
+    `JEPSEN_PLAN=0`."""
     global _model, _loaded
+    from . import enabled
+
+    if not enabled():
+        return None
     with _lock:
         if not _loaded:
             path = _model_path or os.environ.get(MODEL_ENV)
@@ -403,7 +409,7 @@ def choose_stream_knobs(n_keys: int, n_ops: int,
                         ) -> tuple[dict, str]:
     """(knobs, source): stream segment size + restart cap, model-argmin
     over a bounded candidate grid when a trained predictor covers the
-    stream pass, else the legacy formulas."""
+    stream pass, else the hand formulas."""
     if model is None:
         model = active_model()
     heur = heuristic_stream_knobs(n_keys)
@@ -449,7 +455,7 @@ def _shape_in_support(model: CostModel, pass_name: str,
                       feats: dict) -> bool:
     """True iff every shape feature sits inside the pass's recorded
     shape bucket range.  Models fitted before shape_support existed
-    have no ranges -> nothing is rankable -> legacy formulas hold."""
+    have no ranges -> nothing is rankable -> hand formulas hold."""
     sup = model.passes.get(pass_name, {}).get("shape_support") or {}
     if not sup:
         return False
@@ -467,7 +473,7 @@ def _shape_in_support(model: CostModel, pass_name: str,
 
 
 def _candidate_chunk_rows(hwm: int, total_rows: int) -> list[int]:
-    """Finalize-chunk candidates: the two legacy formulas plus
+    """Finalize-chunk candidates: the two hand formulas plus
     power-of-two buckets up to the backlog (capped — a cap beyond the
     backlog is equivalent to one chunk)."""
     cands = {heuristic_finalize_rows(hwm),
@@ -488,7 +494,7 @@ def choose_finalize_chunk_rows(n_keys: int, total_rows: int, hwm: int,
     shape buckets cover a candidate chunk size, the model ranks the
     candidates by predicted total finalize cost (per-chunk pass cost x
     number of chunks); out of support — or with no model at all — the
-    legacy `max(192, hwm // 2)` formula holds verbatim."""
+    hand `max(192, hwm // 2)` formula holds verbatim."""
     heur = heuristic_finalize_rows(hwm)
     if total_rows <= 0:
         return heur, "heuristic"

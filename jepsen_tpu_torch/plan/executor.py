@@ -11,14 +11,14 @@ packed digest (memo hits — the in-memory settle memo first, then the
 persistent plan memo — skip the scope); on exit, each representative's
 verdict fans out to its group, sanitized of positional certificates.
 
-The runners call the same engines the legacy ladder calls
-(`check_wgl_witness_stream`, `check_refute`, `check_wgl_batched`, the
-"settle" `Linearizable`, `_device_first`, `_memo_get`/`_memo_put`) on
-the context's `device`, with the same knobs when the cost model is
-untrained, so `JEPSEN_PLAN=1` and `=0` give the same verdicts, the same
-kernel launches and the same `wgl.settle.*` counters.  Plan-level
-counters land under `wgl.plan.*`; the keys each tier decided also go to
-`ctx.tiers`, the many-key result's "tiers".
+The runners call the engines (`check_wgl_witness_stream`,
+`check_refute`, `check_wgl_batched`, the "settle" `Linearizable`,
+`_device_first`, `_memo_get`/`_memo_put`) on the context's `device`,
+with the hand formulas' knobs when the cost model is untrained.  They
+are the port's only copy of the many-key settle policy: the port keeps
+no hand-wired ladder beside the plan.  Plan-level counters land under
+`wgl.plan.*`, the settle tiers' under `wgl.settle.*`; the keys each tier
+decided also go to `ctx.tiers`, the many-key result's "tiers".
 
 Where the reference swallows a failure, the port narrows it: an error
 for which `degrade.is_device_fault` is true (a kernel that did not
@@ -77,12 +77,12 @@ class ExecContext:
     identity: dict = dataclasses.field(default_factory=dict)
     notes: dict = dataclasses.field(default_factory=dict)
     counts: dict = dataclasses.field(default_factory=dict)
-    #: Keys decided per tier, as the legacy ladder counts them.
+    #: Keys decided per tier: the many-key result's "tiers".
     tiers: Counter = dataclasses.field(default_factory=Counter)
     _digests: dict = dataclasses.field(default_factory=dict)
     _t0: Optional[float] = None
 
-    # -- shared tier budget (the legacy ladder's clock) ----------------------
+    # -- shared tier budget: one clock for the stream and the settle -------
 
     def start_clock(self) -> None:
         if self._t0 is None:
@@ -123,13 +123,13 @@ class ExecContext:
 
 
 # ---------------------------------------------------------------------------
-# Family runners — each reuses the legacy engine call.
+# Family runners — each calls one engine.
 # ---------------------------------------------------------------------------
 
 
 def _run_host_fallback(ctx: ExecContext, node: PassNode, keys: list):
-    """Keys with no packed form: the single-key checker per key, the
-    legacy unpackable path."""
+    """Keys with no packed form: the single-key checker per key (the
+    host-model search)."""
     from ..checker.core import check_safe
     from ..utils import bounded_pmap
 
@@ -362,7 +362,7 @@ def _run_settle_exact(ctx: ExecContext, node: PassNode, keys: list):
     """The parallel CPU settle: screen-refuted keys re-derive their
     certificate, device-refuted keys get a small detail slice (the
     exact device verdict stands if it expires), unknowns go to the
-    exact engine — the legacy settle, verbatim."""
+    exact engine."""
     from ..checker.core import check_safe
     from ..checker.linearizable import Linearizable
     from ..utils import bounded_pmap
@@ -519,8 +519,8 @@ class _GroupState:
 
 def _enter_group(ctx: ExecContext, keys: list) -> _GroupState:
     """Digest-groups the keys and replays memoized verdicts: the
-    in-memory settle memo first (exactly the legacy ladder), then the
-    persistent plan memo (which also warms the in-memory one)."""
+    in-memory settle memo first, then the persistent plan memo (which
+    also warms the in-memory one)."""
     from ..parallel.independent import _memo_get, _memo_put
 
     gs = _GroupState()
@@ -639,8 +639,8 @@ _SETTLE_TIERS = ("screen-refuted", "batched-proven", "batched-refuted",
 
 def _execute_group(ctx: ExecContext, grp: list, gkeys: list,
                    work: dict, route: Callable) -> dict:
-    # One cost record for the whole settle pipeline (cohort mode only),
-    # as the legacy ladder writes it.
+    # One cost record for the whole settle pipeline (cohort mode only);
+    # the batched BFS's record nests inside it.
     cap = (profile.capture(
                "settle", device=ctx.device, keys=len(gkeys),
                ops=int(sum(ctx.packs[k].n for k in gkeys)))

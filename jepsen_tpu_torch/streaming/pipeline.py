@@ -33,11 +33,11 @@ touch the packers or launch on the card at once.
 
 Counts "online_rechecks" and "online_consumed" in `device.counters`
 (the frontiers count theirs), and the reference's `wgl.online.*`
-telemetry; finish() writes the "frontier" profile record.  With
-`JEPSEN_PLAN` on (the default) each stream batch takes its segment and
-restart knobs from the cost model (`choose_stream_knobs`) and the
-finalize its chunk rows (`choose_finalize_chunk_rows`); untrained,
-both are the legacy formulas.  Not ported: the SLO and time-series
+telemetry; finish() writes the "frontier" profile record.  Each
+stream batch takes its segment and restart knobs from the cost
+model (`choose_stream_knobs`) and the finalize its chunk rows
+(`choose_finalize_chunk_rows`); untrained, or with `JEPSEN_PLAN=0`,
+both are the hand formulas.  Not ported: the SLO and time-series
 hooks and the remote checkerd feed.
 """
 
@@ -346,22 +346,17 @@ class StreamingSession:
         against each pack's digest."""
         from ..ops.wgl_stream import check_wgl_witness_stream
         from ..parallel.independent import _memo_put, _settle_digest
-        from ..plan import enabled as _plan_enabled
+        from ..plan import costmodel
 
         self._checks += 1
         telemetry.count("wgl.online.keys-checked", len(keys))
         digests = [_settle_digest(p, self.pm) for p in packs]
         rows = sum(int(p.n) for p in packs)
         self._stream_rows_hwm = max(self._stream_rows_hwm, rows)
-        kw: dict = {}
-        if _plan_enabled():
-            from ..plan import costmodel
-
-            knobs, _ = costmodel.choose_stream_knobs(len(packs), rows)
-            kw["segment_keys"] = knobs["segment"]
-            kw["max_restarts"] = knobs["max_restarts"]
-        verdicts = check_wgl_witness_stream(packs, self.pm, device=self.dev,
-                                            **kw)
+        knobs, _ = costmodel.choose_stream_knobs(len(packs), rows)
+        verdicts = check_wgl_witness_stream(
+            packs, self.pm, device=self.dev, segment_keys=knobs["segment"],
+            max_restarts=knobs["max_restarts"])
         for k, d, v in zip(keys, digests, verdicts):
             self._attempted[k] = d
             if v is True:
@@ -474,19 +469,14 @@ class StreamingSession:
                 continue
             rest.append(k)
             packs.append(finals[k])
-        # Batches of half the mid-run high-water mark, or, with the plan
-        # on and a trained model covering the shapes, the model's pick
+        # Batches of half the mid-run high-water mark, or, with a
+        # trained model covering the shapes, the model's pick
         # (plan/costmodel.py choose_finalize_chunk_rows).
-        from ..plan import enabled as _plan_enabled
+        from ..plan import costmodel
 
-        if _plan_enabled():
-            from ..plan import costmodel
-
-            cap, cap_src = costmodel.choose_finalize_chunk_rows(
-                len(rest), sum(p.n for p in packs), self._stream_rows_hwm)
-            telemetry.count(f"wgl.plan.finalize-chunk-{cap_src}")
-        else:
-            cap = max(192, self._stream_rows_hwm // 2)
+        cap, cap_src = costmodel.choose_finalize_chunk_rows(
+            len(rest), sum(p.n for p in packs), self._stream_rows_hwm)
+        telemetry.count(f"wgl.plan.finalize-chunk-{cap_src}")
         i = 0
         while i < len(rest):
             j, rows = i, 0

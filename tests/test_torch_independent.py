@@ -1,6 +1,7 @@
 """Port parity for many-key checking (parallel/independent.py): the
-port's `IndependentChecker(Linearizable(model))` on the CPU against the
-JAX package's legacy ladder (`JEPSEN_PLAN=0`, no packed lanes) on the
+port's `IndependentChecker(Linearizable(model))` on the CPU, on its
+default route (the compiled plan), against the JAX package's
+hand-wired ladder (its plan route turned off, no packed lanes) on the
 same keyed histories: the overall verdict, `failure-count`, and per key
 the verdict, `algorithm`, configurations explored, memo hit and device
 verdict.  Also: splitting, the settle memo, unpackable keys, the
@@ -36,10 +37,15 @@ FIELDS = ("valid", "algorithm", "configs-explored", "memo-hit",
 
 
 @pytest.fixture(autouse=True)
-def _legacy_ladder(monkeypatch):
-    """The reference's hand-wired ladder with bool member bitsets, and
-    both settle memos empty."""
-    monkeypatch.setenv("JEPSEN_PLAN", "0")
+def _routes(monkeypatch):
+    """The reference on its hand-wired ladder with bool member bitsets,
+    the port on the route its users get (`JEPSEN_PLAN` unset), and both
+    settle memos empty.  The reference reads `jepsen_tpu.plan.enabled`
+    at each check, so patching it steers the reference alone."""
+    import jepsen_tpu.plan as ref_plan
+
+    monkeypatch.delenv("JEPSEN_PLAN", raising=False)
+    monkeypatch.setattr(ref_plan, "enabled", lambda: False)
     monkeypatch.setenv("JEPSEN_WGL_PACKED", "0")
     clear_settle_memo()
     ref_ind.clear_settle_memo()

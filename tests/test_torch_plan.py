@@ -497,3 +497,27 @@ def test_plan_routing_flag(monkeypatch):
         assert not enabled()
     monkeypatch.setenv("JEPSEN_PLAN", "1")
     assert enabled()
+
+
+def test_plan_off_drops_the_model_and_the_memo(tmp_path, monkeypatch):
+    """`JEPSEN_PLAN=0` sends the reference to its hand-wired ladder; the
+    port's checks execute the same plan, with the hand formulas for
+    every knob and no persistent memo."""
+    path = str(tmp_path / "m.json")
+    costmodel.fit(_stream_rows(), min_samples=4).save(path)
+    monkeypatch.setenv(costmodel.MODEL_ENV, path)
+    costmodel.set_model_path(None)
+    plan_cache.configure(str(tmp_path / "cache"))
+    try:
+        monkeypatch.setenv("JEPSEN_PLAN", "0")
+        assert costmodel.active_model() is None
+        assert costmodel.choose_stream_knobs(60, 14000)[1] == "heuristic"
+        assert plan_cache.cache_dir() is None
+        assert plan_cache.active_memo() is None
+        monkeypatch.delenv("JEPSEN_PLAN")
+        assert costmodel.choose_stream_knobs(60, 14000)[1] == "model"
+        assert plan_cache.cache_dir() == str(tmp_path / "cache")
+        assert plan_cache.active_memo() is not None
+    finally:
+        plan_cache.reset_for_tests()
+        costmodel.set_model_path(None)

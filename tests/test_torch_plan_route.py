@@ -4,15 +4,15 @@ With `JEPSEN_PLAN` on (unset: the default) the port's `Linearizable`
 and `IndependentChecker` compile and execute plans.  On the CPU
 corpora their per-key `valid`, `algorithm` and `failure-count` equal
 the JAX package's plan route (with `JEPSEN_WGL_PACKED=0`: the port has
-no packed member lanes), their whole results and "tiers" equal the
-port's own `JEPSEN_PLAN=0` route, and `wgl.plan.fallback` stays 0.
-Also: the persistent memo on both routes (the reference's
+no packed member lanes), and their whole results and "tiers" equal the
+port's own `JEPSEN_PLAN=0` runs, which execute the same plan without
+the cost model and the persistent memo (the port keeps no hand-wired
+ladder).  Also: the persistent memo on both packages (the reference's
 resubmission test, and a journal replay standing for a restarted
 process), the online session's knobs against the reference's for the
-same feed, and that a device fault raised in any plan pass propagates
-while a failure of the plan layer itself falls back to the legacy
-ladder.  One model pair per kind for the file: the JAX side compiles
-per model."""
+same feed, and that a device fault raised in any plan pass, and a
+failure of the plan layer itself, propagate.  One model pair per kind
+for the file: the JAX side compiles per model."""
 
 import pytest
 import torch
@@ -78,8 +78,7 @@ def _plan_route(monkeypatch):
     ref_telemetry.enable(prior[1])
 
 
-def _no_fallback():
-    assert telemetry.counter_value("wgl.plan.fallback") == 0
+def _ran_the_plan():
     assert telemetry.counter_value("wgl.plan.execute") >= 1
 
 
@@ -137,12 +136,12 @@ def test_linearizable_plan_route(name, algorithm, monkeypatch):
     got = Linearizable(m, algorithm, device="cpu").check({}, h, {})
     assert (got["valid"], got["algorithm"]) == (want["valid"],
                                                 want["algorithm"])
-    _no_fallback()
+    _ran_the_plan()
     monkeypatch.setenv("JEPSEN_PLAN", "0")
     executed = telemetry.counter_value("wgl.plan.execute")
-    legacy = Linearizable(m, algorithm, device="cpu").check({}, h, {})
-    assert telemetry.counter_value("wgl.plan.execute") == executed
-    assert _same(got, legacy)
+    plain = Linearizable(m, algorithm, device="cpu").check({}, h, {})
+    assert telemetry.counter_value("wgl.plan.execute") == executed + 1
+    assert _same(got, plain)
 
 
 # ---------------------------------------------------------------------
@@ -160,8 +159,8 @@ def _cas_ops(n_keys, n_ops, bad_keys, gen, kvf):
 
 
 def _cohort_parity(m, ref_m, h, ref_h, monkeypatch, **kw):
-    """Port plan route vs the reference's plan route and vs the port's
-    legacy route; returns the port's plan-route result."""
+    """The port against the reference's plan route, and against its own
+    `JEPSEN_PLAN=0` run; returns the port's default-route result."""
     want = ref_ind.IndependentChecker(RefLinearizable(ref_m, **kw)).check(
         {}, ref_h, {})
     got = IndependentChecker(Linearizable(m, device="cpu", **kw),
@@ -172,15 +171,15 @@ def _cohort_parity(m, ref_m, h, ref_h, monkeypatch, **kw):
     for k, w in want["results"].items():
         g = got["results"][k]
         assert (g["valid"], g["algorithm"]) == (w["valid"], w["algorithm"]), k
-    _no_fallback()
+    _ran_the_plan()
     monkeypatch.setenv("JEPSEN_PLAN", "0")
     clear_settle_memo()
-    legacy = IndependentChecker(Linearizable(m, device="cpu", **kw),
-                                device="cpu").check({}, h, {})
+    plain = IndependentChecker(Linearizable(m, device="cpu", **kw),
+                               device="cpu").check({}, h, {})
     monkeypatch.delenv("JEPSEN_PLAN")
-    assert got["tiers"] == legacy["tiers"]
-    assert got.keys() == legacy.keys()
-    for k, r in legacy["results"].items():
+    assert got["tiers"] == plain["tiers"]
+    assert got.keys() == plain.keys()
+    for k, r in plain["results"].items():
         assert _same(got["results"][k], r), k
     return got
 
@@ -298,7 +297,7 @@ def test_single_history_replays_from_the_journal(tmp_path, monkeypatch):
     assert plan_cache.active_memo().loaded == 1
     fourth, n4 = check(time_limit_s=300.0)
     assert not fourth.get("memo-hit") and n4 > 0
-    _no_fallback()
+    _ran_the_plan()
 
 
 # ---------------------------------------------------------------------
@@ -432,28 +431,23 @@ def test_device_fault_propagates_through_every_plan_pass(target,
     with pytest.raises(kernels.KernelLaunchError):
         IndependentChecker(Linearizable(models.cas_register(), device="cpu"),
                            device="cpu").check({}, h, {})
-    assert telemetry.counter_value("wgl.plan.fallback") == 0
 
 
-def test_plan_layer_failure_falls_back_to_the_legacy_ladder(monkeypatch):
-    h = _small_keyed()
-
+@pytest.mark.parametrize("checker", ["linearizable", "independent"])
+def test_plan_layer_failure_raises(checker, monkeypatch):
+    """The plan is the port's only route: a bug in the plan layer fails
+    the check (the reference falls back to its hand-wired ladder)."""
     def broken(*a, **k):
-        raise ValueError("plan compiler bug")
+        raise ValueError("plan executor bug")
 
-    monkeypatch.setattr(compiler, "compile_cohort_plan", broken)
-    got = IndependentChecker(Linearizable(models.cas_register(),
-                                          device="cpu"),
-                             device="cpu").check({}, h, {})
-    assert telemetry.counter_value("wgl.plan.fallback") == 1
-    monkeypatch.setenv("JEPSEN_PLAN", "0")
-    clear_settle_memo()
-    legacy = IndependentChecker(Linearizable(models.cas_register(),
-                                             device="cpu"),
-                                device="cpu").check({}, h, {})
-    assert got["tiers"] == legacy["tiers"]
-    assert {k: r["valid"] for k, r in got["results"].items()} == \
-        {k: r["valid"] for k, r in legacy["results"].items()}
+    monkeypatch.setattr(compiler, "execute", broken)
+    lin = Linearizable(models.cas_register(), device="cpu")
+    if checker == "linearizable":
+        chk, h = lin, HISTORIES["valid"]()[1]
+    else:
+        chk, h = IndependentChecker(lin, device="cpu"), _small_keyed()
+    with pytest.raises(ValueError, match="plan executor bug"):
+        chk.check({}, h, {})
 
 
 def test_stream_search_error_falls_through_to_the_batched_bfs(monkeypatch):
@@ -472,7 +466,7 @@ def test_stream_search_error_falls_through_to_the_batched_bfs(monkeypatch):
     assert got["valid"] is False and got["failures"] == ["k2"]
     assert got["tiers"]["stream-proven"] == 0
     assert got["tiers"]["batched-proven"] == 5
-    _no_fallback()
+    _ran_the_plan()
 
 
 def test_device_ladder_fault_propagates_from_the_single_plan(monkeypatch):
@@ -480,5 +474,4 @@ def test_device_ladder_fault_propagates_from_the_single_plan(monkeypatch):
     monkeypatch.setattr(wgl_witness, "sweep", _launch_error)
     with pytest.raises(kernels.KernelLaunchError):
         Linearizable(models.cas_register(), device="cpu").check({}, h, {})
-    assert telemetry.counter_value("wgl.plan.fallback") == 0
     assert telemetry.counter_value("wgl.plan.execute") == 1

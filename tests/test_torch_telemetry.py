@@ -42,6 +42,7 @@ from jepsen_tpu_torch import telemetry
 from jepsen_tpu_torch.checker import Linearizable
 from jepsen_tpu_torch.checker.core import check_safe
 from jepsen_tpu_torch.history.core import history
+from jepsen_tpu_torch.history.packed import pack_history
 from jepsen_tpu_torch.models import cas_register
 from jepsen_tpu_torch.ops import degrade, wgl_witness
 from jepsen_tpu_torch.ops.kernels import KernelLaunchError
@@ -551,6 +552,97 @@ def test_device_fault_degrades_to_unknown(monkeypatch):
         ("device", "retry-halved"), ("device", "fall-through")]
 
 
+def _wide_refutation():
+    """An invalid cas-register history whose BFS frontier, at block 8,
+    starts one block 277 configurations wide (beam 512) after starting
+    others narrow (23 wide at beam 256): 92 packed ops, exact refutation
+    at max_beam 512, beam overflow at max_beam 256."""
+    return random_register_history(120, procs=8, info_rate=0.1, seed=1,
+                                   bad_at=0.9)
+
+
+def _fault_once(monkeypatch, when):
+    """Makes the BFS's first block whose (start width, beam) satisfies
+    `when` raise an out-of-memory error, once; later blocks run."""
+    from jepsen_tpu_torch.ops import wgl
+
+    real = wgl._run_block
+    fired = []
+
+    def block(member, states, alive, iters, tables, B, *a, **k):
+        if not fired and when(int(alive.sum()), B):
+            fired.append((int(alive.sum()), B))
+            raise torch.cuda.OutOfMemoryError("CUDA out of memory")
+        return real(member, states, alive, iters, tables, B, *a, **k)
+
+    monkeypatch.setattr(wgl, "_run_block", block)
+    return fired
+
+
+def test_device_fault_on_a_wide_frontier_gives_out_whole(monkeypatch):
+    """A block whose frontier is wider than half the beam is not cut to
+    fit: that would turn the refutation into a beam overflow, which the
+    CPU would settle.  The BFS gives out for the caller's halved retry."""
+    from jepsen_tpu_torch.ops.wgl import check_wgl_device
+
+    pm = cas_register().packed()
+    packed = pack_history(_wide_refutation(), pm.encode)
+    fired = _fault_once(monkeypatch, lambda w, B: w > B // 2)
+    with degrade.capture() as steps:
+        res = check_wgl_device(packed, pm, beam=256, max_beam=512, block=8,
+                               witness=False, device="cpu")
+    assert fired == [(277, 512)]
+    assert (res.valid, res.reason) == ("unknown", "device-resource-error")
+    assert [(s["tier"], s["action"]) for s in steps] == [
+        ("device", "fall-through")]
+
+
+def test_device_halved_beam_is_not_doubled_back(monkeypatch):
+    """After the halved retry the search stays at most half as wide: a
+    later block that overflows gives out rather than doubling back to
+    the beam the device could not hold."""
+    from jepsen_tpu_torch.ops.wgl import check_wgl_device
+
+    pm = cas_register().packed()
+    packed = pack_history(_wide_refutation(), pm.encode)
+    fired = _fault_once(monkeypatch, lambda w, B: w == 23)
+    with degrade.capture() as steps:
+        res = check_wgl_device(packed, pm, beam=256, max_beam=512, block=8,
+                               witness=False, device="cpu")
+    assert fired == [(23, 256)]
+    assert (res.valid, res.reason) == ("unknown", "device-resource-error")
+    assert [(s["tier"], s["action"]) for s in steps] == [
+        ("device", "retry-halved"), ("device", "fall-through")]
+    assert "after the halved retry" in steps[-1]["error"]
+
+
+def test_device_fault_on_a_wide_frontier_raises_not_settles(monkeypatch):
+    """The checker retries the whole search at half size; that search
+    overflows its halved beam, so the check raises with the probe and
+    no CPU engine runs (the reference settles on its CPU engine).  The
+    refutation screens, which would refute this history on the host,
+    are turned off so that the device search runs."""
+    import importlib
+
+    lin_mod = importlib.import_module("jepsen_tpu_torch.checker.linearizable")
+    monkeypatch.setattr(lin_mod, "check_refute", lambda *a, **k: None)
+    fired = _fault_once(monkeypatch, lambda w, B: w > B // 2)
+
+    def no_cpu(*a, **k):
+        raise AssertionError("a device fault reached the CPU engine")
+
+    monkeypatch.setattr(Linearizable, "_cpu_exact", no_cpu)
+    with degrade.capture() as steps:
+        with pytest.raises(degrade.CardExhausted) as ei:
+            Linearizable(cas_register(), beam=256, max_beam=512, block=8,
+                         device="cpu").check({}, _wide_refutation(), {})
+    assert fired == [(277, 512)]
+    assert "overflowed its halved beam" in str(ei.value)
+    assert [(s["tier"], s["action"]) for s in steps
+            if s["tier"] != "witness"] == [
+        ("device", "fall-through"), ("dispatch", "retry-halved")]
+
+
 def test_witness_fault_leaves_the_verdict_to_the_bfs(monkeypatch):
     """JEPSEN_WGL_FAULT=witness: the frontier BFS settles the check."""
     h = random_register_history(300, procs=3, info_rate=0.02, seed=5)
@@ -598,7 +690,7 @@ def test_all_faults_raise_after_the_halved_retry(monkeypatch):
         ("dispatch", "retry-halved"),
         ("witness", "retry-halved"), ("witness", "fall-through"),
         ("device", "retry-halved"), ("device", "fall-through")]
-    assert telemetry.counter_value("wgl.plan.fallback") == 0
+    assert telemetry.counter_value("wgl.plan.execute") == 1
 
 
 def test_probe_card_reports_a_missing_card():
