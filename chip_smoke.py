@@ -6,10 +6,10 @@
 Needs one CUDA card and the CUDA toolkit (nvcc): the witness sweep
 kernel is built from jepsen_tpu_torch/csrc/ into build/jepsen_tpu_torch/
 at first use.  Exits non-zero, printing no result, when torch sees no
-CUDA device or the package is missing.  Ten phases, each raising on
-failure, run in the order 1, 2, 5, 6, 7, 8, 9, 1b, 3, 4 (every
+CUDA device or the package is missing.  Eleven phases, each raising on
+failure, run in the order 1, 2, 5, 6, 7, 8, 9, 10, 1b, 3, 4 (every
 host-clock and CUDA-event timing before the profiler first runs).  The
-checkers' only route is the compiled plan, so phases 1-8 run it;
+checkers' only route is the compiled plan, so phases 1-8 and 10 run it;
 phase 9 reads its own parts (JEPSEN_PLAN=0, memo, faults, records):
 
 1. The sweep kernel against its plain PyTorch version at the bench
@@ -67,6 +67,18 @@ phase 9 reads its own parts (JEPSEN_PLAN=0, memo, faults, records):
    each one's registers and spills from the build's -Xptxas -v output.
    Also the batched BFS on each model's cohort recorded in phases 5
    and 6: levels, host syncs and wall time; its device time in phase 3.
+   Then the wide cases (`phase_wide`): every instantiation at beams of
+   33, 48 and 64 lanes (two 32-lane blocks joined), and the wide
+   multi-register (33, 40 and 64 registers, state rows in shared
+   memory) plain and stream at B = 1, 8, 32, 33, 48 and 64, on random
+   blocks of 2,048 barriers with batch edges and one lane group dead
+   from the start, exactly as the plain version; a 200-key history of a
+   40-register multi-register through IndependentChecker, every verdict
+   the exact CPU engine's; the bench history through the witness at
+   beam 64 (valid), and 40 of phase 5's keys at beam 64 against the
+   exact engine; the sweeps these checks made, recorded as in phases 5
+   and 6, exactly as the plain version; each new instantiation timed on
+   its longest recorded call.
 7. Online checking (streaming/, monitor/), each sub-phase counted on its
    own: (7a) the bench history replayed in 24 stable-prefix slices
    through FrontierCarry equals one check_wgl_witness at the same block
@@ -118,6 +130,19 @@ phase 9 reads its own parts (JEPSEN_PLAN=0, memo, faults, records):
    telemetry on, a profile store: the records of one bench check and
    one phase 5 check equal the JAX package's (REF_PROFILE), name the
    card, and the Chrome trace loads.
+10. The checker daemon (checkerd/, `phase_daemon`), in-process on
+   127.0.0.1 on the card with its profile store, plan memo and queue
+   journal in a temp dir: (10a) four threads submit a run_mixed-shaped
+   history each (200 keys, 30 bad, seeds per run) through
+   RemoteChecker into one cohort, every per-key verdict, algorithm and
+   configs-explored the in-process check's, with each run's queue wait
+   and check time and the daemon's overhead; (10b) the 2,000 valid
+   keys as one packed submission; (10c) STATS (devices, chip health,
+   the roofline against the H100's peaks, profile records) and a
+   /metrics scrape with no SLO rule firing; (10d) a 0.001 s budget:
+   unknown, and the next submission right; (10e) a daemon stopped with
+   a journaled, unfinished ticket finishes it after a restart, and the
+   settled history resubmitted hits the plan memo with no sweep.
 
 The last lines are the device-program JSON line (the closure screen and
 the extraction, plain PyTorch: time, launches per check, bound), the
@@ -134,9 +159,6 @@ import statistics
 import subprocess
 import sys
 import time
-
-#: H100 SXM device-memory rate (NVIDIA data sheet), for the bound.
-HBM_BYTES_PER_S = 3.35e12
 
 BENCH_OPS, BENCH_PROCS, BENCH_INFO, BENCH_SEED = 100_000, 16, 0.05, 45100
 
@@ -336,19 +358,6 @@ def wall_ms(fn, reps: int) -> float:
     return (time.perf_counter() - t0) * 1e3 / reps
 
 
-def sweep_bytes(start_k: int, death: int, K: int, cols: list,
-                B: int, SW: int) -> int:
-    """Bytes the sweep must move for this input: the bars columns it
-    reads (start_k .. death, 5 words each: window column, real, f, a0,
-    a1; the ret row is never read), each distinct member row those
-    barriers name (B bool bytes), the states (int32) and alive (bool)
-    read once, and the outputs written once."""
-    last = min(death, K - 1)
-    n = max(0, last - start_k + 1)
-    distinct = len(set(cols[start_k:last + 1])) if n else 0
-    return 4 * 5 * n + B * distinct + 2 * (4 * SW * B + B) + 4
-
-
 def chain_step_ns(torch) -> float:
     """Nanoseconds per barrier of one lane's dependent step chain with
     no loads and no vote (the kernel library's chain probe), from CUDA
@@ -393,6 +402,7 @@ def phase_kernel(torch, packed, pm, W, seed: int) -> tuple:
 
     from jepsen_tpu_torch.ops import kernels, wgl_witness
     from jepsen_tpu_torch.ops.wgl_witness import sweep, sweep_plain
+    from jepsen_tpu_torch.telemetry import roofline
 
     dev = torch.device("cuda")
     step_rows = pm.torch_step_rows
@@ -564,16 +574,17 @@ def phase_kernel(torch, packed, pm, W, seed: int) -> tuple:
         call_ms_events = cuda_ms(call, reps=200)
         plain = wall_ms(lambda: sweep_plain(
             start_k, bars, member, states, alive, step_rows), reps=3)
-        nbytes = sweep_bytes(start_k, death, K, bars[0].tolist(),
-                             member.shape[1], states.shape[1])
-        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        nbytes = roofline.sweep_bytes(start_k, death, K, bars[0].tolist(),
+                                      member.shape[1], states.shape[1])
+        bound = nbytes / roofline.H100_BYTES_PER_S * 1e3
         floor = swept * step_ns / 1e6
         log(f"phase1: timing {name}: {swept} barriers, kernel {ms:.6f} ms "
             f"back to back (CUDA events; {ms * 1e6 / swept:.4f} ns/barrier; "
             f"host clock {ms_host:.6f} ms), sweep() call {call_ms:.6f} ms "
             f"host clock / {call_ms_events:.6f} ms events, plain "
             f"{plain:.3f} ms, bound {bound:.9f} ms ({nbytes} B at "
-            f"{HBM_BYTES_PER_S:.3g} B/s), step floor {floor:.6f} ms")
+            f"{roofline.H100_BYTES_PER_S:.3g} B/s), step floor "
+            f"{floor:.6f} ms")
         return dict(name=name, swept=swept, ms=ms, ms_host=ms_host,
                     call_ms=call_ms, call_ms_events=call_ms_events,
                     plain=plain, bound=bound, floor=floor, kernel=kernel,
@@ -781,13 +792,13 @@ BIG_KEYS = 2000  # the all-valid check: 200k ops
 MODEL_KEYS, MODEL_OPS = 200, 100
 
 
-def instantiation(pm) -> str:
-    """The sweep kernel instantiation `pm` runs, as `kernels.launches`
-    counts it: witness_sweep[<model>] or witness_sweep[<model>+stream]."""
+def instantiation(pm, beam: int = 1) -> str:
+    """The sweep kernel instantiation `pm` runs over `beam` lanes, as
+    `kernels.launches` counts it (`kernels.instantiation_name`)."""
     from jepsen_tpu_torch.ops import kernels
 
-    return (f"witness_sweep[{kernels.SWEEP_MODELS[pm.kernel_model][0]}"
-            f"{'+stream' if pm.stream else ''}]")
+    return kernels.instantiation_name(pm.kernel_model, pm.state_width,
+                                      pm.stream, beam)
 
 
 class SweepRecorder:
@@ -816,7 +827,7 @@ class SweepRecorder:
 
         def recording(pm, start_k, bars, member, states, alive, init=None):
             out = real(pm, start_k, bars, member, states, alive, init)
-            name = instantiation(pm)
+            name = instantiation(pm, member.shape[1])
             span = min(out[2], bars.shape[1] - 1) - start_k
             calls = self.calls.setdefault(name, [])
             best = self.longest.get(name)
@@ -843,9 +854,9 @@ class SweepRecorder:
         return False
 
 
-def mixed_history(n_keys: int, n_bad: int):
+def mixed_history(n_keys: int, n_bad: int, seed0: int = 0):
     """bench.py run_mixed's history: `n_keys` cas-register keys "k<i>"
-    of MIXED_OPS ops (4 processes, 5% :info, seed i), keys 0 ..
+    of MIXED_OPS ops (4 processes, 5% :info, seed seed0 + i), keys 0 ..
     n_bad - 1 with a planted violation."""
     from jepsen_tpu_torch.history.core import history
     from jepsen_tpu_torch.parallel import kv
@@ -854,7 +865,7 @@ def mixed_history(n_keys: int, n_bad: int):
     ops = []
     for i in range(n_keys):
         h = random_register_history(MIXED_OPS, procs=4, info_rate=0.05,
-                                    seed=i, bad=i < n_bad)
+                                    seed=seed0 + i, bad=i < n_bad)
         ops += [o.replace(value=kv(f"k{i}", o.value)) for o in h]
     return history(ops)
 
@@ -1029,8 +1040,9 @@ def random_model_tables(pm, rng, B: int, W: int, K: int, kind: str,
     member = rng.random((W, B)) < 0.3
     member[:, 0] = True
     member[W - 1] = kind == "clean"
-    if B == 32:
-        member[: W - 1, 31] = True  # the sign bit of every word
+    for lane in (31, 63):
+        if lane < B:
+            member[: W - 1, lane] = True  # the sign bit of every word
     alive = rng.random(B) < 0.7
     alive[0] = True
     bars = np.zeros((6, K), dtype=np.int32)
@@ -1075,6 +1087,63 @@ def random_model_tables(pm, rng, B: int, W: int, K: int, kind: str,
     return bars, member, states.astype(np.int32), alive
 
 
+def match_plain(torch, cases) -> dict:
+    """Runs each case (label, packed model, start, (bars, member, states,
+    alive) on the card, init) through the kernel's wrapper and the plain
+    version (on host copies of the inputs: its per-barrier loop on the
+    card would cost minutes) and raises unless states, alive and death
+    are equal; a label "...@<off>" also needs its death at that batch
+    offset.  -> {instantiation: max abs difference (0)}."""
+    from jepsen_tpu_torch.ops import kernels
+    from jepsen_tpu_torch.ops.wgl_witness import sweep_plain
+
+    max_err = {}
+    for label, pm, start_k, args, init in cases:
+        ks, ka, kd = kernels.witness_sweep(pm.kernel_model, start_k, *args,
+                                           init)
+        ks, ka, kd = ks.cpu(), ka.cpu(), int(kd.item())
+        ps, pa, pd = sweep_plain(start_k, *(t.cpu() for t in args),
+                                 pm.torch_step_rows)
+        inst = instantiation(pm, args[1].shape[1])
+        max_err[inst] = max(max_err.get(inst, 0), abs(kd - pd),
+                            int((ks.long() - ps.long()).abs().max()),
+                            int((ka.long() - pa.long()).abs().max()))
+        if not (torch.equal(ks, ps) and torch.equal(ka, pa) and kd == pd):
+            raise AssertionError(
+                f"phase1b: witness_sweep != sweep_plain on {label}: death "
+                f"{kd} vs {pd}, states equal {torch.equal(ks, ps)}, alive "
+                f"equal {torch.equal(ka, pa)}")
+        if ("@" in label and not label.startswith("mutex")
+                and (kd - start_k) % 32 != int(label.rpartition("@")[2])):
+            raise AssertionError(f"phase1b: {label}: death {kd} from "
+                                 f"{start_k} is not at its batch offset")
+    return max_err
+
+
+def recorded_cases(recorder: SweepRecorder) -> list:
+    """Phase 1b's cases (label, pm, start_k, (bars, member, states,
+    alive), init) from the sweep() calls `recorder` kept: each kept call
+    and each instantiation's longest as they ran, and the first one
+    restarted at barriers 31 and 33 and cut to lane 0 (past 33 lanes,
+    to lanes 0-32 too: a second lane group of one lane)."""
+    cases = []
+    for name, calls in recorder.calls.items():
+        for i, c in enumerate(calls + [recorder.longest[name]]):
+            cases.append((f"{name}:recorded{i}", c["pm"], c["start_k"],
+                          c["args"], c["init"]))
+        c = calls[0]
+        bars, member, states, alive = c["args"]
+        for start in (31, 33):
+            if start < bars.shape[1]:
+                cases.append((f"{name}:recorded-start{start}", c["pm"],
+                              start, c["args"], c["init"]))
+        for b in (1, 33) if member.shape[1] > 33 else (1,):
+            cases.append((f"{name}:recorded-B{b}", c["pm"], c["start_k"],
+                          (bars, member[:, :b].contiguous(), states[:b],
+                           alive[:b]), c["init"]))
+    return cases
+
+
 def phase_instantiations(torch, recorder: SweepRecorder, seed: int) -> list:
     """Phase 1b: every other sweep instantiation against the plain
     version (run on host copies of the inputs), exactly (states, alive,
@@ -1088,8 +1157,7 @@ def phase_instantiations(torch, recorder: SweepRecorder, seed: int) -> list:
     ran."""
     import numpy as np
 
-    from jepsen_tpu_torch.ops import kernels
-    from jepsen_tpu_torch.ops.wgl_witness import BARS_PER_BLOCK, sweep_plain
+    from jepsen_tpu_torch.ops.wgl_witness import BARS_PER_BLOCK
 
     dev = torch.device("cuda")
     K, W = BARS_PER_BLOCK, 64
@@ -1103,21 +1171,8 @@ def phase_instantiations(torch, recorder: SweepRecorder, seed: int) -> list:
         return (torch.tensor(pm.init_state, dtype=torch.int32, device=dev)
                 if pm.stream else None)
 
-    cases = []  # (label, pm, start_k, (bars, member, states, alive), init)
-    for name, calls in recorder.calls.items():
-        rec = calls + [recorder.longest[name]]
-        for i, c in enumerate(rec):
-            cases.append((f"{name}:recorded{i}", c["pm"], c["start_k"],
-                          c["args"], c["init"]))
-        c = calls[0]
-        bars, member, states, alive = c["args"]
-        for start in (31, 33):
-            if start < bars.shape[1]:
-                cases.append((f"{name}:recorded-start{start}", c["pm"],
-                              start, c["args"], c["init"]))
-        cases.append((f"{name}:recorded-B1", c["pm"], c["start_k"],
-                      (bars, member[:, :1].contiguous(), states[:1],
-                       alive[:1]), c["init"]))
+    # (label, pm, start_k, (bars, member, states, alive), init)
+    cases = recorded_cases(recorder)
     for label, pm in instance_models():
         for B in (1, 8, 32):
             def tables(kind, planted=None):
@@ -1136,33 +1191,24 @@ def phase_instantiations(torch, recorder: SweepRecorder, seed: int) -> list:
                 cases.append((f"{label}:rand{B}-{kind}", pm, start, args,
                               init_of(pm)))
 
-    max_err = {}
-    for label, pm, start_k, args, init in cases:
-        ks, ka, kd = kernels.witness_sweep(pm.kernel_model, start_k, *args,
-                                           init)
-        ks, ka, kd = ks.cpu(), ka.cpu(), int(kd.item())
-        # The plain version on host copies of the same inputs: its
-        # per-barrier loop on the card would cost minutes here.
-        ps, pa, pd = sweep_plain(start_k, *(t.cpu() for t in args),
-                                 pm.torch_step_rows)
-        inst = instantiation(pm)
-        max_err[inst] = max(max_err.get(inst, 0), abs(kd - pd),
-                            int((ks.long() - ps.long()).abs().max()),
-                            int((ka.long() - pa.long()).abs().max()))
-        if not (torch.equal(ks, ps) and torch.equal(ka, pa) and kd == pd):
-            raise AssertionError(
-                f"phase1b: witness_sweep != sweep_plain on {label}: death "
-                f"{kd} vs {pd}, states equal {torch.equal(ks, ps)}, alive "
-                f"equal {torch.equal(ka, pa)}")
-        if ("@" in label and not label.startswith("mutex")
-                and (kd - start_k) % 32 != int(label.rpartition("@")[2])):
-            raise AssertionError(f"phase1b: {label}: death {kd} from "
-                                 f"{start_k} is not at its batch offset")
+    max_err = match_plain(torch, cases)
     log(f"phase1b: {len(cases)} cases of {len(max_err)} instantiations "
         f"match sweep_plain exactly ({sorted(max_err)})")
 
+    return timing_entries(torch, recorder.longest, max_err)
+
+
+def timing_entries(torch, longest: dict, max_err: dict) -> list:
+    """Times each instantiation on its longest recorded call (CUDA
+    events over back-to-back wrapper launches; the plain version on the
+    same inputs by the host clock) -> its kernels-line entry, launches
+    filled in by the caller."""
+    from jepsen_tpu_torch.ops import kernels
+    from jepsen_tpu_torch.ops.wgl_witness import sweep_plain
+    from jepsen_tpu_torch.telemetry import roofline
+
     entries = []
-    for name, c in sorted(recorder.longest.items()):
+    for name, c in sorted(longest.items()):
         pm, start_k, init = c["pm"], c["start_k"], c["init"]
         bars, member, states, alive = c["args"]
         B, sw = member.shape[1], states.shape[1]
@@ -1174,9 +1220,9 @@ def phase_instantiations(torch, recorder: SweepRecorder, seed: int) -> list:
         plain = wall_ms(lambda: sweep_plain(start_k, *c["args"],
                                             pm.torch_step_rows), reps=3)
         swept = c["span"] + 1
-        nbytes = (sweep_bytes(start_k, c["death"], bars.shape[1],
-                              bars[0].tolist(), B, sw)
-                  + (4 * sw if init is not None else 0))
+        nbytes = roofline.sweep_cost(start_k, c["death"], bars.shape[1],
+                                     bars[0].tolist(), B, sw,
+                                     init is not None)["bytes_accessed"]
         entry = {
             "name": name,
             "route": "cuda",
@@ -1186,7 +1232,7 @@ def phase_instantiations(torch, recorder: SweepRecorder, seed: int) -> list:
             "max_abs_err": max_err.get(name, 0),
             "ms": ms,
             "plain_ms": plain,
-            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "bound_ms": nbytes / roofline.H100_BYTES_PER_S * 1e3,
             "bound_by": "bytes",
             "library_ms": None,
             "barriers_timed": swept,
@@ -1200,6 +1246,213 @@ def phase_instantiations(torch, recorder: SweepRecorder, seed: int) -> list:
             f"bound {entry['bound_ms']:.9f} ms ({nbytes} B)")
         entries.append(entry)
     return entries
+
+
+
+
+#: Phase 1b's wide cases: beams past one 32-lane block, multi-register
+#: widths past the register-resident instantiations, and the registers
+#: of the wide keyed check.
+WIDE_BEAMS = (33, 48, 64)
+WIDE_WIDTHS = (33, 40, 64)
+WIDE_REGS = 40
+#: The beam of the wide-beam witness checks, and the keys (phase 5's
+#: per-key histories, the first 10 bad) whose beam-64 witness verdicts
+#: are held against the exact CPU engine, which cannot decide even a
+#: 1,000-op history of the bench generator (16 processes) in 120 s.
+WIDE_BEAM_CHECK, WIDE_EXACT_KEYS, WIDE_EXACT_BAD = 64, 40, 10
+
+
+def wide_models() -> list:
+    """(label, packed model) of the wide multi-register instantiation,
+    plain and stream, at each of WIDE_WIDTHS registers."""
+    from jepsen_tpu_torch import models as M
+    from jepsen_tpu_torch.ops.wgl_stream import stream_model
+
+    out = []
+    for n in WIDE_WIDTHS:
+        pm = M.multi_register({f"r{i}": 0 for i in range(n)}).packed()
+        out += [(f"multi-register/{n}", pm),
+                (f"multi-register/{n}+stream", stream_model(pm))]
+    return out
+
+
+def wide_cases(torch, seed: int, dev) -> list:
+    """Random sweep inputs of phase 1b's wide cases, on `dev`, over
+    blocks of the witness's BARS_PER_BLOCK barriers: every
+    instantiation of `instance_models` (and the plain register) at
+    B = 33, 48 and 64, and the wide multi-register at B = 1, 8 (the
+    witness's beam), 32, 33, 48 and 64, with deaths mid-block and at
+    batch offsets 0 and 31 from starts 31 and 33, starts after a death
+    and in a padding tail; past 32 lanes also one lane group dead from
+    the start ("high-dead": lanes 32.. dead; "low-dead": lanes 0-31
+    dead, lane 32 alive), so the two groups die at different
+    barriers."""
+    import numpy as np
+
+    from jepsen_tpu_torch.models import cas_register
+    from jepsen_tpu_torch.ops.wgl_witness import BARS_PER_BLOCK
+
+    K, W = BARS_PER_BLOCK, 64
+    rng = np.random.default_rng(seed)
+
+    def to_dev(arrays):
+        return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                     for a in arrays)
+
+    def init_of(pm):
+        return (torch.tensor(pm.init_state, dtype=torch.int32, device=dev)
+                if pm.stream else None)
+
+    def split(tables, kind):
+        bars, member, states, alive = (np.array(t) for t in tables)
+        if kind == "high-dead":
+            alive[32:] = False
+        else:
+            alive[:32] = False
+            alive[32] = True
+            member[: W - 1, 32] = True
+        return bars, member, states, alive
+
+    cases = []
+    models = ([("register", cas_register().packed())] + instance_models(),
+              WIDE_BEAMS, False)
+    for (labelled, beams, every_start) in (models,
+                                           (wide_models(),
+                                            (1, 8, 32) + WIDE_BEAMS, True)):
+        for label, pm in labelled:
+            for B in beams:
+                def tables(kind, planted=None):
+                    return random_model_tables(pm, rng, B, W, K, kind,
+                                               planted)
+
+                death = tables("death", K // 2)
+                runs = [("clean", 0, tables("clean")), ("death", 0, death)]
+                if every_start:
+                    runs += [("after-death", K // 2 + 1, death),
+                             ("padding", K - 295, tables("padding", K // 2))]
+                    edges = [(31, 0), (31, 31), (33, 0), (33, 31)]
+                else:
+                    edges = [(33, 31)]
+                for start, off in edges:
+                    runs.append((f"start{start}-death@{off}", start,
+                                 tables("death", start + 5 * 32 + off)))
+                if B > 32:
+                    runs += [(kind, 0, split(death, kind))
+                             for kind in ("high-dead", "low-dead")]
+                for kind, start, args in runs:
+                    cases.append((f"{label}:rand{B}-{kind}", pm, start,
+                                  to_dev(args), init_of(pm)))
+    return cases
+
+
+def phase_wide(torch, packed, dev=None) -> tuple:
+    """Phase 1b's wide part: the wide cases (`wide_cases`) against the
+    plain version, exactly; a 200-key history of a 40-register
+    multi-register (every 7th key bad, one long key) through
+    IndependentChecker, every per-key verdict the exact CPU engine's,
+    both wide instantiations launched; the bench history through the
+    witness at beam 64 (valid, as phase 2 at beam 8), and 40 of phase
+    5's per-key histories at beam 64 against the exact engine: every
+    valid key proven, no invalid one; then the sweep() calls these
+    checks made (`recorded_cases`) against the plain version, exactly.
+    -> (the kernels-line entries of the wide instantiations and of the
+    two-block beam, the readings)."""
+    from jepsen_tpu_torch import models as M
+    from jepsen_tpu_torch.checker import Linearizable
+    from jepsen_tpu_torch.history.core import Op, history
+    from jepsen_tpu_torch.history.packed import pack_history
+    from jepsen_tpu_torch.ops import kernels
+    from jepsen_tpu_torch.ops.wgl_witness import check_wgl_witness
+    from jepsen_tpu_torch.parallel import IndependentChecker, \
+        clear_settle_memo, kv
+    from jepsen_tpu_torch.utils.histgen import random_register_history
+
+    dev = torch.device("cuda") if dev is None else torch.device(dev)
+    out: dict = {}
+    max_err: dict = {}
+    if dev.type == "cuda":
+        cases = wide_cases(torch, BENCH_SEED, dev)
+        t0 = time.perf_counter()
+        max_err = match_plain(torch, cases)
+        log(f"phase1b: wide: {len(cases)} cases of {sorted(max_err)} match "
+            f"sweep_plain exactly ({time.perf_counter() - t0:.3f} s)")
+
+    recorder = SweepRecorder()
+
+    def make():
+        return M.multi_register({f"r{i}": 0 for i in range(WIDE_REGS)})
+
+    bad = set(range(0, MODEL_KEYS, 7))
+    h = keyed_history(multi_register_ops, MODEL_KEYS, MODEL_OPS, bad, Op=Op,
+                      kv=kv, history=history,
+                      long_key_ops=LONG_KEY_OPS_DEFAULT, n_regs=WIDE_REGS)
+    chk = IndependentChecker(Linearizable(make(), time_limit_s=120,
+                                          device=dev), device=dev)
+    clear_settle_memo()
+    with recorder:
+        chk.check({}, h, {})
+    res, r = many_key_run(torch, chk, h, reps=1)
+    if res["failure-count"] != len(bad):
+        raise AssertionError(f"phase1b wide: {res['failure-count']} "
+                             f"failures, want {len(bad)}")
+    check_exact("phase1b wide", make, h, res)
+    launches = dict(r["launches"])
+    log(f"phase1b: wide keyed ({WIDE_REGS} registers) " + json.dumps(r))
+    out["keyed"] = r
+
+    pm = M.cas_register().packed()
+    kernels.launches.clear()
+    with recorder:
+        t0 = time.perf_counter()
+        wide_bench = check_wgl_witness(packed, pm, beam=WIDE_BEAM_CHECK,
+                                       device=dev)
+        t_bench = time.perf_counter() - t0
+    if wide_bench is None or wide_bench.valid is not True:
+        raise AssertionError(f"phase1b: beam-{WIDE_BEAM_CHECK} witness on "
+                             f"the bench history gave {wide_bench}")
+    agree = {True: 0, False: 0}
+    for i in range(WIDE_EXACT_KEYS):
+        kh = random_register_history(MIXED_OPS, procs=4, info_rate=0.05,
+                                     seed=i, bad=i < WIDE_EXACT_BAD)
+        got = check_wgl_witness(pack_history(kh, pm.encode), pm,
+                                beam=WIDE_BEAM_CHECK, device=dev)
+        exact = Linearizable(M.cas_register(), "cpu", time_limit_s=120,
+                             device="cpu").check({}, kh, {})["valid"]
+        proven = got is not None and got.valid is True
+        if exact not in (True, False) or proven is not exact:
+            raise AssertionError(
+                f"phase1b: key {i}: beam-{WIDE_BEAM_CHECK} witness "
+                f"{'proved' if proven else 'did not prove'} it, exact "
+                f"engine {exact}")
+        agree[exact] += 1
+    launches["witness_sweep[beam>32]"] = kernels.launches[
+        "witness_sweep[beam>32]"]
+    out["beam"] = {"bench_valid": wide_bench.valid, "bench_s": t_bench,
+                   "keys_exact": agree,
+                   "launches": launches["witness_sweep[beam>32]"]}
+    log(f"phase1b: beam {WIDE_BEAM_CHECK} " + json.dumps(out["beam"]))
+    if dev.type != "cuda":
+        return [], out
+    for name in ("witness_sweep[multi-register-wide]",
+                 "witness_sweep[multi-register-wide+stream]",
+                 "witness_sweep[beam>32]"):
+        if launches.get(name, 0) <= 0:
+            raise AssertionError(f"phase1b: {name} never launched")
+    cases = recorded_cases(recorder)
+    t0 = time.perf_counter()
+    for name, err in match_plain(torch, cases).items():
+        max_err[name] = max(max_err.get(name, 0), err)
+    shapes = sorted({(instantiation(c[1], c[3][1].shape[1]),
+                      c[3][1].shape[1], c[3][2].shape[1]) for c in cases})
+    log(f"phase1b: wide: {len(cases)} recorded cases (instantiation, B, "
+        f"sw: {shapes}) match sweep_plain exactly "
+        f"({time.perf_counter() - t0:.3f} s)")
+    out["recorded_cases"] = len(cases)
+    entries = timing_entries(torch, recorder.longest, max_err)
+    for e in entries:
+        e["launches"] = launches.get(e["name"], 0)
+    return [e for e in entries if e["name"] in launches], out
 
 
 def phase_batched(torch, recorder: SweepRecorder) -> dict:
@@ -1567,9 +1820,6 @@ ELLE_TXNS, ELLE_BIG_TXNS, ELLE_SEED = 1000, 2000, 45100
 ELLE_MODELS = ("serializable", "strict-serializable")
 #: 8d: random graphs of 16-128 vertices through one screen call.
 SCREEN_GRAPHS = 512
-#: Dense bfloat16 peak of one H100 SXM (NVIDIA data sheet), for the bound.
-BF16_FLOP_PER_S = 989e12
-
 #: The transactions of each anomaly phase 8 injects, as committed (the
 #: micro-ops with what the reads returned), on keys no other
 #: transaction touches.  They run concurrently, so realtime orders none
@@ -1799,27 +2049,13 @@ def elle_check(torch, dev, kind: str, model: str, history,
     return r, res, host, g
 
 
-def closure_ops(K: int, V: int) -> float:
-    """Floating-point operations of one closure: ceil(log2 V) batched
-    V x V products, 2 V^3 each per graph."""
-    from jepsen_tpu_torch.ops import scc
-
-    return scc._steps(V) * 2.0 * K * V ** 3
-
-
-def bound(ops: float, n_bytes: float) -> tuple:
-    """(bound ms, "operations" or "bytes"): the larger of the operations
-    at the bfloat16 peak and the bytes at the memory rate."""
-    t_ops, t_bytes = ops / BF16_FLOP_PER_S * 1e3, n_bytes / HBM_BYTES_PER_S * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
-
-
 def phase_elle(torch, dev=None) -> dict:
     """Phase 8 on `dev` (the card by default): 8a-8e of the module doc.
     Raises on any failed check."""
     from jepsen_tpu_torch.checker.elle import AppendChecker, DepGraph
     from jepsen_tpu_torch.history.core import Op, history
     from jepsen_tpu_torch.ops import scc
+    from jepsen_tpu_torch.telemetry import roofline
 
     dev = torch.device("cuda") if dev is None else torch.device(dev)
     cuda = dev.type == "cuda"
@@ -1884,13 +2120,13 @@ def phase_elle(torch, dev=None) -> dict:
                 torch.bfloat16)
 
         def bmm_steps():
-            for _ in range(scc._steps(a16.shape[-1])):
+            for _ in range(roofline.closure_steps(a16.shape[-1])):
                 torch.bmm(a16, a16)
 
         out["bmm_ms"] = cuda_ms(bmm_steps, reps=20)
-        log(f"phase8a: the closure's {scc._steps(a16.shape[-1])} bare "
-            f"torch.bmm calls at {list(a16.shape)}: {out['bmm_ms']:.6f} ms "
-            f"(CUDA events)")
+        log(f"phase8a: the closure's "
+            f"{roofline.closure_steps(a16.shape[-1])} bare torch.bmm calls "
+            f"at {list(a16.shape)}: {out['bmm_ms']:.6f} ms (CUDA events)")
 
     # 8d: many graphs through one screen call (K > 1).
     graphs = random_dep_graphs(SCREEN_GRAPHS, ELLE_SEED, DepGraph)
@@ -2188,15 +2424,32 @@ def plan_profiles(torch, dev, history, mixed, kind: str,
     """9e: telemetry on and a profile store in a temp directory; one
     check of the bench history and one of phase 5's history.  At full
     size the records' passes, features and knobs equal the reference's;
-    each names the card, and the Chrome trace loads."""
+    each names the card, and the Chrome trace loads.  Then a frontier
+    BFS (a 400-op history with an impossible read) and an Elle check
+    (300 list-append transactions with a G-single): the witness (sweep
+    and chain rounds), stream, bfs and elle records carry non-null cost
+    and roofline blocks."""
     import tempfile
 
     from jepsen_tpu_torch import telemetry
     from jepsen_tpu_torch.checker import Linearizable
+    from jepsen_tpu_torch.checker.elle import AppendChecker
+    from jepsen_tpu_torch.history.core import Op
+    from jepsen_tpu_torch.history.core import history as make_history
+    from jepsen_tpu_torch.history.packed import pack_history
     from jepsen_tpu_torch.models import cas_register
+    from jepsen_tpu_torch.ops.wgl import check_wgl_device
     from jepsen_tpu_torch.parallel import IndependentChecker, \
         clear_settle_memo
     from jepsen_tpu_torch.telemetry import profile
+    from jepsen_tpu_torch.utils.histgen import random_register_history
+
+    pm = cas_register().packed()
+    bad = pack_history(random_register_history(400, procs=4, info_rate=0.0,
+                                               seed=BENCH_SEED, bad=True),
+                       pm.encode)
+    elle_h = make_history([Op(**d) for d in elle_ops(
+        "append", 300, ELLE_SEED, inject=("G-single",))])
 
     got: dict = {}
     with tempfile.TemporaryDirectory() as d:
@@ -2210,7 +2463,11 @@ def plan_profiles(torch, dev, history, mixed, kind: str,
                         {}, history, {})),
                     ("mixed", lambda: IndependentChecker(Linearizable(
                         cas_register(), time_limit_s=120, device=dev),
-                        device=dev).check({}, mixed, {}))):
+                        device=dev).check({}, mixed, {})),
+                    ("bfs", lambda: check_wgl_device(
+                        bad, pm, time_limit_s=120, device=dev)),
+                    ("elle", lambda: AppendChecker(
+                        "serializable", device=dev).check({}, elle_h, {}))):
                 clear_settle_memo()
                 n0 = profile.count_records()
                 check()
@@ -2227,16 +2484,25 @@ def plan_profiles(torch, dev, history, mixed, kind: str,
                     {k: v for k, v in x["plan"].items() if k != "mesh"})
                    for x in recs] for name, recs in got.items()}
     r = {"records": {name: [dict(zip(("pass", "features", "plan"), row),
-                                 timing=x["timing"], device=x["device"])
+                                 timing=x["timing"], device=x["device"],
+                                 cost=x["cost"], roofline=x["roofline"])
                             for row, x in zip(rows[name], got[name])]
                      for name in rows},
          "trace_events": len(trace["traceEvents"]),
          "spans": {k: v["count"] for k, v in spans.items()}}
     log("phase9e: " + json.dumps(r))
     # The reference's records are for the full-size histories.
+    rows = {name: rows[name] for name in ("bench", "mixed")}
     if len(history) // 2 == BENCH_OPS and rows != ref:
         raise AssertionError(f"phase9e: records {rows} != the "
                              f"reference's {ref}")
+    costed = {x["pass"] for recs in got.values() for x in recs
+              if x["cost"]["flops"] and x["cost"]["bytes_accessed"]
+              and x["roofline"]["peak_flops_per_s"]
+              and x["roofline"]["achieved_bytes_per_s"] is not None}
+    if not {"witness", "stream", "bfs", "elle"} <= costed:
+        raise AssertionError(f"phase9e: passes with cost and roofline "
+                             f"blocks: {sorted(costed)}")
     kinds = {x["device"]["device_kind"] for recs in got.values()
              for x in recs}
     if kinds != {kind}:
@@ -2274,6 +2540,422 @@ def phase_plan(torch, history, dev=None, mixed_keys: int = MIXED_KEYS,
     return out
 
 
+# ---------------------------------------------------------------------------
+# The checker daemon (phase 10): checkerd on the card, at a fleet's size.
+
+#: Phase 10: concurrent runs, the daemon's batch window, the seed offset
+#: of each run's history (run r: seeds DAEMON_SEED * (r + 1) + key), and
+#: the fresh histories of the budget trap and the restart.  The window
+#: is 1 s, not a standalone daemon's fraction of one: here the four
+#: clients share the daemon's interpreter, so their uploads, the
+#: handlers' decoding and the journal's writes take turns under one
+#: lock; the runs' commits spread 0.13-0.23 s on the host of an H100
+#: 80GB HBM3 at 700 W (PERF.md, PR 7), and more on slower hosts.
+DAEMON_RUNS, DAEMON_WINDOW_S, DAEMON_SEED = 4, 1.0, 1000
+DAEMON_TRAP_SEED, DAEMON_RESTART_SEED = 9000, 8000
+#: Seconds any one daemon round trip may take.
+DAEMON_WAIT_S = 300.0
+
+
+def _key_view(res: dict) -> dict:
+    """{key: (valid, algorithm, configs-explored)} of a many-key result."""
+    return {str(k): (r.get("valid"), r.get("algorithm"),
+                     r.get("configs-explored"))
+            for k, r in res["results"].items()}
+
+
+def _wait_timeout_threads(limit_s: float) -> int:
+    """Waits for the worker threads a budget abandoned (utils.timeout)
+    to end -> how many there were; raises past `limit_s`."""
+    import threading
+
+    from jepsen_tpu_torch.utils import TIMEOUT_THREAD
+
+    t0 = time.monotonic()
+    left = [t for t in threading.enumerate() if t.name == TIMEOUT_THREAD]
+    for t in left:
+        t.join(max(0.0, limit_s - (time.monotonic() - t0)))
+        if t.is_alive():
+            raise AssertionError(f"phase10: an abandoned cohort thread ran "
+                                 f"past {limit_s} s")
+    return len(left)
+
+
+class _Daemon:
+    """An in-process checkerd on 127.0.0.1, served from a thread, with
+    a `window` s batch window and its profile store, plan memo (unless
+    `memo` is false) and queue journal under `tmp`."""
+
+    def __init__(self, dev, tmp, window: float = DAEMON_WINDOW_S,
+                 memo: bool = True, **kw):
+        import socket
+        import threading
+
+        from jepsen_tpu_torch.checkerd.server import make_server
+
+        os.makedirs(tmp, exist_ok=True)
+        with socket.socket() as sk:
+            sk.bind(("127.0.0.1", 0))
+            port = sk.getsockname()[1]
+        self.srv = make_server(
+            "127.0.0.1", port, device=dev, batch_window_s=window,
+            profile_dir=os.path.join(tmp, "profiles"),
+            plan_cache_dir=os.path.join(tmp, "plan-cache") if memo else None,
+            queue_path=os.path.join(tmp, "checkerd.queue"), **kw)
+        self.addr = f"127.0.0.1:{self.srv.server_address[1]}"
+        self.thread = threading.Thread(target=self.srv.serve_forever,
+                                       name="checkerd-server", daemon=True)
+        self.thread.start()
+
+    def stop(self):
+        self.srv.shutdown()
+        self.srv.server_close()
+        self.srv.scheduler.stop()
+        self.thread.join(timeout=10)
+
+
+def daemon_check(torch, dev, h, run: str, addr: str, barrier=None,
+                 **test) -> tuple:
+    """One cas-register run `h` through RemoteChecker to the daemon at
+    `addr` (no in-process fallback) -> (result, client wall).  With a
+    `barrier`, concurrent runs upload their ops and then meet before
+    COMMIT, so their submissions reach the queue together."""
+    from jepsen_tpu_torch.checker import Linearizable
+    from jepsen_tpu_torch.checkerd.client import CheckerdClient, RemoteChecker
+    from jepsen_tpu_torch.checkerd.protocol import F_COMMIT
+    from jepsen_tpu_torch.models import cas_register
+    from jepsen_tpu_torch.parallel import IndependentChecker
+
+    base = IndependentChecker(Linearizable(cas_register(), time_limit_s=120,
+                                           device=dev), device=dev)
+
+    class AlignedClient(CheckerdClient):
+        def _send(self, ftype, payload):
+            if ftype == F_COMMIT and barrier is not None:
+                barrier.wait()
+            super()._send(ftype, payload)
+
+    class Aligned(RemoteChecker):
+        def _attempt(self, addr, test, keys, subs_ops, spec, lin,
+                     independent, run, budget, deadline):
+            with AlignedClient(addr) as c:
+                ticket = c.submit_ops(
+                    run, spec, subs_ops, algorithm=lin.algorithm,
+                    budget_s=budget, time_limit_s=lin.time_limit_s,
+                    deadline_s=deadline)
+                return c.wait(ticket, deadline_s=deadline)
+
+    t0 = time.perf_counter()
+    res = Aligned(base, addr, run_id=run, fallback=False).check(
+        {"name": run, **test}, h, {})
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+    return res, time.perf_counter() - t0
+
+
+def phase_daemon(torch, dev=None, keys: int = MIXED_KEYS,
+                 big_keys: int = BIG_KEYS, n_bad: int = MIXED_BAD) -> dict:
+    """Phase 10: the checker daemon on `dev` (the card by default),
+    in-process on 127.0.0.1, with a DAEMON_WINDOW_S batch window and its
+    profile store, plan memo and queue journal under a temp dir.
+
+    (10a) DAEMON_RUNS threads each submit a run_mixed-shaped history
+    (`keys` keys, `n_bad` bad, seeds per run) through RemoteChecker: one
+    cohort (merged-runs = DAEMON_RUNS), each run False with its own 30
+    failing keys, every per-key valid / algorithm / configs-explored the
+    in-process IndependentChecker's on the same device, the sweep kernel
+    launched; (10b) phase 5's `big_keys` valid keys as one packed
+    submission: all valid, as many as in-process; (10c) STATS (devices,
+    chip-health ok, the roofline against the H100's peaks, profile
+    records) and a /metrics scrape with no SLO rule firing; (10d) the
+    `big_keys` history under a 0.001 s budget: unknown with
+    budget-exceeded, and the submission right after it (while the
+    abandoned cohort may still run) correct; (10e) the daemon stopped
+    with one ticket journaled and unfinished finishes it after a
+    restart, and a settled history resubmitted hits the plan memo with
+    no sweep launch.  Raises on any failed check."""
+    import shutil
+    import tempfile
+    import threading
+    import urllib.request
+
+    from jepsen_tpu_torch import telemetry
+    from jepsen_tpu_torch.checker import Linearizable
+    from jepsen_tpu_torch.checkerd.client import CheckerdClient
+    from jepsen_tpu_torch.checkerd.protocol import model_to_spec
+    from jepsen_tpu_torch.checkerd.server import make_metrics_server
+    from jepsen_tpu_torch.history.packed import pack_history
+    from jepsen_tpu_torch.models import cas_register
+    from jepsen_tpu_torch.ops import kernels
+    from jepsen_tpu_torch.parallel import IndependentChecker, \
+        clear_settle_memo, subhistories
+    from jepsen_tpu_torch.plan import cache as plan_cache
+    from jepsen_tpu_torch.telemetry import flight, profile, roofline, slo
+
+    dev = torch.device("cuda") if dev is None else torch.device(dev)
+    cuda = dev.type == "cuda"
+    t_phase = time.perf_counter()
+    out: dict = {}
+
+    def in_process(h):
+        clear_settle_memo()
+        chk = IndependentChecker(Linearizable(cas_register(),
+                                              time_limit_s=120, device=dev),
+                                 device=dev)
+        return chk.check({}, h, {})
+
+    def remote(h, run, addr, barrier=None, **test):
+        return daemon_check(torch, dev, h, run, addr, barrier, **test)
+
+    # The in-process verdicts first: the daemon configures the process's
+    # plan memo, which would answer these from its journal.
+    runs = {f"run{r}": mixed_history(keys, n_bad,
+                                     seed0=DAEMON_SEED * (r + 1))
+            for r in range(DAEMON_RUNS)}
+    want = {run: _key_view(in_process(h)) for run, h in runs.items()}
+    big = mixed_history(big_keys, 0)
+    big_in = in_process(big)
+    trap_h = mixed_history(keys, n_bad, seed0=DAEMON_TRAP_SEED)
+    trap_want = _key_view(in_process(trap_h))
+    restart_h = mixed_history(keys, n_bad, seed0=DAEMON_RESTART_SEED)
+    restart_want = in_process(restart_h)["valid"]
+
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-checkerd-")
+    prior = telemetry.enabled()
+    telemetry.enable(True)
+    d = None
+    try:
+        clear_settle_memo()
+        d = _Daemon(dev, tmp)
+        # 10a: DAEMON_RUNS concurrent runs, one cohort.
+        got, errors = {}, []
+        barrier = threading.Barrier(DAEMON_RUNS, timeout=DAEMON_WAIT_S)
+
+        def submit(run):
+            try:
+                got[run] = remote(runs[run], run, d.addr, barrier)
+            except Exception as e:  # noqa: BLE001 — reported below
+                errors.append(f"{run}: {e!r}")
+
+        kernels.launches.clear()
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=submit, args=(run,))
+                   for run in runs]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(DAEMON_WAIT_S)
+        wall_a = time.perf_counter() - t0
+        if errors or len(got) != DAEMON_RUNS:
+            raise AssertionError(f"phase10a: {errors or sorted(got)}")
+        launched = kernels.launches["witness_sweep"]
+        if cuda and launched <= 0:
+            raise AssertionError("phase10a: the sweep kernel never launched")
+        waits = [res["checkerd"]["queue-wait-s"] for res, _ in got.values()]
+        per_run = {"commit_spread_s": max(waits) - min(waits)}
+        for run, (res, wall) in sorted(got.items()):
+            meta = res["checkerd"]
+            failing = sorted(k for k, r in res["results"].items()
+                             if r["valid"] is False)
+            if (res["valid"] is not False
+                    or failing != sorted(f"k{i}" for i in range(n_bad))
+                    or meta.get("merged-runs") != DAEMON_RUNS
+                    or "fallback" in meta):
+                raise AssertionError(
+                    f"phase10a {run}: valid {res['valid']}, "
+                    f"{len(failing)} failing, merged-runs "
+                    f"{meta.get('merged-runs')}, meta keys {sorted(meta)}")
+            diff = {k: (v, want[run][k]) for k, v in _key_view(res).items()
+                    if v != want[run][k]}
+            if diff:
+                raise AssertionError(f"phase10a {run}: per-key results "
+                                     f"differ from in-process: "
+                                     f"{dict(list(diff.items())[:6])}")
+            per_run[run] = {"queue_wait_s": meta["queue-wait-s"],
+                            "check_s": meta["check-s"],
+                            "client_wall_s": wall,
+                            "cohort_keys": meta["cohort-keys"]}
+        runs_r = [r for r in per_run.values() if isinstance(r, dict)]
+        check_s = max(r["check_s"] for r in runs_r)
+        overhead = max(r["client_wall_s"] - r["queue_wait_s"] - r["check_s"]
+                       for r in runs_r)
+        out["10a"] = {"runs": per_run, "wall_s": wall_a,
+                      "cohort_check_s": check_s,
+                      "overhead_s": overhead,
+                      "overhead_fraction": overhead / check_s,
+                      "sweep_launches": launched}
+        log("phase10a: " + json.dumps(out["10a"]))
+
+        # 10b: the all-valid keys as one packed submission.
+        pm = cas_register().packed()
+        subs = subhistories(big)
+        packs = [pack_history(subs[k], pm.encode) for k in subs]
+        kernels.launches.clear()
+        t0 = time.perf_counter()
+        with CheckerdClient(d.addr, io_timeout=DAEMON_WAIT_S) as c:
+            ticket = c.submit_packed("packed", model_to_spec(cas_register()),
+                                     packs)
+            res = c.wait(ticket, deadline_s=DAEMON_WAIT_S)
+        wall_b = time.perf_counter() - t0
+        valid_b = sum(1 for kr in res["key-results"] if kr["valid"] is True)
+        valid_in = sum(1 for r in big_in["results"].values()
+                       if r["valid"] is True)
+        if (res["valid"] is not True or valid_b != valid_in != big_keys
+                or len(res["key-results"]) != big_keys):
+            raise AssertionError(f"phase10b: valid {res['valid']}, "
+                                 f"{valid_b} of {len(res['key-results'])} "
+                                 f"keys valid, in-process {valid_in}")
+        algos: dict = {}
+        for kr in res["key-results"]:
+            algos[kr.get("algorithm")] = algos.get(kr.get("algorithm"), 0) + 1
+        out["10b"] = {"keys": big_keys, "valid_keys": valid_b,
+                      "algorithms": algos, "wall_s": wall_b,
+                      "check_s": res["checkerd"]["check-s"],
+                      "sweep_launches": kernels.launches["witness_sweep"]}
+        log("phase10b: " + json.dumps(out["10b"]))
+
+        # 10c: STATS and /metrics.
+        with CheckerdClient(d.addr) as c:
+            st = c.stats()
+        name = torch.cuda.get_device_name(dev) if cuda else "cpu"
+        want_dev = ({"count": 1, "platform": "gpu", "kind": name} if cuda
+                    else {"count": 1, "platform": "cpu", "kind": "cpu"})
+        roof = st.get("roofline") or {}
+        knee = roofline.H100_FLOPS_PER_S / roofline.H100_BYTES_PER_S
+        costed = {p: r for p, r in roof.items() if r.get("with_cost")}
+        if (st["devices"] != want_dev
+                or (cuda and st["chip-health"] != "ok")
+                or st["profile-records"] <= 0 or not costed
+                or (cuda and any(abs(r["knee_intensity"] - knee) > 1e-3
+                                 for r in costed.values()))):
+            raise AssertionError(
+                f"phase10c: devices {st['devices']}, chip-health "
+                f"{st['chip-health']}, profile-records "
+                f"{st['profile-records']}, roofline {roof}")
+        msrv = make_metrics_server(d.srv.scheduler, "127.0.0.1", 0)
+        mth = threading.Thread(target=msrv.serve_forever, daemon=True)
+        mth.start()
+        try:
+            url = f"http://127.0.0.1:{msrv.server_address[1]}/metrics"
+            with urllib.request.urlopen(url, timeout=DAEMON_WAIT_S) as r:
+                body = r.read().decode()
+        finally:
+            msrv.shutdown()
+            msrv.server_close()
+            mth.join(timeout=10)
+        firing, samples = [], 0
+        for line in body.splitlines():
+            if not line or line.startswith("#"):
+                continue
+            sample, value = line.rsplit(" ", 1)
+            float(value)
+            samples += 1
+            if sample.startswith("jepsen_slo_firing") and float(value):
+                firing.append(sample)
+        if firing or "jepsen_slo_firing" not in body or samples == 0:
+            raise AssertionError(f"phase10c: /metrics firing {firing}, "
+                                 f"{samples} samples")
+        out["10c"] = {"devices": st["devices"],
+                      "chip_health": st["chip-health"],
+                      "profile_records": st["profile-records"],
+                      "profile_by_pass": st["profile-by-pass"],
+                      "roofline": roof, "merge_ratio": st["merge-ratio"],
+                      "metrics_samples": samples,
+                      "utilization": st["utilization"]}
+        log("phase10c: " + json.dumps(out["10c"]))
+
+        # 10d: a budget no cohort meets, then the next submission.
+        res_d, _ = remote(big, "budget", d.addr, checker_budget=0.001)
+        unknown = all(r["valid"] == "unknown"
+                      for r in res_d["results"].values())
+        if (res_d["valid"] != "unknown" or not unknown
+                or not res_d["checkerd"].get("budget-exceeded")):
+            raise AssertionError(f"phase10d: budget result "
+                                 f"{res_d['valid']}, meta "
+                                 f"{sorted(res_d['checkerd'])}")
+        clear_settle_memo()
+        res_n, wall_n = remote(trap_h, "after-budget", d.addr)
+        diff = {k: (v, trap_want[k]) for k, v in _key_view(res_n).items()
+                if v != trap_want[k]}
+        if diff or res_n["valid"] is not False:
+            raise AssertionError(f"phase10d: the submission after the "
+                                 f"budget differs: {res_n['valid']}, "
+                                 f"{dict(list(diff.items())[:6])}")
+        abandoned = _wait_timeout_threads(DAEMON_WAIT_S)
+        out["10d"] = {"budget_valid": res_d["valid"],
+                      "next_valid": res_n["valid"], "next_wall_s": wall_n,
+                      "abandoned_threads": abandoned}
+        log("phase10d: " + json.dumps(out["10d"]))
+
+        # 10e: a daemon that dies between TICKET and verdict: its worker
+        # stopped, one ticket admitted (journaled), then the daemon.
+        sched = d.srv.scheduler
+        with sched._cond:
+            sched._stop = True
+            sched._cond.notify_all()
+        sched._thread.join(DAEMON_WAIT_S)
+        rsubs = subhistories(restart_h)
+        # The submitter stays connected while the daemon goes down (a
+        # client that hangs up first abandons its queued ticket).
+        waiting = CheckerdClient(d.addr)
+        try:
+            ticket = waiting.submit_ops(
+                "restart", model_to_spec(cas_register()),
+                [[o.to_dict() for o in rsubs[k]] for k in rsubs],
+                time_limit_s=120)
+            unfinished = sched.journal.stats()["unfinished"]
+            d.stop()
+            d = None
+        finally:
+            waiting.close()
+        plan_cache.reset_for_tests()  # a new process's memo
+        clear_settle_memo()
+        kernels.launches.clear()
+        d = _Daemon(dev, tmp)
+        with CheckerdClient(d.addr, io_timeout=DAEMON_WAIT_S) as c:
+            res_e = c.wait(ticket, deadline_s=DAEMON_WAIT_S)
+        replayed = d.srv.scheduler.stats()["replayed"]
+        if unfinished != 1 or replayed != 1 or \
+                res_e["valid"] is not restart_want:
+            raise AssertionError(f"phase10e: {unfinished} unfinished, "
+                                 f"{replayed} replayed, verdict "
+                                 f"{res_e['valid']} want {restart_want}")
+        # The replayed history again: the plan memo answers (the
+        # in-memory settle memo cleared), no sweep.  (A memo key holds
+        # the packed values, which a daemon's model interns in first-seen
+        # order, so a history hits after a restart only if the restarted
+        # daemon meets the values in the same order.)
+        clear_settle_memo()
+        before = kernels.launches["witness_sweep"]
+        memo0 = d.srv.scheduler.stats()["plan"]["cache"]["memo"]["hits"]
+        res_m, _ = remote(restart_h, "resubmit", d.addr)
+        memo1 = d.srv.scheduler.stats()["plan"]["cache"]["memo"]["hits"]
+        swept = kernels.launches["witness_sweep"] - before
+        if memo1 <= memo0 or swept != 0 or res_m["valid"] is not \
+                restart_want:
+            raise AssertionError(f"phase10e: resubmission memo hits "
+                                 f"{memo0}->{memo1}, sweeps {swept}, "
+                                 f"verdict {res_m['valid']}")
+        out["10e"] = {"unfinished": unfinished, "replayed": replayed,
+                      "replayed_valid": res_e["valid"],
+                      "memo_hits": memo1 - memo0, "resubmit_sweeps": swept}
+        log("phase10e: " + json.dumps(out["10e"]))
+    finally:
+        if d is not None:
+            d.stop()
+        _wait_timeout_threads(DAEMON_WAIT_S)
+        telemetry.enable(prior)
+        profile.set_store(None)
+        flight.set_dir(None)
+        slo.reset()
+        plan_cache.configure(None)
+        plan_cache.reset_for_tests()
+        clear_settle_memo()
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["wall_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def elle_programs(torch, elle: dict) -> list:
     """The device-program entries (B7 and B8) of phase 8 for the JSON
     line before the kernels line: CUDA-event times from phase 8, device
@@ -2283,6 +2965,7 @@ def elle_programs(torch, elle: dict) -> list:
 
     from jepsen_tpu_torch.checker.elle import AppendChecker
     from jepsen_tpu_torch.ops import scc
+    from jepsen_tpu_torch.telemetry import roofline
 
     dev = torch.device("cuda")
     a8 = next(r for r in elle["checks"] if r["sub_phase"] == "8a")
@@ -2293,7 +2976,8 @@ def elle_programs(torch, elle: dict) -> list:
     K, V = adj.shape[0], adj.shape[1]
     seen = profile_device(torch, lambda: scc.has_cycle(adj, torch.bfloat16),
                           reps=20)
-    b7_bound = bound(closure_ops(K, V), K * V * V + K)
+    cost = roofline.closure_cost(K, V)
+    b7_bound = roofline.bound(cost["flops"], cost["bytes_accessed"])
     b7 = {"name": "scc_closure_screen", "route": "torch",
           "source": "jepsen_tpu_torch/ops/scc.py:"
                     f"{inspect.getsourcelines(scc.has_cycle)[1]}",
@@ -2317,9 +3001,8 @@ def elle_programs(torch, elle: dict) -> list:
     K8, V8 = A.shape[0], A.shape[1]
     seen = profile_device(
         torch, lambda: scc.extract_batch(A, R, torch.bfloat16), reps=1)
-    b8_bound = bound(closure_ops(K8, V8)
-                     + b8["bfs_graph_levels"] * 2.0 * V8 * V8,
-                     2 * K8 * V8 * V8 + 4 * K8 * (V8 + 4))
+    cost = roofline.extract_cost(K8, V8, b8["bfs_graph_levels"])
+    b8_bound = roofline.bound(cost["flops"], cost["bytes_accessed"])
     b8e = {"name": "scc_extract", "route": "torch",
            "source": "jepsen_tpu_torch/ops/scc.py:"
                      f"{inspect.getsourcelines(scc.extract_batch)[1]}",
@@ -2351,9 +3034,8 @@ def elle_programs(torch, elle: dict) -> list:
     A, R = (torch.from_numpy(x).to(dev) for x in (a_all, a_req))
     seen = profile_device(
         torch, lambda: scc.extract_batch(A, R, torch.bfloat16), reps=1)
-    long_bound = bound(closure_ops(K8, V8)
-                       + many["bfs_graph_levels"] * 2.0 * V8 * V8,
-                       2 * K8 * V8 * V8 + 4 * K8 * (V8 + 4))
+    cost = roofline.extract_cost(K8, V8, many["bfs_graph_levels"])
+    long_bound = roofline.bound(cost["flops"], cost["bytes_accessed"])
     b8e["long_chain"] = {
         "shape": list(A.shape), "bfs_levels": many["bfs_levels"],
         "bfs_graph_levels": many["bfs_graph_levels"],
@@ -2369,6 +3051,22 @@ def elle_programs(torch, elle: dict) -> list:
     return [b7, b8e]
 
 
+def _kernel_key(mangled: str):
+    """"MODEL,SW,NW,STREAM" of a witness_sweep_kernel instantiation,
+    "wide,STREAM" of the wide one, "combine" for the lane-group join,
+    from a mangled kernel name; None for any other."""
+    import re
+
+    t = re.search(r"witness_sweep_kernelILi(\d+)ELi(\d+)ELi(\d+)ELb([01])E",
+                  mangled)
+    if t:
+        return ",".join(t.groups())
+    t = re.search(r"witness_sweep_wide_kernelILb([01])E", mangled)
+    if t:
+        return f"wide,{t.group(1)}"
+    return "combine" if "combine_groups_kernel" in mangled else None
+
+
 def ptxas_report(build_log: str) -> dict:
     """{"MODEL,SW,NW,stream": {"registers", "spill_stores",
     "spill_loads"}} of each witness_sweep_kernel instantiation, from the
@@ -2379,9 +3077,7 @@ def ptxas_report(build_log: str) -> dict:
     for line in build_log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            t = re.search(r"witness_sweep_kernelILi(\d+)ELi(\d+)ELi(\d+)"
-                          r"ELb([01])E", m.group(1))
-            cur = ",".join(t.groups()) if t else None
+            cur = _kernel_key(m.group(1))
             if cur:
                 out[cur] = {}
             continue
@@ -2415,9 +3111,7 @@ def sass_instructions(lib_path: str) -> dict:
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            t = re.search(r"witness_sweep_kernelILi(\d+)ELi(\d+)ELi(\d+)"
-                          r"ELb([01])E", m.group(1))
-            cur = ",".join(t.groups()) if t else None
+            cur = _kernel_key(m.group(1))
             if cur:
                 out[cur] = 0
         elif cur and re.match(r"\s+/\*[0-9a-f]{4,}\*/", line):
@@ -2477,6 +3171,7 @@ def main() -> int:
     online_r = phase_online(torch, pm, packed, history)
     elle_r = phase_elle(torch)
     plan_r = phase_plan(torch, history)
+    daemon_r = phase_daemon(torch)
     entry["launches_online"] = {
         "carry": online_r["carry"]["sweep_launches"],
         "scale": online_r["scale"]["sweep_launches"],
@@ -2488,6 +3183,7 @@ def main() -> int:
     for r in models_r.values():
         launches.update(r["launches"])
     more = phase_instantiations(torch, recorder, seed=BENCH_SEED)
+    wide, wide_r = phase_wide(torch, packed)
     batched = phase_batched(torch, recorder)
     ptxas = ptxas_report(kernels.build_log)
     for key, n in sass_instructions(kernels.sweep_lib()._name).items():
@@ -2505,6 +3201,13 @@ def main() -> int:
         e["ptxas"] = {f"NW{nw}": ptxas.get(f"{model_id},{bucket},{nw},"
                                            f"{stream}")
                       for nw in (3, 9)}
+    for e in wide:
+        e["ptxas"] = ({"NW9": ptxas.get("1,1,9,0"),
+                       "combine": ptxas.get("combine")}
+                      if e["name"] == "witness_sweep[beam>32]"
+                      else {"wide": ptxas.get(
+                          f"wide,{int(e['name'].endswith('+stream]'))}")})
+    more += wide
     for key, rep in sorted(ptxas.items()):
         log(f"ptxas: witness_sweep_kernel<MODEL,SW,NW,STREAM>=<{key}>: "
             f"{json.dumps(rep)}")
@@ -2512,7 +3215,10 @@ def main() -> int:
     phase_profile(torch, entry, timings)
     for e in more:
         seen = profile_device(torch, e.pop("_kernel"), reps=200)
-        n, us = next(v for k, v in seen.items() if "witness_sweep" in k)
+        n, _ = next(v for k, v in seen.items() if "witness_sweep" in k)
+        # A beam past 32 lanes is the sweep's launch and the join's.
+        us = sum(t for k, (_, t) in seen.items()
+                 if "witness_sweep" in k or "combine_groups" in k)
         e["device_ms"] = us / n / 1e3
         log(f"profile: {e['name']}: kernel device time "
             f"{e['device_ms']:.6f} ms ({e['device_ms'] * 1e6 / e['barriers_timed']:.4f}"
@@ -2538,7 +3244,11 @@ def main() -> int:
         f"{online_r['scale']['lag_fraction']:.4f}; Elle phase 8 "
         f"{elle_r['wall_s']:.3f} s; plan route on/off median "
         f"{plan_r['single']['median_s']['on']:.4f} / "
-        f"{plan_r['single']['median_s']['off']:.4f} s")
+        f"{plan_r['single']['median_s']['off']:.4f} s; checkerd phase 10 "
+        f"{daemon_r['wall_s']:.3f} s (cohort check "
+        f"{daemon_r['10a']['cohort_check_s']:.4f} s, overhead "
+        f"{daemon_r['10a']['overhead_fraction']:.4f}); wide phase 1b beam "
+        f"{wide_r['beam']['bench_valid']}")
     print(json.dumps({"device_programs": programs}))
     print(json.dumps({"kernels": [entry] + more}))
     print(smi)

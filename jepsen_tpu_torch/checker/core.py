@@ -10,7 +10,9 @@ kernel that did not build or launch, CUDA asked for and missing, a CUDA
 error; `ops.degrade.is_device_fault`) propagates instead of becoming an
 "unknown" verdict, so a run meant for the card cannot hide a failing
 card or kernel.  Each call is a `checker.<Name>` telemetry span, as in
-the reference.  The reference's wall-clock budget watchdog is left out.
+the reference, and its wall-clock budget (`budget_s`, or the test's
+"checker_budget") turns a checker that runs past it into "unknown",
+noted in the flight recorder, which dumps a postmortem.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from typing import Any, Iterable, Optional
 from .. import telemetry
 from ..history.core import History
 from ..ops import degrade
+from ..telemetry import flight
 
 UNKNOWN = "unknown"
 
@@ -57,15 +60,49 @@ def checker_name(c: Any) -> str:
     return n if isinstance(n, str) and n else type(c).__name__
 
 
+#: Sentinel distinguishing "budget expired" from any checker result.
+_BUDGET_BLOWN = object()
+
+
 def check_safe(c: Checker, test: dict, history: History,
-               opts: Optional[dict] = None) -> dict:
+               opts: Optional[dict] = None, *,
+               budget_s: Optional[float] = None) -> dict:
     """`c.check`, with any exception but a device fault turned into a
-    {"valid": "unknown"} result (checker.clj:79-90)."""
-    try:
+    {"valid": "unknown"} result (checker.clj:79-90).  With a budget
+    (`budget_s`, by default `test["checker_budget"]` in seconds) the
+    check runs in a watchdog thread (`utils.timeout`) and is abandoned
+    when it expires: the verdict is "unknown", never a guess.  A checker
+    that supervises its own children (`supervises_children`, e.g. the
+    checker daemon's client) is exempt, as in the reference."""
+    if budget_s is None:
+        budget_s = (test or {}).get("checker_budget")
+    if budget_s is not None and getattr(c, "supervises_children", False):
+        budget_s = None
+
+    def go() -> dict:
         if telemetry.enabled():
             with telemetry.span(f"checker.{checker_name(c)}"):
                 return c.check(test, history, opts or {})
         return c.check(test, history, opts or {})
+
+    try:
+        if budget_s is None:
+            return go()
+        from ..utils import timeout as _timeout
+
+        res = _timeout(budget_s * 1000.0, go, default=_BUDGET_BLOWN)
+        if res is _BUDGET_BLOWN:
+            telemetry.count("checker.budget-exceeded")
+            flight.note("checker-budget-exceeded",
+                        checker=type(c).__name__, budget_s=budget_s)
+            flight.dump("checker-budget-exceeded")
+            return {
+                "valid": UNKNOWN,
+                "error": f"checker {checker_name(c)} exceeded its "
+                         f"{budget_s} s wall-clock budget "
+                         f"(checker_budget); thread abandoned",
+            }
+        return res
     except Exception as e:  # noqa: BLE001
         if degrade.is_device_fault(e):
             raise

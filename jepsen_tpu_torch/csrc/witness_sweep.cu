@@ -17,20 +17,45 @@
 // SW = 2, 4, 8, 16 or 32; only the sw real columns are loaded and
 // stored), FIFO queue and unordered queue (SW 32, 0 = an empty slot).
 // Every step is written as selects over compile-time slots, so no state
-// array is indexed at run time.  The stream instantiations (STREAM) also
+// array is indexed at run time; wider multi-register states take the
+// wide instantiation (below).  The stream instantiations (STREAM) also
 // know the many-key stream's RESET op (f == F_RESET, as in
 // jepsen_tpu/ops/wgl_stream.py): always legal, it sets the state to the
 // initial state passed in `init`.  The others never test for it.
 //
 // Layout (all contiguous, as the port holds them):
 //   bars        (6, K)  int32  rows: window column, ret, real, f, a0, a1
-//   member      (W, B)  bool   one byte per beam lane, B <= 32
+//   member      (W, B)  bool   one byte per beam lane, B <= 64
 //   states_in   (B, sw) int32
 //   alive_in    (B,)    bool
 //   init        (sw,)   int32  (stream instantiations only)
-//   states_out  (B, sw) int32, alive_out (B,) bool, death_out (1,) int32
-// death_out is -1 if the two warps lost their hand-off (a fault; the
-// caller raises).
+//   states_out  (B, sw) int32, alive_out (B,) bool,
+//   death_out   (G,)    int32  G = ceil(B / 32) lane groups; [0] is the
+//                              sweep's death
+// death_out[0] is -1 if a block's two warps lost their hand-off (a
+// fault; the caller raises).
+//
+// Wide beams (32 < B <= 64).  The lanes are independent but for the
+// death test, so each group of 32 lanes sweeps in a block of its own
+// (grid = 2), exactly as one block sweeps a beam of <= 32, and writes its
+// own death.  A second small kernel combines them: the joint sweep dies
+// at the later of the two deaths (the first real barrier no lane of
+// either group survives).  A group that died earlier has no lane alive
+// from its death on, so nothing of it changes after it: its states are
+// the ones it returned and its alive mask is all false.
+//
+// Wide states (the multi-register past 32 registers, sw up to
+// MAX_WIDE_SW).  The state no longer fits registers: each lane's row
+// lives in dynamic shared memory, column-major (word j of lane b at
+// j * Bg + b, Bg the block's lanes, so the lanes' loads of one register
+// fall in distinct banks), Bg * sw * 4 bytes beside the 11,920 bytes of
+// rings (ptxas): 227 KB a block bounds sw at 1,722 words for 32 lanes.  A register step
+// touches one word, so the lane reads and writes that word in place.
+// The batch needs no rewind copy: at the death barrier every alive lane
+// stepped illegally (a lane that stays survives), which commits nothing,
+// and after it no lane is alive to commit, so the state after the
+// batch's speculative pass is the state before the death; only the alive
+// mask is rewound, from the lane's alive count.
 //
 // What bounds it on this card: not bytes (about 20 B per barrier: five
 // bars words and a member row; the ret row is never read) but a chain of
@@ -114,8 +139,8 @@ struct Record {
 };
 
 // The producing warp's staging of one batch: lane j's barrier words and
-// member row (NW 4-byte words cover B <= 4 * (NW - 1) bytes at any byte
-// offset).  Only lane j touches its part.
+// member row (NW 4-byte words cover Bg <= 4 * (NW - 1) bytes at any byte
+// offset, Bg the block's beam lanes).  Only lane j touches its part.
 template <int NW>
 struct Stage {
   int4 op[T];           // {row byte offset | real << 2, f, a0, a1}
@@ -280,19 +305,20 @@ __device__ __forceinline__ Bar load_bar(const int32_t* __restrict__ bars,
   return b;
 }
 
-// Lane j stages barrier j: its words, and the NW aligned words from its
-// member row's first byte on.  Words past the row or the window's end
+// Lane j stages barrier j: its words, and the NW aligned words from the
+// first byte of its member row's part for this block's lanes (Bg bytes
+// at lane0 of a row of B) on.  Words past that part or the window's end
 // copy no bytes (cp.async zero-fills them), so every lane issues the same
 // NW copies with no branch, and commits one group per batch.
 template <int NW>
 __device__ __forceinline__ void stage_batch(Stage<NW>& sg, const Bar& b,
                                             const uint8_t* __restrict__ member,
-                                            int B, int64_t member_bytes,
-                                            int lane) {
-  const int64_t lo = static_cast<int64_t>(b.col) * B;  // row's first byte
+                                            int B, int lane0, int Bg,
+                                            int64_t member_bytes, int lane) {
+  const int64_t lo = static_cast<int64_t>(b.col) * B + lane0;
   sg.op[lane] = make_int4(static_cast<int>(lo & 3) | (b.real << 2), b.f,
                           b.a0, b.a1);
-  const int64_t end = lo + B;
+  const int64_t end = lo + Bg;
 #pragma unroll
   for (int w = 0; w < NW; ++w) {
     const int64_t at = (lo & ~int64_t{3}) + 4 * w;
@@ -304,13 +330,14 @@ __device__ __forceinline__ void stage_batch(Stage<NW>& sg, const Bar& b,
   cp_async_commit();
 }
 
-// Lane j's landed member row packed into one word: bit b = beam lane b.
+// Lane j's landed member row packed into one word: bit b = the block's
+// beam lane b.
 // Four row bytes at a time: the funnel shift aligns them, bit 7 of each
 // byte of `nz` is set iff the byte is nonzero, and the multiply gathers
 // the four flags into the top nibble.
 template <int NW>
 __device__ __forceinline__ uint32_t pack_row(const Stage<NW>& sg,
-                                             unsigned offset, int B,
+                                             unsigned offset, int Bg,
                                              int lane) {
   const uint32_t* raw = sg.raw[lane];
   uint32_t word = 0;
@@ -320,7 +347,7 @@ __device__ __forceinline__ uint32_t pack_row(const Stage<NW>& sg,
     const uint32_t nz = (((v & 0x7f7f7f7fu) + 0x7f7f7f7fu) | v) & 0x80808080u;
     word |= (((nz >> 7) * 0x10204080u) >> 28) << (4 * q);
   }
-  return word & ((2u << (B - 1)) - 1u);  // bytes past the row
+  return word & ((2u << (Bg - 1)) - 1u);  // bytes past the block's part
 }
 
 struct Shared {
@@ -335,8 +362,8 @@ struct Shared {
 // never reach a padding column.
 template <int MODEL, int NW>
 __device__ void produce(Record* ring, Stage<NW>* stages, Shared& sh, int B,
-                        int K, int W, int sw, int start, int batches,
-                        const int32_t* __restrict__ bars,
+                        int lane0, int Bg, int K, int W, int sw, int start,
+                        int batches, const int32_t* __restrict__ bars,
                         const uint8_t* __restrict__ member, int lane) {
   const int64_t member_bytes = static_cast<int64_t>(W) * B;
   Bar pro[AHEAD + 1];
@@ -346,18 +373,19 @@ __device__ void produce(Record* ring, Stage<NW>* stages, Shared& sh, int B,
   }
 #pragma unroll
   for (int p = 0; p < AHEAD; ++p) {
-    stage_batch(stages[p], pro[p], member, B, member_bytes, lane);
+    stage_batch(stages[p], pro[p], member, B, lane0, Bg, member_bytes,
+                lane);
   }
   Bar next = pro[AHEAD];
   for (int m = 0; m < batches; ++m) {
     const int k = start + m * T;
-    stage_batch(stages[(m + AHEAD) % STAGES], next, member, B, member_bytes,
-                lane);
+    stage_batch(stages[(m + AHEAD) % STAGES], next, member, B, lane0, Bg,
+                member_bytes, lane);
     next = load_bar(bars, K, k + (AHEAD + 1) * T + lane);
     cp_async_wait<AHEAD>();  // this lane's row of batch m has landed
     const Stage<NW>& sg = stages[m % STAGES];
     const int4 op = sg.op[lane];
-    const uint32_t word = pack_row(sg, op.x & 3, B, lane);
+    const uint32_t word = pack_row(sg, op.x & 3, Bg, lane);
     const uint32_t real = __ballot_sync(FULL, (op.x >> 2) & 1);
     // Transpose: lane b gets bit j = "lane b has barrier j".
     uint32_t has = 0;
@@ -506,6 +534,16 @@ __device__ int sweep_records(const Record* ring, Shared& sh, int K,
   return K;
 }
 
+// The block's lane group: beam lanes [lane0, lane0 + Bg) of B.
+struct Group {
+  int lane0, Bg;
+};
+
+__device__ __forceinline__ Group block_group(int B) {
+  const int lane0 = static_cast<int>(blockIdx.x) * 32;
+  return {lane0, min(32, B - lane0)};
+}
+
 template <int MODEL, int SW, int NW, bool STREAM>
 __global__ void __launch_bounds__(64)
 witness_sweep_kernel(int B, int K, int W, int sw, int start,
@@ -521,6 +559,7 @@ witness_sweep_kernel(int B, int K, int W, int sw, int start,
   __shared__ Stage<NW> stages[STAGES];
   __shared__ Shared sh;
   const int lane = threadIdx.x & 31;
+  const Group g = block_group(B);
   const int batches = (K - start + T - 1) / T;
   if (threadIdx.x == 0) {
     sh.produced = 0;
@@ -529,32 +568,166 @@ witness_sweep_kernel(int B, int K, int W, int sw, int start,
   }
   __syncthreads();
   if (threadIdx.x >= 32) {
-    produce<MODEL, NW>(ring, stages, sh, B, K, W, sw, start, batches, bars,
-                       member, lane);
+    produce<MODEL, NW>(ring, stages, sh, B, g.lane0, g.Bg, K, W, sw, start,
+                       batches, bars, member, lane);
     return;
   }
   // Only the sw real columns are read and written; the bucket's padding
   // columns stay 0, and no step reaches them.
-  const bool in_beam = lane < B;
+  const bool in_beam = lane < g.Bg;
+  const int row = g.lane0 + lane;
   int32_t st[SW];
   int32_t init[SW];
 #pragma unroll
   for (int j = 0; j < SW; ++j) {
-    st[j] = in_beam && j < sw ? states_in[lane * sw + j] : 0;
+    st[j] = in_beam && j < sw ? states_in[row * sw + j] : 0;
     init[j] = STREAM && j < sw ? init_in[j] : 0;
   }
-  bool alive = in_beam && alive_in[lane] != 0;
+  bool alive = in_beam && alive_in[row] != 0;
   const int death = sweep_records<MODEL, SW, STREAM>(
       ring, sh, K, start, batches, st, alive, init, lane);
   if (lane == 0) store_release(&sh.stop, 1);
   if (in_beam) {
 #pragma unroll
     for (int j = 0; j < SW; ++j) {
-      if (j < sw) states_out[lane * sw + j] = st[j];
+      if (j < sw) states_out[row * sw + j] = st[j];
     }
-    alive_out[lane] = alive ? 1 : 0;
+    alive_out[row] = alive ? 1 : 0;
   }
-  if (lane == 0) death_out[0] = death;
+  if (lane == 0) death_out[blockIdx.x] = death;
+}
+
+// The multi-register step on a lane's state row in shared memory (word j
+// at st[j * stride]); a0 is already -1 outside the real width.  The same
+// transition as model_step<MODEL_MULTI_REGISTER> and lane_step: a read is
+// legal iff the register holds a1, a write sets it, a stream RESET copies
+// `init` (global memory: it is rare) and is always legal.
+template <bool STREAM>
+__device__ __forceinline__ bool wide_lane_step(int32_t* st, int stride,
+                                               int sw, bool alive,
+                                               const int4 op, bool stay,
+                                               const int32_t* init) {
+  const bool is_write = op.x == F_WRITE;
+  const bool reset = STREAM && op.x == F_RESET;
+  const int a0 = op.y;
+  const int32_t cur = a0 >= 0 ? st[a0 * stride] : 0;
+  const bool legal = is_write | (cur == op.z) | reset;
+  if (alive & !stay & legal) {
+    if (reset) {
+      for (int j = 0; j < sw; ++j) st[j * stride] = __ldg(init + j);
+    } else if (is_write & (a0 >= 0)) {
+      st[a0 * stride] = op.z;
+    }
+  }
+  return alive & (stay | legal);
+}
+
+// Warp 0 of the wide instantiation: sweep_records with the state in
+// shared memory, and no rewind copy (see the header): on a death only
+// the alive mask goes back, to the lane's alive count.
+template <bool STREAM>
+__device__ int sweep_records_wide(const Record* ring, Shared& sh, int K,
+                                  int start, int batches, int32_t* st,
+                                  int stride, int sw, bool& alive,
+                                  const int32_t* init, int lane) {
+  Batch<false> bt;
+  if (batches > 0 && !fetch_record(ring, sh, 0, lane, bt)) return -1;
+  for (int n = 0, k = start; n < batches; ++n, k += T) {
+    const Record& rec = ring[n % RECORDS];
+    const bool alive0 = alive;
+    int alive_after = 0;
+#pragma unroll 2
+    for (int i = 0; i < T; ++i) {
+      alive = wide_lane_step<STREAM>(st, stride, sw, alive, rec.op[i],
+                                     (bt.stay >> i) & 1u, init);
+      alive_after += alive;
+    }
+    const uint32_t mask =
+        alive_after == T ? FULL : (1u << alive_after) - 1u;
+    const uint32_t dead = ~__reduce_or_sync(FULL, mask) & bt.real;
+    if (dead != 0u) {
+      const int d = __ffs(static_cast<int>(dead)) - 1;
+      alive = d == 0 ? alive0 : alive_after >= d;
+      return k + d;
+    }
+    __syncwarp();
+    if (lane == 0) store_release(&sh.consumed, n + 1);
+    if (n + 1 < batches && !fetch_record(ring, sh, n + 1, lane, bt)) {
+      return -1;
+    }
+  }
+  return K;
+}
+
+// The multi-register at a run-time width sw > 32: the state rows in
+// dynamic shared memory (Bg * sw int32), the producer as for the
+// register-resident instantiations.
+template <bool STREAM>
+__global__ void __launch_bounds__(64)
+witness_sweep_wide_kernel(int B, int K, int W, int sw, int start,
+                          const int32_t* __restrict__ bars,
+                          const uint8_t* __restrict__ member,
+                          const int32_t* __restrict__ states_in,
+                          const uint8_t* __restrict__ alive_in,
+                          const int32_t* __restrict__ init_in,
+                          int32_t* __restrict__ states_out,
+                          uint8_t* __restrict__ alive_out,
+                          int32_t* __restrict__ death_out) {
+  extern __shared__ int32_t wide_states[];
+  __shared__ Record ring[RECORDS];
+  __shared__ Stage<9> stages[STAGES];
+  __shared__ Shared sh;
+  const int lane = threadIdx.x & 31;
+  const Group g = block_group(B);
+  const int batches = (K - start + T - 1) / T;
+  if (threadIdx.x == 0) {
+    sh.produced = 0;
+    sh.consumed = 0;
+    sh.stop = 0;
+  }
+  __syncthreads();
+  if (threadIdx.x >= 32) {
+    produce<MODEL_MULTI_REGISTER, 9>(ring, stages, sh, B, g.lane0, g.Bg, K,
+                                     W, sw, start, batches, bars, member,
+                                     lane);
+    return;
+  }
+  // A lane outside the beam is never alive, so it never writes; it reads
+  // lane 0's row and ignores what it reads.
+  const bool in_beam = lane < g.Bg;
+  const int row = g.lane0 + lane;
+  int32_t* st = wide_states + (in_beam ? lane : 0);
+  if (in_beam) {
+    for (int j = 0; j < sw; ++j) st[j * g.Bg] = states_in[row * sw + j];
+  }
+  __syncwarp();
+  bool alive = in_beam && alive_in[row] != 0;
+  const int death = sweep_records_wide<STREAM>(
+      ring, sh, K, start, batches, st, g.Bg, sw, alive, init_in, lane);
+  if (lane == 0) store_release(&sh.stop, 1);
+  if (in_beam) {
+    for (int j = 0; j < sw; ++j) states_out[row * sw + j] = st[j * g.Bg];
+    alive_out[row] = alive ? 1 : 0;
+  }
+  if (lane == 0) death_out[blockIdx.x] = death;
+}
+
+// Joins the two lane groups of a beam wider than 32: the sweep's death
+// is the later group death (-1 if either faulted), and a group that died
+// before it leaves every lane dead.  One block; death_out[0] is written
+// after every thread has read both deaths.
+__global__ void __launch_bounds__(64)
+combine_groups_kernel(int B, int32_t* __restrict__ death_out,
+                      uint8_t* __restrict__ alive_out) {
+  const int d0 = death_out[0];
+  const int d1 = death_out[1];
+  __syncthreads();
+  const int d = d0 < 0 || d1 < 0 ? -1 : max(d0, d1);
+  for (int b = threadIdx.x; b < B; b += blockDim.x) {
+    const int own = b < 32 ? d0 : d1;
+    if (d >= 0 && own < d) alive_out[b] = 0;
+  }
+  if (threadIdx.x == 0) death_out[0] = d;
 }
 
 // The per-lane chain with no loads in the loop and no vote: `steps`
@@ -601,10 +774,10 @@ struct Args {
   cudaStream_t stream;
 };
 
-// A row of B bytes at any byte offset spans ceil((B + 3) / 4) words; the
-// pack reads one word past its last group.
-template <int MODEL, int SW, bool STREAM>
-bool launch(const Args& a) {
+// Shared memory a block may use on Hopper (227 KB); the wide
+// instantiation's dynamic part is what its rings leave of it.
+constexpr int MAX_BLOCK_SMEM = 232448;
+
 #define JT_SWEEP_ARGS                                                       \
   a.B, a.K, a.W, a.sw, a.start, static_cast<const int32_t*>(a.bars),       \
       static_cast<const uint8_t*>(a.member),                               \
@@ -613,60 +786,97 @@ bool launch(const Args& a) {
       static_cast<const int32_t*>(a.init),                                 \
       static_cast<int32_t*>(a.states_out),                                 \
       static_cast<uint8_t*>(a.alive_out), static_cast<int32_t*>(a.death_out)
+
+inline int groups(int B) { return (B + 31) / 32; }
+
+// A row of Bg bytes at any byte offset spans ceil((Bg + 3) / 4) words;
+// the pack reads one word past its last group.  One block per 32 lanes.
+template <int MODEL, int SW, bool STREAM>
+cudaError_t launch(const Args& a) {
   if (a.B <= 8) {
-    witness_sweep_kernel<MODEL, SW, 3, STREAM><<<1, 64, 0, a.stream>>>(
-        JT_SWEEP_ARGS);
+    witness_sweep_kernel<MODEL, SW, 3, STREAM>
+        <<<groups(a.B), 64, 0, a.stream>>>(JT_SWEEP_ARGS);
   } else {
-    witness_sweep_kernel<MODEL, SW, 9, STREAM><<<1, 64, 0, a.stream>>>(
-        JT_SWEEP_ARGS);
+    witness_sweep_kernel<MODEL, SW, 9, STREAM>
+        <<<groups(a.B), 64, 0, a.stream>>>(JT_SWEEP_ARGS);
   }
-#undef JT_SWEEP_ARGS
-  return true;
+  return cudaGetLastError();
 }
 
-// Launches the instantiation for (model, sw); false if there is none.
+// The wide multi-register: refuses (cudaErrorInvalidValue, no launch) a
+// width whose rows do not fit the block's shared memory beside the
+// kernel's static rings.
 template <bool STREAM>
-bool dispatch(int model, const Args& a) {
+cudaError_t launch_wide(const Args& a) {
+  const auto kernel = witness_sweep_wide_kernel<STREAM>;
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
+  const size_t lanes = a.B < 32 ? a.B : 32;
+  const size_t dyn = sizeof(int32_t) * lanes * static_cast<size_t>(a.sw);
+  if (dyn + attr.sharedSizeBytes > static_cast<size_t>(MAX_BLOCK_SMEM)) {
+    return cudaErrorInvalidValue;
+  }
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(dyn));
+  if (err != cudaSuccess) return err;
+  kernel<<<groups(a.B), 64, dyn, a.stream>>>(JT_SWEEP_ARGS);
+  return cudaGetLastError();
+}
+
+#undef JT_SWEEP_ARGS
+
+// Launches the instantiation for (model, sw); cudaErrorInvalidValue,
+// without launching, if there is none.
+template <bool STREAM>
+cudaError_t dispatch(int model, const Args& a) {
   switch (model) {
     case MODEL_REGISTER:
-      return a.sw == 1 && launch<MODEL_REGISTER, 1, STREAM>(a);
+      if (a.sw != 1) break;
+      return launch<MODEL_REGISTER, 1, STREAM>(a);
     case MODEL_MUTEX:
-      return a.sw == 1 && launch<MODEL_MUTEX, 1, STREAM>(a);
+      if (a.sw != 1) break;
+      return launch<MODEL_MUTEX, 1, STREAM>(a);
     case MODEL_MULTI_REGISTER:
-      if (a.sw < 1 || a.sw > MAX_SW) return false;
+      if (a.sw < 1) break;
       if (a.sw <= 2) return launch<MODEL_MULTI_REGISTER, 2, STREAM>(a);
       if (a.sw <= 4) return launch<MODEL_MULTI_REGISTER, 4, STREAM>(a);
       if (a.sw <= 8) return launch<MODEL_MULTI_REGISTER, 8, STREAM>(a);
       if (a.sw <= 16) return launch<MODEL_MULTI_REGISTER, 16, STREAM>(a);
-      return launch<MODEL_MULTI_REGISTER, 32, STREAM>(a);
+      if (a.sw <= MAX_SW) return launch<MODEL_MULTI_REGISTER, 32, STREAM>(a);
+      return launch_wide<STREAM>(a);
     case MODEL_FIFO_QUEUE:
-      return a.sw == QUEUE_CAPACITY &&
-             launch<MODEL_FIFO_QUEUE, QUEUE_CAPACITY, STREAM>(a);
+      if (a.sw != QUEUE_CAPACITY) break;
+      return launch<MODEL_FIFO_QUEUE, QUEUE_CAPACITY, STREAM>(a);
     case MODEL_UNORDERED_QUEUE:
-      return a.sw == QUEUE_CAPACITY &&
-             launch<MODEL_UNORDERED_QUEUE, QUEUE_CAPACITY, STREAM>(a);
+      if (a.sw != QUEUE_CAPACITY) break;
+      return launch<MODEL_UNORDERED_QUEUE, QUEUE_CAPACITY, STREAM>(a);
     default:
-      return false;
+      break;
   }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launches the sweep on `stream` and returns cudaGetLastError() (0 on
-// success).  `stream_model` != 0 selects the stream instantiation, which
-// reads the (sw,) initial state at `init`.  A model with no instantiation
-// at `sw`, a bad shape, a stream launch without `init`, or a member
-// window that is not 4-byte aligned returns cudaErrorInvalidValue
-// without launching.
+// Launches the sweep on `stream` and returns the launch's CUDA error (0
+// on success).  `stream_model` != 0 selects the stream instantiation,
+// which reads the (sw,) initial state at `init`.  `death_out` holds one
+// int32 per 32 beam lanes; for B > 32 a second kernel joins the groups
+// into death_out[0].  A model with no instantiation at `sw`, a wide state
+// that does not fit shared memory, a bad shape, a stream launch without
+// `init`, or a member window that is not 4-byte aligned returns
+// cudaErrorInvalidValue without launching.
 int witness_sweep_launch(int model, int sw, int stream_model, int B, int K,
                          int W, int start, const void* bars,
                          const void* member, const void* states_in,
                          const void* alive_in, const void* init,
                          void* states_out, void* alive_out, void* death_out,
                          void* stream) {
-  if (B < 1 || B > 32 || K < 1 || W < 1 || start < 0 || start > K ||
+  if (B < 1 || B > 64 || K < 1 || W < 1 || start < 0 || start > K ||
       reinterpret_cast<uintptr_t>(member) % 4 != 0 ||
       (stream_model != 0 && init == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -686,10 +896,15 @@ int witness_sweep_launch(int model, int sw, int stream_model, int B, int K,
   a.alive_out = alive_out;
   a.death_out = death_out;
   a.stream = static_cast<cudaStream_t>(stream);
-  const bool launched =
+  cudaError_t err =
       stream_model != 0 ? dispatch<true>(model, a) : dispatch<false>(model, a);
-  if (!launched) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+  if (err == cudaSuccess && groups(B) > 1) {
+    combine_groups_kernel<<<1, 64, 0, a.stream>>>(
+        B, static_cast<int32_t*>(death_out),
+        static_cast<uint8_t*>(alive_out));
+    err = cudaGetLastError();
+  }
+  return static_cast<int>(err);
 }
 
 // Launches the per-lane chain probe (one warp, `steps` steps, a multiple

@@ -1,8 +1,10 @@
 """Operations and histories — the port's copy of
 `jepsen_tpu/history/core.py`, trimmed to what history generation,
 packing and the Elle analyses need: the `Op` record, the op types, a
-dense-indexed `History` sequence with invoke/completion pairing, and
-the filtered views `filter` and `client_ops`.  Folds and the other
+dense-indexed `History` sequence with invoke/completion pairing, the
+filtered views `filter` and `client_ops`, and the op-dict form
+(`Op.to_dict` / `Op.from_dict`, `History.to_dicts`) the checker
+daemon's wire and queue journal carry.  Folds and the other
 views wait for the slices that use them.
 """
 
@@ -66,6 +68,22 @@ class Op:
         fields.update(kw)
         return Op(**fields)
 
+    def to_dict(self) -> dict[str, Any]:
+        """The op as a flat dict, extra keys beside the fields."""
+        d = {"index": self.index, "time": self.time, "type": self.type,
+             "process": self.process, "f": self.f, "value": self.value}
+        d.update(self.ext)
+        return d
+
+    @classmethod
+    def from_dict(cls, d: dict[str, Any]) -> "Op":
+        ext = {k: v for k, v in d.items()
+               if k not in ("index", "time", "type", "process", "f",
+                            "value")}
+        return cls(type=d["type"], f=d.get("f"), value=d.get("value"),
+                   process=d.get("process"), time=d.get("time", -1),
+                   index=d.get("index", -1), ext=ext)
+
 
 class History(Sequence[Op]):
     """An immutable sequence of Ops with dense indices.  Indices are
@@ -75,8 +93,9 @@ class History(Sequence[Op]):
 
     __slots__ = ("ops", "_pairs")
 
-    def __init__(self, ops: Iterable[Op], *, reindex: bool | None = None):
-        rows = list(ops)
+    def __init__(self, ops: Iterable["Op | dict"], *,
+                 reindex: bool | None = None):
+        rows = [o if isinstance(o, Op) else Op.from_dict(o) for o in ops]
         if reindex is None:
             reindex = not all(o.index == i for i, o in enumerate(rows))
         if reindex:
@@ -158,6 +177,9 @@ class History(Sequence[Op]):
 
     def __iter__(self) -> Iterator[Op]:
         return iter(self.ops)
+
+    def to_dicts(self) -> list[dict[str, Any]]:
+        return [o.to_dict() for o in self.ops]
 
     def __repr__(self) -> str:
         return f"History({len(self.ops)} ops)"

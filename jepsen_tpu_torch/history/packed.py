@@ -1,7 +1,10 @@
 """Packed columnar op tables — the device-facing history form.
 
 The port's copy of `jepsen_tpu/history/packed.py`, trimmed to
-`pack_history`, the incremental `PackedBuilder` and what they return.
+`pack_history`, the incremental `PackedBuilder`, what they return, and
+the columnar wire form (`packed_to_bytes` / `packed_from_bytes`, byte
+for byte the reference's, so either package's client talks to either
+package's checker daemon).
 A history becomes invocation-ordered numpy columns: int32 op payloads
 (process/status/f/a0/a1) and int64 event bookkeeping (inv/ret/
 src_index/preds/horizon; ret uses NO_RET = int64 max, which the device
@@ -114,6 +117,46 @@ PACKED_COLUMNS: tuple[tuple[str, Any], ...] = (
     ("preds", np.int64),
     ("horizon", np.int64),
 )
+
+
+PACKED_MAGIC = b"JPKD1\n"
+
+
+def packed_to_bytes(p: "PackedOps") -> bytes:
+    """Serializes a PackedOps to the columnar binary form: the magic, the
+    int64 row count, then each column of PACKED_COLUMNS little-endian."""
+    parts = [PACKED_MAGIC, np.int64(p.n).tobytes()]
+    for name, dtype in PACKED_COLUMNS:
+        col = np.ascontiguousarray(getattr(p, name), dtype=dtype)
+        if col.shape != (p.n,):
+            raise ValueError(f"column {name}: shape {col.shape} != ({p.n},)")
+        parts.append(col.tobytes())
+    return b"".join(parts)
+
+
+def packed_from_bytes(buf: bytes) -> "PackedOps":
+    """Inverse of packed_to_bytes.  Validates the magic and the total
+    length, so a torn or foreign frame raises ValueError instead of
+    mis-slicing columns."""
+    if buf[: len(PACKED_MAGIC)] != PACKED_MAGIC:
+        raise ValueError("not a packed-ops frame (bad magic)")
+    off = len(PACKED_MAGIC)
+    n = int(np.frombuffer(buf, dtype=np.int64, count=1, offset=off)[0])
+    if n < 0:
+        raise ValueError(f"packed-ops frame: negative row count {n}")
+    off += 8
+    want = off + sum(n * np.dtype(dt).itemsize for _, dt in PACKED_COLUMNS)
+    if len(buf) != want:
+        raise ValueError(
+            f"packed-ops frame: {len(buf)} bytes, want {want} for n={n}")
+    cols = {}
+    for name, dtype in PACKED_COLUMNS:
+        # Owned, writable copies: a frombuffer view is read-only and
+        # pins the source buffer.
+        cols[name] = np.frombuffer(buf, dtype=dtype, count=n,
+                                   offset=off).copy()
+        off += n * np.dtype(dtype).itemsize
+    return PackedOps(**cols)
 
 
 def _require_i32(arr: np.ndarray) -> None:

@@ -16,7 +16,9 @@ errors that no layer may turn into a verdict.
 `probe_card` stands where the reference's chip reset and probe stand,
 for diagnosis only: when the card runs out of resources again after
 the halved retry, the error raised carries the probe's result.  Nothing
-retries on the CPU.
+retries on the CPU.  `check_card` is the in-process check a checker
+daemon runs at start.  Both set `chip_state`, the last observed card
+health that STATS, `/metrics` and the SLO engine read.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ import torch
 
 from .. import telemetry
 from ..device import DeviceUnavailable
+from ..telemetry import flight
 from .kernels import KernelBuildError, KernelLaunchError
 
 #: Comma-separated tier names ("witness", "device", "stream",
@@ -141,6 +144,7 @@ def record(tier: str, action: str, error: Optional[Any] = None) -> None:
     """Records one degradation step: a `wgl.degrade.<tier>.<action>`
     telemetry counter and an event in the active capture (if any)."""
     telemetry.count(f"wgl.degrade.{tier}.{action}")
+    flight.note(f"degrade.{tier}.{action}")
     events = getattr(_tls, "events", None)
     if events is not None:
         ev = {"tier": tier, "action": action}
@@ -148,6 +152,47 @@ def record(tier: str, action: str, error: Optional[Any] = None) -> None:
             ev["error"] = (f"{type(error).__name__}: {error}"
                            if isinstance(error, BaseException) else str(error))
         events.append(ev)
+
+
+#: Last observed card health, one of telemetry.CHIP_HEALTH_STATES:
+#: "unprobed" until `probe_card` or `check_card` runs, then "ok",
+#: "wedged" (the probe hung or failed) or "absent" (no CUDA card).
+_chip_state = "unprobed"
+
+
+def chip_state() -> str:
+    """The last observed card health (see `_chip_state`)."""
+    return _chip_state
+
+
+def _set_chip_state(state: str) -> None:
+    global _chip_state
+    _chip_state = state
+    flight.note("chip-probe", state=state)
+
+
+def check_card(device: Any) -> torch.device:
+    """The card check a checker daemon runs at start, in process: one
+    small float32 matmul on `device`, synchronized.  Sets `chip_state`
+    ("ok", or "absent" and raises `DeviceUnavailable` when CUDA is asked
+    for and missing).  A CPU device is checked for nothing and leaves
+    the state as it was."""
+    from .. import device as _device
+
+    try:
+        dev = _device.resolve(device)
+    except DeviceUnavailable:
+        _set_chip_state("absent")
+        raise
+    if dev.type == "cuda":
+        x = torch.ones((8, 8), device=dev)
+        got = float((x @ x).sum())
+        torch.cuda.synchronize(dev)
+        if got != 512.0:
+            _set_chip_state("wedged")
+            raise DeviceUnavailable(f"card check on {dev}: matmul gave {got}")
+        _set_chip_state("ok")
+    return dev
 
 
 #: What `probe_card` runs in a fresh interpreter: one small float32
@@ -170,13 +215,17 @@ def probe_card(timeout_s: float = 60.0) -> dict:
                               timeout=timeout_s, capture_output=True,
                               text=True)
     except subprocess.TimeoutExpired:
+        _set_chip_state("wedged")
         return {"ok": False, "name": None,
                 "detail": f"probe timed out after {timeout_s} s"}
     except OSError as e:
         return {"ok": False, "name": None, "detail": f"probe failed: {e!r}"}
     if proc.returncode != 0:
         tail = (proc.stderr.strip().splitlines() or ["no output"])[-1]
+        _set_chip_state("absent" if "CUDA" in tail or "cuda" in tail
+                        else "wedged")
         return {"ok": False, "name": None,
                 "detail": f"probe exit {proc.returncode}: {tail}"}
+    _set_chip_state("ok")
     return {"ok": True, "name": proc.stdout.strip() or None,
             "detail": "matmul ok"}

@@ -12,9 +12,11 @@ returned a CUDA error, and adds one to `launches[<name>]` — there and
 nowhere else — so a run can show that its main path went through the
 kernel.  The sweep also counts each instantiation it launched, under
 `witness_sweep[<model>]` (`witness_sweep[<model>+stream]` for the
-stream's).  Counts are taken under a lock: the many-key checker
-launches from worker threads.  Callers reset them with
-`launches.clear()`.
+stream's, `witness_sweep[multi-register-wide]` for the multi-register
+past 32 words of state), and its launches over a beam wider than 32
+lanes under `witness_sweep[beam>32]`.  Counts are taken under a lock:
+the many-key checker launches from worker threads.  Callers reset them
+with `launches.clear()`.
 """
 
 from __future__ import annotations
@@ -44,9 +46,9 @@ launches: Counter = Counter()
 _launches_lock = threading.Lock()
 
 #: The sweep kernel's models (`PackedModel.kernel_model` ids, as
-#: csrc/witness_sweep.cu numbers them) and the state widths each is
-#: compiled for: 1..32 for the multi-register (bucketed), the queues'
-#: 32 slots.
+#: csrc/witness_sweep.cu numbers them) and the state widths its
+#: register-resident instantiations are compiled for: 1..32 for the
+#: multi-register (bucketed), the queues' 32 slots.
 SWEEP_MODELS = {
     1: ("register", (1,)),
     2: ("mutex", (1,)),
@@ -54,6 +56,26 @@ SWEEP_MODELS = {
     4: ("fifo-queue", (32,)),
     5: ("unordered-queue", (32,)),
 }
+
+#: The multi-register's widths past 32 words run the wide instantiation,
+#: whose state rows live in shared memory: (lanes per block) x sw x 4
+#: bytes must fit the block's 227 KB (Hopper's 232,448 bytes) beside the
+#: kernel's static rings, 11,920 bytes as ptxas counts them (`-Xptxas
+#: -v`, `build_log`); the launch checks the built kernel's own count.
+SWEEP_WIDE_MODEL = 3
+SMEM_PER_BLOCK = 232_448
+SWEEP_RING_SMEM = 11_920
+
+#: Beam lanes one sweep launch takes: two blocks of 32 lanes.
+MAX_SWEEP_BEAM = 64
+
+
+def max_sweep_width(B: int) -> int:
+    """The widest multi-register state (words) the wide instantiation
+    takes at beam width B: its lanes per block (at most 32) times the
+    width, in int32, must fit the block's shared memory beside the
+    rings.  1,722 words at 32 or more lanes."""
+    return (SMEM_PER_BLOCK - SWEEP_RING_SMEM) // (4 * min(max(B, 1), 32))
 
 #: Compiler output of this process's kernel build (with `-Xptxas -v`:
 #: registers, shared memory and spills); empty when the library was
@@ -139,14 +161,17 @@ def witness_sweep(model: int, start_k: int, bars: torch.Tensor,
     them.
 
     bars (6, K) i32, member (W, B) bool, states (B, SW) i32, alive (B,)
-    bool, all contiguous on one card, 1 <= B <= 32 -> (states' (B, SW)
+    bool, all contiguous on one card, 1 <= B <= 64 -> (states' (B, SW)
     i32, alive' (B,) bool, death (1,) i32) on that card; death is -1 if
-    the kernel's two warps lost their hand-off (see `sweep`).  `model`
-    is a `PackedModel.kernel_model` id (`SWEEP_MODELS`), SW one of its
-    widths.  `init`, the (SW,) int32 initial state, selects the stream
-    instantiation, which knows the RESET op.  Raises ValueError on
-    anything else (checked before the device, so CPU tensors show the
-    shape errors first), and KernelLaunchError if the launch fails."""
+    the kernel's two warps lost their hand-off (see `sweep`).  A beam
+    wider than 32 sweeps as two 32-lane blocks joined by a second
+    kernel.  `model` is a `PackedModel.kernel_model` id (`SWEEP_MODELS`),
+    SW one of its widths, or for the multi-register any width up to
+    `max_sweep_width(B)` (the wide instantiation past 32).  `init`, the
+    (SW,) int32 initial state, selects the stream instantiation, which
+    knows the RESET op.  Raises ValueError on anything else (checked
+    before the device, so CPU tensors show the shape errors first), and
+    KernelLaunchError if the launch fails."""
     for t, name, dtype, ndim in ((bars, "bars", torch.int32, 2),
                                  (member, "member", torch.bool, 2),
                                  (states, "states", torch.int32, 2),
@@ -161,15 +186,23 @@ def witness_sweep(model: int, start_k: int, bars: torch.Tensor,
     k = bars.shape[1]
     sw = states.shape[1]
     if (bars.shape[0] != 6 or states.shape[0] != b or alive.shape != (b,)
-            or not 1 <= b <= 32):
+            or not 1 <= b <= MAX_SWEEP_BEAM):
         raise ValueError(
             f"witness_sweep: bad shapes bars {tuple(bars.shape)}, member "
             f"{tuple(member.shape)}, states {tuple(states.shape)}, alive "
-            f"{tuple(alive.shape)} (B must be 1..32)")
+            f"{tuple(alive.shape)} (B must be 1..{MAX_SWEEP_BEAM}: two "
+            f"32-lane blocks)")
     if model not in SWEEP_MODELS:
         raise ValueError(f"witness_sweep: no device step for model {model}")
     model_name, widths = SWEEP_MODELS[model]
-    if sw not in widths:
+    wide = model == SWEEP_WIDE_MODEL and sw > widths[-1]
+    if wide and sw > max_sweep_width(b):
+        raise ValueError(
+            f"witness_sweep: multi-register width {sw} > "
+            f"{max_sweep_width(b)}: {min(b, 32)} lanes x {sw} words x 4 B "
+            f"of state rows must fit the block's {SMEM_PER_BLOCK} B of "
+            f"shared memory beside the kernel's {SWEEP_RING_SMEM} B rings")
+    if not wide and sw not in widths:
         raise ValueError(f"witness_sweep: {model_name} takes state widths "
                          f"{widths[0]}..{widths[-1]}, got {sw}")
     if init is not None and (init.dtype != torch.int32
@@ -191,7 +224,8 @@ def witness_sweep(model: int, start_k: int, bars: torch.Tensor,
     lib = sweep_lib()
     states_out = torch.empty_like(states)
     alive_out = torch.empty_like(alive)
-    death = torch.empty(1, dtype=torch.int32, device=dev)
+    # One death per 32-lane block; the join leaves the sweep's in [0].
+    death = torch.empty((b + 31) // 32, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.witness_sweep_launch(
@@ -201,11 +235,27 @@ def witness_sweep(model: int, start_k: int, bars: torch.Tensor,
             states_out.data_ptr(), alive_out.data_ptr(), death.data_ptr(),
             stream)
     _check(lib, "witness_sweep", err)
-    suffix = "+stream" if init is not None else ""
+    stream = init is not None
     with _launches_lock:
         launches["witness_sweep"] += 1
-        launches[f"witness_sweep[{model_name}{suffix}]"] += 1
-    return states_out, alive_out, death
+        for name in {instantiation_name(model, sw, stream),
+                     instantiation_name(model, sw, stream, b)}:
+            launches[name] += 1
+    return states_out, alive_out, death[:1]
+
+
+def instantiation_name(model: int, sw: int, stream: bool,
+                       beam: int = 1) -> str:
+    """The `launches` key of the sweep instantiation that runs `model` at
+    state width `sw` over `beam` lanes: witness_sweep[<model>], with
+    "-wide" for the multi-register past 32 words and "+stream" for a
+    stream model; past 32 lanes witness_sweep[beam>32], whatever the
+    model (a launch of B > 32 counts under both)."""
+    if beam > 32:
+        return "witness_sweep[beam>32]"
+    model_name, widths = SWEEP_MODELS[model]
+    wide = "-wide" if model == SWEEP_WIDE_MODEL and sw > widths[-1] else ""
+    return f"witness_sweep[{model_name}{wide}{'+stream' if stream else ''}]"
 
 
 def sweep_chain_probe(steps: int, device: torch.device) -> torch.Tensor:

@@ -28,7 +28,10 @@ Two device programs, each plain PyTorch (the JAX package's are
   graph whose search is over keeps its carry, as under `vmap`.
 
 `device.counters["scc_screens"]` and `["scc_extractions"]` count the
-calls of each program.  The mesh sharding of the screen is not ported.
+calls of each program.  `check_cycles_device` is one "elle" profile
+record (telemetry/profile.py), whose cost is the closures' and the
+extraction levels' counts (telemetry/roofline.py).  The mesh sharding
+of the screen is not ported.
 """
 
 from __future__ import annotations
@@ -39,6 +42,8 @@ import numpy as np
 import torch
 
 from .. import device as _device
+from .. import telemetry
+from ..telemetry import profile, roofline
 from ..checker.elle.graph import (DepGraph, check_cycles, classify_cycle,
                                   cycle_explanation)
 
@@ -50,12 +55,6 @@ def _bucket(x: int, lo: int) -> int:
     while w < x:
         w *= 2
     return w
-
-
-def _steps(V: int) -> int:
-    """Squarings for a V-vertex closure: each doubles the path length
-    covered."""
-    return max(1, int(np.ceil(np.log2(max(V, 2)))))
 
 
 def closure_dtype(dev: torch.device) -> torch.dtype:
@@ -91,7 +90,7 @@ def closure(adj: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     of length >= 1: `a = min(a + a @ a, 1)`, ceil(log2 V) times, in
     `dtype`."""
     a = adj.to(dtype)
-    for _ in range(_steps(adj.shape[-1])):
+    for _ in range(roofline.closure_steps(adj.shape[-1])):
         a = torch.clamp_max(a + torch.bmm(a, a), 1.0)
     return a > 0
 
@@ -111,8 +110,12 @@ def screen_cycles(graphs: Sequence[DepGraph], *,
         return np.zeros(0, dtype=bool)
     adj, _ = pack_adjacency(graphs)
     _device.count("scc_screens")
-    flags = has_cycle(torch.from_numpy(adj).to(dev), closure_dtype(dev))
-    return np.asarray(_device.host(flags), dtype=bool)
+    with telemetry.span("elle.screen.block"):
+        flags = has_cycle(torch.from_numpy(adj).to(dev), closure_dtype(dev))
+        out = np.asarray(_device.host(flags), dtype=bool)
+    if profile.cost_hooked():
+        profile.note_cost(roofline.closure_cost(adj.shape[0], adj.shape[1]))
+    return out
 
 
 def extract_batch(adj_all: torch.Tensor, adj_req: torch.Tensor,
@@ -150,6 +153,7 @@ def extract_batch(adj_all: torch.Tensor, adj_req: torch.Tensor,
     visited = start.clone()
     parent = torch.where(start, v[:, None], -1).to(torch.int32)
     adj_u8 = adj_all.to(torch.uint8)
+    graph_levels = 0
     while True:
         active = frontier.any(dim=1) & ~visited[ks, ul]
         act = _device.host(active)
@@ -160,6 +164,7 @@ def extract_batch(adj_all: torch.Tensor, adj_req: torch.Tensor,
         searching = [k for k, a in enumerate(act) if a]
         _device.count("scc_bfs_levels")
         _device.count("scc_bfs_graph_levels", len(searching))
+        graph_levels += len(searching)
         sel = torch.tensor(searching, device=dev)
         vis = visited[sel]
         hit = frontier[sel].to(torch.uint8)[:, :, None] & adj_u8[sel]
@@ -170,6 +175,8 @@ def extract_batch(adj_all: torch.Tensor, adj_req: torch.Tensor,
         parent[sel] = torch.where(nxt, pred.to(torch.int32), parent[sel])
         frontier[sel] = nxt
         visited[sel] = vis | nxt
+    if profile.cost_hooked():
+        profile.note_cost(roofline.extract_cost(K, V, graph_levels))
     return found, u, v, parent, scc_size
 
 
@@ -216,13 +223,14 @@ def extract_cycles_device(
     adj_all, adj_req, vertex_maps = pack_required(graphs, require)
     K, V, _ = adj_all.shape
     _device.count("scc_extractions")
-    found, u, v, parent, scc = extract_batch(
-        torch.from_numpy(adj_all).to(dev), torch.from_numpy(adj_req).to(dev),
-        closure_dtype(dev))
-    # One device read for every output.
-    rows = _device.host(torch.cat(
-        [torch.stack([found.to(torch.int32), u, v, scc], dim=1), parent],
-        dim=1))
+    with telemetry.span("elle.extract.block"):
+        found, u, v, parent, scc = extract_batch(
+            torch.from_numpy(adj_all).to(dev),
+            torch.from_numpy(adj_req).to(dev), closure_dtype(dev))
+        # One device read for every output.
+        rows = _device.host(torch.cat(
+            [torch.stack([found.to(torch.int32), u, v, scc], dim=1),
+             parent], dim=1))
     out: list[Optional[tuple[list[int], int]]] = []
     for k in range(K):
         fk, uu, vv, sk = rows[k][:4]
@@ -340,6 +348,17 @@ def check_cycles_device(
     device is resolved first, so a missing card raises whatever the
     route."""
     dev = _device.resolve(device)
+    with profile.capture("elle", device=dev, graphs=len(graphs)) as cap:
+        out = _check_cycles_device(graphs, dev, max_device_vertices,
+                                   device_extract_min_vertices)
+        cap.outcome = {"flagged": sum(1 for recs in out if recs)}
+    return out
+
+
+def _check_cycles_device(graphs: Sequence[DepGraph], dev: torch.device,
+                         max_device_vertices: int,
+                         device_extract_min_vertices: int
+                         ) -> list[list[dict]]:
     big = {
         i for i, g in enumerate(graphs)
         if len(g.vertices) > max_device_vertices

@@ -38,7 +38,7 @@ from .. import telemetry
 from ..checker.wgl_cpu import WGLResult
 from ..history.packed import ST_OK, PackedOps
 from ..models.base import PackedModel
-from ..telemetry import profile
+from ..telemetry import profile, roofline
 from . import degrade
 
 #: int32 "never" sentinel (ret of indeterminate ops, padding).  A
@@ -244,6 +244,9 @@ def _run_block(member, states, alive, iters: int, tables, B: int,
         acc_h, inc_h, n_keep_h = _device.host(
             torch.stack([acc, overflow | (n_uniq > B), n_keep]))
         _device.count("bfs_levels")
+        if profile.cost_hooked():
+            profile.note_cost(roofline.bfs_level_cost(
+                member.shape[1], B, states.shape[1], Cmax))
         it += 1
         explored += n_keep_h
         accepted = accepted or bool(acc_h)

@@ -34,7 +34,7 @@ from .. import device as _device
 from .. import telemetry
 from ..history.packed import ST_OK, PackedOps
 from ..models.base import PackedModel
-from ..telemetry import profile
+from ..telemetry import profile, roofline
 from . import degrade
 
 #: int32 "never" sentinel (padding ops, info returns), a Python int so
@@ -245,6 +245,9 @@ def _search(t: _Tables, B: int, Cmax: int, pm: PackedModel):
     while _device.host(live.any()):
         nxt = _level(carry, t, B, Cmax, pm)
         _device.count("bfs_levels")
+        if profile.cost_hooked():
+            profile.note_cost(roofline.batched_level_cost(
+                Kt, N, B, carry[1].shape[2], Cmax))
         # A finished key keeps its carry, as under vmap.
         carry = tuple(
             torch.where(live.reshape((Kt,) + (1,) * (old.dim() - 1)),

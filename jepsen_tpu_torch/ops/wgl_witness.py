@@ -46,7 +46,7 @@ from .. import telemetry
 from ..checker.wgl_cpu import WGLResult
 from ..history.packed import ST_OK, PackedOps
 from ..models.base import PackedModel
-from ..telemetry import profile
+from ..telemetry import profile, roofline
 from . import degrade, kernels
 from .wgl import _bucket, nonzero_static, window_regather
 
@@ -80,11 +80,14 @@ CHAIN_DEPTH = 5
 #: Widest planned window the witness takes on; wider escalates.
 MAX_WINDOW = 32768
 
-#: Beams up to this width fit the sweep kernel's one-word member bits.
-MAX_KERNEL_BEAM = 32
+#: Beams up to this width fit one sweep launch: two 32-lane blocks,
+#: each with its own one-word member bits.
+MAX_KERNEL_BEAM = kernels.MAX_SWEEP_BEAM
 
-#: The widest model state the sweep kernel is compiled for.
-MAX_KERNEL_STATE = 32
+#: The widest model state the sweep kernel takes at a full 32-lane
+#: block: the wide multi-register instantiation's rows in shared memory
+#: (`kernels.max_sweep_width`).
+MAX_KERNEL_STATE = kernels.max_sweep_width(32)
 
 
 def _state_hash_vec(sw: int, seed: int = 0xA11CE) -> np.ndarray:
@@ -240,9 +243,11 @@ def sweep(pm: PackedModel, start_k: int, bars: torch.Tensor,
     CPU tensors take the plain version.  CUDA tensors go to the
     csrc/witness_sweep.cu kernel as they are (no packing, transpose or
     cast) or raise: a ValueError for a model with no device step
-    (`pm.kernel_model` None), a state wider than the kernel's 32 words
-    or a beam wider than one member word, KernelLaunchError for a
-    failed launch or a kernel that reports a fault.  A stream model
+    (`pm.kernel_model` None), and the wrapper's (`kernels.witness_sweep`,
+    before any launch) for a beam wider than `MAX_KERNEL_BEAM` or a
+    state wider than the kernel takes at this beam
+    (`kernels.max_sweep_width`); KernelLaunchError for a failed launch
+    or a kernel that reports a fault.  A stream model
     (`pm.stream`) needs `init`, its initial state as a (SW,) int32
     tensor on the card, and runs the kernel's stream instantiation.
     Reading the death barrier back is the call's one host sync."""
@@ -252,12 +257,6 @@ def sweep(pm: PackedModel, start_k: int, bars: torch.Tensor,
     if pm.kernel_model is None:
         raise ValueError(
             f"model {pm.name!r} has no device step in the sweep kernel")
-    if pm.state_width > MAX_KERNEL_STATE:
-        raise ValueError(f"model {pm.name!r}: state width "
-                         f"{pm.state_width} > {MAX_KERNEL_STATE}")
-    B = member.shape[1]
-    if B > MAX_KERNEL_BEAM:
-        raise ValueError(f"beam {B} does not fit one 32-bit member word")
     if pm.stream and init is None:
         raise ValueError(f"stream model {pm.name!r} needs its initial state")
     s2, al2, death = kernels.witness_sweep(
@@ -299,6 +298,10 @@ class _Block:
         while k < K:
             s2, al2, dk = sweep(self.pm, k, bars_d, member, states, alive,
                                 self.init)
+            if profile.cost_hooked():
+                profile.note_cost(roofline.sweep_cost(
+                    k, dk, K, bars_h[0], self.B, states.shape[1],
+                    self.init is not None))
             if dk >= K:
                 return member, s2, al2, False, NO_BAR
             a, r, _, bf, ba0, ba1 = (int(x) for x in bars_h[:, dk])
@@ -331,6 +334,12 @@ class _Block:
             n_av = row_any.sum()
             alive_any, direct_any, n_av_h = _device.host(
                 torch.stack([alive.any(), al1.any(), n_av]))
+            if profile.cost_hooked():
+                tile = (0 if not alive_any or direct_any
+                        else self.W if self.WC == 0 or n_av_h > self.WC
+                        else self.WC)
+                profile.note_cost(roofline.chain_round_cost(
+                    self.W, tile, self.B, states.shape[1]))
             if not alive_any:
                 break
             if direct_any:

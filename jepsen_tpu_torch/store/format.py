@@ -1,9 +1,10 @@
 """Append-only, checksummed, block-structured files.
 
 The port's copy of the framing of `jepsen_tpu/store/format.py`, trimmed
-to what the plan memo journal (plan/cache.py) uses, byte for byte the
-same, so a memo directory written by either package replays in the
-other:
+to what the plan memo journal (plan/cache.py), the checker daemon's
+queue journal and wire frames (checkerd/) and the time-series store
+(telemetry/timeseries.py) use, byte for byte the same, so a file
+written by either package replays in the other:
 
     magic "JTPU1\\n"
     block*        where block = [u32 payload-len][u32 crc32][u8 type]
@@ -26,6 +27,12 @@ MAGIC = b"JTPU1\n"
 
 #: Plan-memo journal entry: one settled plan-node verdict per block.
 BLOCK_PLAN = 6
+#: Checker-daemon queue-journal record (checkerd/journal.py): one
+#: accepted submission, result or abandonment per block.
+BLOCK_QUEUE = 7
+#: Time-series sample batch (telemetry/timeseries.py): one cadence tick
+#: of samples per block.
+BLOCK_SERIES = 8
 
 _HEADER = struct.Struct("<IIB")  # payload-len, crc32, type
 

@@ -430,6 +430,19 @@ class StreamingSession:
                 self._break(f"{type(e).__name__}: {e}", e)
         self.verdict_lag_s = time.monotonic() - t0
         telemetry.gauge("wgl.online.verdict-lag-s", self.verdict_lag_s)
+        # Also into the quantile ring, which the SLO p95 rule and the
+        # /metrics summary family read, and the verdict-lag SLO samples
+        # the gauge now.  Both are side output around no device work: a
+        # failure is logged, never raised.
+        try:
+            from ..telemetry import slo, timeseries
+
+            timeseries.observe("wgl.online.verdict-lag-s",
+                               self.verdict_lag_s)
+            slo.evaluate()
+        except Exception:  # noqa: BLE001 — observability is side output
+            log.warning("verdict-lag observation at finish failed",
+                        exc_info=True)
         return self.stats()
 
     def _finalize(self) -> None:

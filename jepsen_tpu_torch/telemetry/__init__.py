@@ -27,9 +27,16 @@ many-key tier decided, ``wgl.degrade.<tier>.<action>`` the degradation
 steps.  `device.counters` (host syncs, chain rounds, ...) stays the
 port's own always-on record beside this one.
 
-Left out of the copy: the SLO and time-series hooks of `export`, the
-cross-process event transport (checkerd spans) and `prometheus_text`;
-they come with the checker daemon and the monitor.
+The cross-process event transport (`event_mark`, `events_between`,
+`trim_events`, `adopt_remote_events`) ships the checker daemon's
+cohort spans back to each submitter, whose trace shows them under the
+daemon's pid.  `export` evaluates the SLO rules (telemetry/slo.py)
+before it writes, and `prometheus_text` renders the registry, the
+time-series quantiles (telemetry/timeseries.py) and the SLO firing
+gauges in Prometheus text format for the daemon's `/metrics`.
+
+Left out of the copy: `scoped_reset` and the fleet counter prefixes
+(the run scopes of the reference's CLI and monitor loop, not ported).
 """
 
 from __future__ import annotations
@@ -37,6 +44,7 @@ from __future__ import annotations
 import json
 import logging
 import os
+import re
 import threading
 import time
 import uuid
@@ -68,9 +76,17 @@ _gauges: dict[str, list] = {}
 _events: list[tuple] = []
 _events_dropped = 0
 
-#: The run's trace id, minted lazily (`trace_id`) or adopted
-#: (`seed_trace`); profile records carry it.
+#: Events adopted from other processes (a checker daemon's RESULT
+#: meta["spans"]), so a run's trace shows daemon-side work under the
+#: daemon's pid.  Wall-clock timestamped dicts, bounded.
+MAX_FOREIGN_EVENTS = 4096
+_foreign: list[dict] = []
+
+#: The run's trace context: its trace id, minted lazily (`trace_id`) or
+#: adopted (`seed_trace`), which profile records carry, and the span
+#: propagated work nests under.
 _trace_id: Optional[str] = None
+_parent_span: Optional[str] = None
 
 #: Per-thread span-exit hook: profile.capture() installs a callback
 #: `(span_name, dur_ns) -> None` that folds execute-span durations into
@@ -90,14 +106,16 @@ def enable(on: bool = True) -> None:
 
 def reset() -> None:
     """Clears every registry — the start of a run scope."""
-    global _events_dropped, _trace_id
+    global _events_dropped, _trace_id, _parent_span
     with _lock:
         _span_stats.clear()
         _counters.clear()
         _gauges.clear()
         _events.clear()
+        _foreign.clear()
         _events_dropped = 0
         _trace_id = None
+        _parent_span = None
 
 
 # ---------------------------------------------------------------------------
@@ -119,15 +137,24 @@ def trace_id() -> str:
         return _trace_id
 
 
+def trace_context() -> dict:
+    """The propagatable context ``{"trace-id", "parent-span"}``: a
+    checker daemon client sends it in SUBMIT, and the daemon stamps the
+    request's cohort spans with it."""
+    return {"trace-id": trace_id(), "parent-span": _parent_span}
+
+
 def seed_trace(ctx: Optional[dict]) -> None:
-    """Adopts a propagated trace context ({"trace-id": ...}) or, when
-    `ctx` is falsy or malformed, mints a fresh id."""
-    global _trace_id
-    tid = None
+    """Adopts a propagated trace context ({"trace-id", "parent-span"})
+    or, when `ctx` is falsy or malformed, mints a fresh id."""
+    global _trace_id, _parent_span
+    tid = psp = None
     if isinstance(ctx, dict):
         tid = ctx.get("trace-id") or ctx.get("trace_id")
+        psp = ctx.get("parent-span") or ctx.get("parent_span")
     with _lock:
         _trace_id = str(tid) if tid else new_span_id()
+        _parent_span = str(psp) if psp else None
 
 
 def set_pass_hook(cb: Optional[Callable[[str, int], None]]) -> None:
@@ -320,11 +347,77 @@ def settle_counters() -> dict[str, Any]:
             if k.startswith(SETTLE_COUNTER_PREFIX)}
 
 
+# ---------------------------------------------------------------------------
+# Cross-process span transport
+# ---------------------------------------------------------------------------
+
+
+def event_mark() -> int:
+    """An opaque cursor into the trace-event buffer; pass it to
+    `events_between` to capture the events recorded since."""
+    with _lock:
+        return len(_events)
+
+
+def events_between(mark: int, limit: int = 256) -> list[dict]:
+    """The events appended since `mark`, as JSON-able dicts with
+    wall-clock timestamps — the payload checkerd attaches to RESULT
+    meta["spans"] so clients can adopt daemon-side work into their own
+    traces.  Bounded to `limit`; newest events win (the interesting
+    spans — cohort, settle tiers — close last)."""
+    with _lock:
+        evs = _events[mark:]
+    out = []
+    for name, t0_rel, dur, tid, tname, attrs in evs[-limit:]:
+        ev: dict[str, Any] = {
+            "name": name,
+            "t0_unix_s": _T0_WALL + t0_rel / 1e9,
+            "dur_s": dur / 1e9,
+            "tid": tid,
+            "thread": tname,
+        }
+        if attrs:
+            ev["attrs"] = dict(attrs)
+        out.append(ev)
+    return out
+
+
+def trim_events(mark: int) -> None:
+    """Truncates the trace-event buffer back to `mark` — a long-lived
+    daemon captures each cohort's events then trims, so the 200k cap
+    never saturates across weeks of uptime."""
+    global _events_dropped
+    with _lock:
+        if 0 <= mark <= len(_events):
+            del _events[mark:]
+            _events_dropped = 0
+
+
+def adopt_remote_events(events: Any, pid: Any = None) -> None:
+    """Adopts span events captured in another process (see
+    `events_between`) into this run's trace.  They render under their
+    own pid in `chrome_trace()`, timestamp-rebased via wall clock."""
+    if not _enabled or not isinstance(events, list):
+        return
+    with _lock:
+        room = MAX_FOREIGN_EVENTS - len(_foreign)
+        for ev in events[:max(0, room)]:
+            if not isinstance(ev, dict) or "name" not in ev:
+                continue
+            e = dict(ev)
+            if pid is not None:
+                e.setdefault("pid", pid)
+            _foreign.append(e)
+
+
 def chrome_trace() -> dict:
     """The recorded spans as a Chrome trace-event dict ("X" complete
-    events, microsecond timestamps, a thread_name record per thread)."""
+    events, µs timestamps) — Perfetto / chrome://tracing loadable.
+    Adopted remote events (checkerd daemon spans) appear under their
+    own pid, rebased onto this process's clock via wall time."""
     with _lock:
         events = list(_events)
+        foreign = [dict(e) for e in _foreign]
         tid_ = _trace_id
     pid = os.getpid()
     out = []
@@ -344,8 +437,42 @@ def chrome_trace() -> dict:
         out.append(ev)
         tnames[tid] = tname
     for tid, tname in tnames.items():
-        out.append({"name": "thread_name", "ph": "M", "pid": pid,
-                    "tid": tid, "args": {"name": tname}})
+        out.append({
+            "name": "thread_name",
+            "ph": "M",
+            "pid": pid,
+            "tid": tid,
+            "args": {"name": tname},
+        })
+    fpids: dict[Any, bool] = {}
+    for ev in foreign:
+        try:
+            ts_us = (float(ev["t0_unix_s"]) - _T0_WALL) * 1e6
+            dur_us = float(ev.get("dur_s", 0.0)) * 1e6
+        except (KeyError, TypeError, ValueError):
+            continue
+        fpid = ev.get("pid", 0)
+        e: dict[str, Any] = {
+            "name": ev["name"],
+            "cat": str(ev["name"]).split(".", 1)[0],
+            "ph": "X",
+            "ts": ts_us,
+            "dur": dur_us,
+            "pid": fpid,
+            "tid": ev.get("tid", 0),
+        }
+        if ev.get("attrs"):
+            e["args"] = ev["attrs"]
+        out.append(e)
+        fpids[fpid] = True
+    for fpid in fpids:
+        out.append({
+            "name": "process_name",
+            "ph": "M",
+            "pid": fpid,
+            "tid": 0,
+            "args": {"name": f"checkerd[{fpid}]"},
+        })
     return {
         "traceEvents": out,
         "displayTimeUnit": "ms",
@@ -360,15 +487,26 @@ def chrome_trace() -> dict:
 def export(directory: str) -> Optional[tuple[str, str]]:
     """Writes telemetry.json + trace.json into `directory`; returns the
     two paths, or None when disabled or on a write failure (a side
-    output never changes a run's outcome)."""
+    output must never change a run's outcome)."""
     if not _enabled:
         return None
+    # The flush is the SLO engine's heartbeat: every export re-evaluates
+    # the declarative rules over the registry (telemetry/slo.py), so a
+    # blown SLO journals its transition and dumps a postmortem even in
+    # processes that never serve /metrics.
+    try:
+        from . import slo as _slo
+
+        _slo.evaluate()
+    except Exception:  # noqa: BLE001 — alerting never breaks the flush
+        log.warning("slo evaluation on export failed", exc_info=True)
     try:
         os.makedirs(directory, exist_ok=True)
         sum_path = os.path.join(directory, "telemetry.json")
         trace_path = os.path.join(directory, "trace.json")
         with open(sum_path, "w") as f:
-            json.dump(summary(), f, indent=2, sort_keys=True, default=repr)
+            json.dump(summary(), f, indent=2, sort_keys=True,
+                      default=repr)
             f.write("\n")
         with open(trace_path, "w") as f:
             json.dump(chrome_trace(), f, default=repr)
@@ -377,3 +515,159 @@ def export(directory: str) -> Optional[tuple[str, str]]:
     except OSError as e:
         log.warning("telemetry export to %s failed: %r", directory, e)
         return None
+
+
+# ---------------------------------------------------------------------------
+# Prometheus scrape surface
+# ---------------------------------------------------------------------------
+
+_PROM_BAD = re.compile(r"[^a-zA-Z0-9_]")
+
+#: The chip-health states the degrade ladder can report; rendered
+#: one-hot so a scrape always sees the full state space.
+CHIP_HEALTH_STATES = (
+    "unprobed", "ok", "wedged", "ok-after-reset", "absent",
+)
+
+
+def _prom_name(name: str) -> str:
+    return "jepsen_" + _PROM_BAD.sub("_", name)
+
+
+def prometheus_text(
+    extra_gauges: Optional[dict] = None,
+    chip_state: Optional[str] = None,
+    lint_findings: Optional[dict] = None,
+    slo_firing: Optional[dict] = None,
+    extra_labeled: Optional[dict] = None,
+) -> str:
+    """The registry rendered in Prometheus text exposition format:
+    counters as `counter`, gauge last-values and span totals/counts as
+    `gauge`.  `extra_gauges` ({name: number}) lets a server mix in
+    surface-local values (queue depth, utilization); `chip_state`
+    renders the one-hot `jepsen_chip_health{state=...}` family;
+    `lint_findings` ({severity: count} or {family: {severity: count}})
+    renders `jepsen_lint_findings{...}` gauges;
+    `slo_firing` ({rule: 0|1}) renders the
+    `jepsen_slo_firing{rule=...}` family — when omitted, the default
+    SLO engine's current state (telemetry/slo.py) is exported, so every
+    scrape surface alerts for free;
+    `extra_labeled` ({family: (label_name, {label_value: number},
+    "counter"|"gauge")}) renders single-label families like
+    `jepsen_checkerd_shed_total{tenant=...}` — counters get the
+    `_total` suffix appended here, so pass the bare family name."""
+    with _lock:
+        counters = dict(_counters)
+        gauges = {k: g[0] for k, g in _gauges.items()}
+        spans = {k: (c, t) for k, (c, t, _m) in _span_stats.items()}
+    lines: list[str] = []
+    for name in sorted(counters):
+        v = counters[name]
+        if not isinstance(v, (int, float)):
+            continue
+        pn = _prom_name(name) + "_total"
+        lines.append(f"# TYPE {pn} counter")
+        lines.append(f"{pn} {v}")
+    for name in sorted(gauges):
+        v = gauges[name]
+        if not isinstance(v, (int, float)):
+            continue
+        pn = _prom_name(name)
+        lines.append(f"# TYPE {pn} gauge")
+        lines.append(f"{pn} {v}")
+    if spans:
+        lines.append("# TYPE jepsen_span_seconds_total counter")
+        lines.append("# TYPE jepsen_span_count_total counter")
+        for name in sorted(spans):
+            c, t = spans[name]
+            lines.append(
+                f'jepsen_span_seconds_total{{span="{name}"}} {t / 1e9:.6f}'
+            )
+            lines.append(f'jepsen_span_count_total{{span="{name}"}} {c}')
+    for name in sorted(extra_gauges or {}):
+        v = (extra_gauges or {})[name]
+        if not isinstance(v, (int, float)):
+            continue
+        pn = _prom_name(name)
+        lines.append(f"# TYPE {pn} gauge")
+        lines.append(f"{pn} {v}")
+    # Histogram-style quantile export (Prometheus summary families)
+    # from the in-process time-series rings: one `<name>_dist` family
+    # per observed series (the `_dist` suffix keeps the family distinct
+    # from the same series' last-sample gauge), e.g.
+    # jepsen_wgl_online_verdict_lag_s_dist{quantile="0.95"} — so
+    # dashboards and SLO rules see the recent distribution instead of
+    # a single sample.  Empty until something observes.
+    try:
+        from . import timeseries as _ts
+
+        _qmap = {"p50": "0.5", "p95": "0.95", "p99": "0.99"}
+        for sname in _ts.ring_names():
+            qs = _ts.quantiles(sname)
+            if not qs:
+                continue
+            pn = _prom_name(sname) + "_dist"
+            lines.append(f"# TYPE {pn} summary")
+            for label in ("p50", "p95", "p99"):
+                if label in qs:
+                    lines.append(
+                        f'{pn}{{quantile="{_qmap[label]}"}} {qs[label]}'
+                    )
+    except Exception:  # noqa: BLE001 — scrape must render regardless
+        pass
+    if lint_findings:
+        lines.append("# TYPE jepsen_lint_findings gauge")
+        for key in sorted(lint_findings):
+            v = lint_findings[key]
+            if isinstance(v, dict):
+                # {family: {severity: count}} from summary["families"].
+                for sev in sorted(v):
+                    n = v[sev]
+                    if not isinstance(n, (int, float)):
+                        continue
+                    lines.append(
+                        f'jepsen_lint_findings{{family="{key}",'
+                        f'severity="{sev}"}} {n}')
+                continue
+            if not isinstance(v, (int, float)):
+                continue
+            lines.append(
+                f'jepsen_lint_findings{{severity="{key}"}} {v}')
+    if chip_state is not None:
+        lines.append("# TYPE jepsen_chip_health gauge")
+        known = chip_state in CHIP_HEALTH_STATES
+        for st in CHIP_HEALTH_STATES:
+            hot = 1 if st == chip_state or (
+                st == "unprobed" and not known) else 0
+            lines.append(f'jepsen_chip_health{{state="{st}"}} {hot}')
+    if slo_firing is None:
+        try:
+            from . import slo as _slo
+
+            slo_firing = _slo.firing_gauges()
+        except Exception:  # noqa: BLE001 — scrape must render regardless
+            slo_firing = None
+    if slo_firing:
+        lines.append("# TYPE jepsen_slo_firing gauge")
+        for rule in sorted(slo_firing):
+            v = slo_firing[rule]
+            if not isinstance(v, (int, float)):
+                continue
+            lines.append(
+                f'jepsen_slo_firing{{rule="{rule}"}} {int(bool(v))}')
+    for family in sorted(extra_labeled or {}):
+        try:
+            label, values, ptype = (extra_labeled or {})[family]
+        except (TypeError, ValueError):
+            continue
+        if ptype not in ("counter", "gauge") or not isinstance(
+                values, dict):
+            continue
+        pn = _prom_name(family) + ("_total" if ptype == "counter" else "")
+        lines.append(f"# TYPE {pn} {ptype}")
+        for lv in sorted(values, key=str):
+            v = values[lv]
+            if not isinstance(v, (int, float)):
+                continue
+            lines.append(f'{pn}{{{label}="{lv}"}} {v}')
+    return "\n".join(lines) + "\n"

@@ -19,9 +19,12 @@ Record schema (`SCHEMA_VERSION` 2, the reference's):
      "device": {"platform", "device_kind", "peak_bytes"},
      "outcome", "degraded"}
 
-`cost` and `roofline` are explicit nulls, as the reference writes them
-on backends without cost analysis: the port reports no XLA cost, and
-its roofline accounting comes in a later slice.  `device` names the
+`cost` sums what the pass's device calls noted (`note_cost`: the
+explicit counts of telemetry/roofline.py, since the port has no XLA
+cost analysis), and `roofline` places it against the device's peaks
+(`roofline.annotate`).  A pass that noted no cost keeps both blocks as
+explicit nulls, as the reference writes them on backends without cost
+analysis.  `device` names the
 card a pass ran on: {"platform": "gpu", "device_kind":
 torch.cuda.get_device_name, "peak_bytes": torch.cuda's
 max_memory_allocated, the high-water mark of the caching allocator}, or
@@ -76,6 +79,13 @@ _store_path: Optional[str] = None
 #: Per-thread cost hook: `capture()` installs a callback
 #: `(cost: dict) -> None`; `note_cost` reports one device call to it.
 _cost_hook = threading.local()
+
+
+def cost_hooked() -> bool:
+    """Whether a capture on this thread listens for device-call costs:
+    call sites compute a cost only then, so an unprofiled check pays
+    nothing for it."""
+    return getattr(_cost_hook, "cb", None) is not None
 
 
 def note_cost(cost: dict) -> None:
@@ -264,10 +274,25 @@ class Capture:
 
     def record(self) -> dict:
         total = time.perf_counter_ns() - self._t0
+        timing = {
+            "compile_s": round(self._compile_ns / 1e9, 6),
+            "execute_s": round(self._execute_ns / 1e9, 6),
+            "total_s": round(total / 1e9, 6),
+        }
         cost = dict(COST_NULL)
         cost["device_calls"] = self._device_calls
         for k, v in self._cost.items():
             cost[k] = round(v, 3)
+        device = _device_info(self.device)
+        roofline = dict(ROOFLINE_NULL)
+        if self._cost:
+            try:
+                from . import roofline as _roofline
+
+                roofline.update(_roofline.annotate(timing, cost, device))
+            except Exception:  # noqa: BLE001 — the roofline block is
+                # advisory; its failure must not drop the record
+                log.debug("roofline annotate failed", exc_info=True)
         return {
             "v": SCHEMA_VERSION,
             "ts": time.time(),
@@ -275,14 +300,10 @@ class Capture:
             "pass": self.pass_name,
             "features": dict(self.features),
             "plan": dict(self.plan),
-            "timing": {
-                "compile_s": round(self._compile_ns / 1e9, 6),
-                "execute_s": round(self._execute_ns / 1e9, 6),
-                "total_s": round(total / 1e9, 6),
-            },
+            "timing": timing,
             "cost": cost,
-            "roofline": dict(ROOFLINE_NULL),
-            "device": _device_info(self.device),
+            "roofline": roofline,
+            "device": device,
             "outcome": self.outcome,
             "degraded": self.degraded,
         }
@@ -343,4 +364,11 @@ def capture(pass_name: str, *, device: Any = None,
         stack.pop()
         set_pass_hook(prev)
         _cost_hook.cb = prev_cost
-        append(cap.record())
+        rec = cap.record()
+        append(rec)
+        try:
+            from . import roofline as _roofline
+
+            _roofline.export_gauges(rec)
+        except Exception:  # noqa: BLE001 — gauges are side output
+            log.debug("roofline gauge export failed", exc_info=True)

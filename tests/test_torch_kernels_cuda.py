@@ -262,18 +262,23 @@ def test_kernel_wrapper_refuses_cpu_tensors():
 
 def test_sweep_off_the_cpu_never_takes_the_plain_version():
     """A tensor that is not on the CPU goes to the kernel or raises: a
-    model with no device step and a beam wider than one member word
-    are errors there, not a route to the plain sweep.  ("meta" tensors
-    stand in for the card: they reach the same checks.)"""
+    model with no device step, a beam wider than one launch's two
+    32-lane member words, and a beam the kernel takes but on tensors
+    it cannot launch on are errors there, not a route to the plain
+    sweep.  ("meta" tensors stand in for the card: they reach the same
+    checks.)"""
     pm = cas_register().packed()
     no_step = dataclasses.replace(pm, kernel_model=None)
     before = kernels.launches["witness_sweep"]
     for B, model, match in ((8, no_step, "no device step"),
-                            (33, pm, "one 32-bit member word")):
+                            (65, pm, "B must be 1..64"),
+                            (33, pm, "CUDA tensors")):
         bars, member, states, alive = (
             torch.from_numpy(a).to("meta")
             for a in sweep_tables(min(B, 32), "clean", 2))
         member = torch.zeros((W, B), dtype=torch.bool, device="meta")
+        states = torch.zeros((B, SW), dtype=torch.int32, device="meta")
+        alive = torch.zeros(B, dtype=torch.bool, device="meta")
         with pytest.raises(ValueError, match=match):
             sweep(model, 0, bars, member, states, alive)
     assert kernels.launches["witness_sweep"] == before
@@ -281,15 +286,24 @@ def test_sweep_off_the_cpu_never_takes_the_plain_version():
 
 @pytest.mark.parametrize("B", [33, 64])
 def test_sweep_refuses_a_beam_wider_than_one_member_word(B):
-    """The sweep itself refuses B > 32 before the kernel is reached."""
+    """A beam of B > 32 lanes spans a second member word: the kernel
+    sweeps it as two 32-lane blocks, so the sweep passes it on to the
+    kernel's wrapper (which refuses these "meta" tensors only for not
+    being on a card); the wrapper refuses a beam past two words, B +
+    32, before the kernel is reached."""
     pm = cas_register().packed()
-    bars = torch.zeros((6, K), dtype=torch.int32, device="meta")
-    member = torch.zeros((W, B), dtype=torch.bool, device="meta")
-    states = torch.zeros((B, SW), dtype=torch.int32, device="meta")
-    alive = torch.zeros(B, dtype=torch.bool, device="meta")
+
+    def tables(b):
+        return (torch.zeros((6, K), dtype=torch.int32, device="meta"),
+                torch.zeros((W, b), dtype=torch.bool, device="meta"),
+                torch.zeros((b, SW), dtype=torch.int32, device="meta"),
+                torch.zeros(b, dtype=torch.bool, device="meta"))
+
     before = kernels.launches["witness_sweep"]
-    with pytest.raises(ValueError, match="32-bit member word"):
-        sweep(pm, 0, bars, member, states, alive)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        sweep(pm, 0, *tables(B))
+    with pytest.raises(ValueError, match="B must be 1..64"):
+        sweep(pm, 0, *tables(B + 32))
     assert kernels.launches["witness_sweep"] == before
 
 
@@ -397,8 +411,11 @@ def test_kernel_wrapper_checks_model_and_width():
         kernels.witness_sweep(9, 0, bars, member, states, alive)
     with pytest.raises(ValueError, match="state widths"):
         kernels.witness_sweep(4, 0, bars, member, states, alive)
-    wide = torch.zeros((8, 33), dtype=torch.int32)
-    with pytest.raises(ValueError, match="state widths"):
+    # Past 32 words the multi-register takes the wide instantiation, up
+    # to what the block's shared memory holds at this beam.
+    wide = torch.zeros((8, kernels.max_sweep_width(8) + 1),
+                       dtype=torch.int32)
+    with pytest.raises(ValueError, match="shared memory"):
         kernels.witness_sweep(3, 0, bars, member, wide, alive)
     with pytest.raises(ValueError, match="init"):
         kernels.witness_sweep(1, 0, bars, member, states, alive,

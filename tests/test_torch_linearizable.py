@@ -236,7 +236,11 @@ def test_import_guard_no_jax_no_reference_package():
         want = {"jepsen_tpu_torch." + n for n in (
             "telemetry", "telemetry.profile", "store.format", "plan",
             "plan.ir", "plan.costmodel", "plan.cache", "plan.executor",
-            "plan.compiler")}
+            "plan.compiler", "telemetry.flight", "telemetry.slo",
+            "telemetry.timeseries", "telemetry.roofline", "checkerd",
+            "checkerd.protocol", "checkerd.journal", "checkerd.overload",
+            "checkerd.scheduler", "checkerd.server", "checkerd.client",
+            "checkerd.__main__")}
         assert want <= names, sorted(want - names)
         bad = sorted(n for n in sys.modules
                      if n.split(".")[0] in ("jax", "jaxlib", "jepsen_tpu"))

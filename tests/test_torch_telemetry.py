@@ -10,8 +10,8 @@
   records whose `pass`, `features` and `plan` equal the JAX package's.
   Excluded from that comparison: `timing` (wall clocks), `device` (the
   port names its torch device, the reference its JAX device), `cost`
-  and `roofline` (explicit nulls in the port: no XLA cost analysis, no
-  roofline yet), the "packed" knob (the reference's packed member
+  and `roofline` (the port counts its device calls' costs itself,
+  telemetry/roofline.py; the reference reads XLA's), the "packed" knob (the reference's packed member
   lanes, not ported: ROADMAP B9) and the "mesh" knob (the JAX side runs
   on the tests' 8-device virtual CPU mesh; the port has none).
 * The fault hook: the counterparts of tests/test_robustness.py's
