@@ -6,11 +6,11 @@
 Needs one CUDA card and the CUDA toolkit (nvcc): the witness sweep
 kernel is built from jepsen_tpu_torch/csrc/ into build/jepsen_tpu_torch/
 at first use.  Exits non-zero, printing no result, when torch sees no
-CUDA device or the package is missing.  Eleven phases, each raising on
-failure, run in the order 1, 2, 5, 6, 7, 8, 9, 10, 1b, 3, 4 (every
+CUDA device or the package is missing.  Twelve phases, each raising on
+failure, run in the order 1, 2, 5, 6, 7, 8, 9, 10, 11, 1b, 3, 4 (every
 host-clock and CUDA-event timing before the profiler first runs).  The
-checkers' only route is the compiled plan, so phases 1-8 and 10 run it;
-phase 9 reads its own parts (JEPSEN_PLAN=0, memo, faults, records):
+checkers' only route is the compiled plan, so phases 1-8, 10 and 11 run
+it; phase 9 reads its own parts (JEPSEN_PLAN=0, memo, faults, records):
 
 1. The sweep kernel against its plain PyTorch version at the bench
    shapes (B = 8, SW = 1, K = 2048, W = the bench history's planned
@@ -78,7 +78,14 @@ phase 9 reads its own parts (JEPSEN_PLAN=0, memo, faults, records):
    beam 64 (valid), and 40 of phase 5's keys at beam 64 against the
    exact engine; the sweeps these checks made, recorded as in phases 5
    and 6, exactly as the plain version; each new instantiation timed on
-   its longest recorded call.
+   its longest recorded call.  Then the lane-group cases
+   (`phase_groups`): the register at beams of 96, 128 and 200 lanes
+   (ceil(B / 32) blocks joined), and the wide multi-register at 1,723,
+   6,891 and 55,133 words (31 and 8 lanes a block; rows in global
+   memory) at B = 1, 8 and 33, against the plain version exactly; the
+   bench history through the witness at beam 200; 6,891- and
+   55,133-register histories through the witness at beam 8 against the
+   exact CPU engine; their recorded sweeps; each new layout timed.
 7. Online checking (streaming/, monitor/), each sub-phase counted on its
    own: (7a) the bench history replayed in 24 stable-prefix slices
    through FrontierCarry equals one check_wgl_witness at the same block
@@ -143,6 +150,19 @@ phase 9 reads its own parts (JEPSEN_PLAN=0, memo, faults, records):
    unknown, and the next submission right; (10e) a daemon stopped with
    a journaled, unfinished ticket finishes it after a restart, and the
    settled history resubmitted hits the plan memo with no sweep.
+
+11. A Jepsen test run through the port's CLI (`phase_run`): (11a)
+   `cli test --dummy-ssh` of the north-star workload
+   (linearizable_register, in-memory client) at 2,000 keys x 100 ops,
+   threads-per-key 4, concurrency 32, noop nemesis: valid, every
+   per-key verdict the exact CPU engine's on the stored history;
+   (11b) 200 keys with a stale-read client on keys 0-29: invalid on
+   exactly those keys; (11c) 200 keys with the online session: every
+   key "wgl-online", equal to the post-hoc check, with its verdict lag;
+   (11d) `cli analyze` of 11a's stored run: 11a's results; (11e)
+   list-append at 1,000 transactions: the host search's verdict and
+   anomaly types.  Each prints ops, run and analyze seconds, sweeps,
+   host syncs and the card.
 
 The last lines are the device-program JSON line (the closure screen and
 the extraction, plain PyTorch: time, launches per check, bound), the
@@ -1453,6 +1473,193 @@ def phase_wide(torch, packed, dev=None) -> tuple:
     for e in entries:
         e["launches"] = launches.get(e["name"], 0)
     return [e for e in entries if e["name"] in launches], out
+
+
+#: Phase 1b's lane-group cases: beams of G = ceil(B / 32) blocks, and
+#: multi-register widths past what 32 lanes' rows in shared memory hold
+#: (1,722 words): 1,723 (31 lanes a block), 6,891 (8) and 55,133 (one
+#: row does not fit: rows in global memory, 32 lanes a block).
+GROUP_BEAMS = (96, 128, 200)
+GROUP_WIDTHS = (1723, 6891, 55133)
+#: The witness checks of the lane-group path: the bench history at beam
+#: 200, and a multi-register history (valid and bad) of (registers,
+#: ops) in GROUP_CHECKS through the witness at its beam of 8; the exact
+#: CPU engine copies the whole state at each step, so the 55,133-word
+#: history is short (at 120 ops it took 80 s on the host).
+GROUP_BEAM_CHECK = 200
+GROUP_CHECKS = ((6891, 300), (55133, 60))
+
+
+def group_cases(torch, seed: int, dev) -> list:
+    """Random sweep inputs of the lane-group cases, on `dev`: the
+    register at B = 96, 128 and 200 over 2,048-barrier blocks (clean,
+    a death mid-block, a batch-edge death from start 33, lanes 0-31
+    dead with lane 32 passing, and every group but the last dead), and
+    the wide multi-register at GROUP_WIDTHS registers, plain and
+    stream, at B = 1, 8 and 33 (clean, a death mid-block, and the first
+    block's lanes dead), over 2,048 barriers (256 at 55,133 words,
+    whose plain version steps 33 rows of 220 KB a barrier)."""
+    import numpy as np
+
+    from jepsen_tpu_torch import models as M
+    from jepsen_tpu_torch.ops import kernels
+    from jepsen_tpu_torch.ops.wgl_stream import stream_model
+    from jepsen_tpu_torch.ops.wgl_witness import BARS_PER_BLOCK
+
+    W = 64
+    rng = np.random.default_rng(seed)
+
+    def to_dev(arrays):
+        return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                     for a in arrays)
+
+    def init_of(pm):
+        return (torch.tensor(pm.init_state, dtype=torch.int32, device=dev)
+                if pm.stream else None)
+
+    def dead_before(tables, first):
+        bars, member, states, alive = (np.array(t) for t in tables)
+        alive[:first] = False
+        alive[first] = True
+        member[: W - 1, first] = True
+        return bars, member, states, alive
+
+    cases = []
+    pm = M.cas_register().packed()
+    K = BARS_PER_BLOCK
+    for B in GROUP_BEAMS:
+        death = random_model_tables(pm, rng, B, W, K, "death", K // 2)
+        runs = [("clean", 0, random_model_tables(pm, rng, B, W, K, "clean")),
+                ("death", 0, death),
+                ("start33-death@31", 33, random_model_tables(
+                    pm, rng, B, W, K, "death", 33 + 5 * 32 + 31)),
+                ("low-dead", 0, dead_before(death, 32)),
+                ("last-alive", 0, dead_before(death, (B - 1) // 32 * 32))]
+        for kind, start, args in runs:
+            cases.append((f"register:rand{B}-{kind}", pm, start,
+                          to_dev(args), None))
+    for n in GROUP_WIDTHS:
+        base = M.multi_register({f"r{i}": 0 for i in range(n)}).packed()
+        K = 256 if n > 6891 else BARS_PER_BLOCK
+        for label, wpm in ((f"multi-register/{n}", base),
+                           (f"multi-register/{n}+stream",
+                            stream_model(base))):
+            for B in (1, 8, 33):
+                lanes = kernels.sweep_geometry(3, n, B)[0]
+                death = random_model_tables(wpm, rng, B, W, K, "death",
+                                            K // 2)
+                runs = [("clean", 0, random_model_tables(wpm, rng, B, W, K,
+                                                         "clean")),
+                        ("death", 0, death)]
+                if B > lanes:
+                    runs.append(("low-dead", 0, dead_before(death, lanes)))
+                for kind, start, args in runs:
+                    cases.append((f"{label}:rand{B}-{kind}", wpm, start,
+                                  to_dev(args), init_of(wpm)))
+    return cases
+
+
+def phase_groups(torch, packed, dev=None) -> tuple:
+    """Phase 1b's lane-group part: the lane-group cases (`group_cases`)
+    against the plain version, exactly, each with its layout (lanes a
+    block, blocks, rows in global memory); the bench history through
+    the witness at beam 200 (bucketed up to 256 lanes, 8 blocks; valid,
+    as at beam 8); a multi-register
+    history, valid and bad, of each GROUP_CHECKS size through the
+    witness at beam 8, held
+    against the exact CPU engine (the valid one proven, the bad one
+    not); the sweep() calls these checks made against the plain
+    version, exactly.  -> (the kernels-line entries of the G-group
+    join at B = 200 and of the narrow-block and global-row wide
+    launches, each timed on its longest recorded call, the readings)."""
+    from jepsen_tpu_torch import models as M
+    from jepsen_tpu_torch.checker import Linearizable
+    from jepsen_tpu_torch.history.core import Op, history
+    from jepsen_tpu_torch.history.packed import pack_history
+    from jepsen_tpu_torch.ops import kernels
+    from jepsen_tpu_torch.ops.wgl_witness import check_wgl_witness
+
+    dev = torch.device("cuda") if dev is None else torch.device(dev)
+    out: dict = {}
+    max_err: dict = {}
+    if dev.type == "cuda":
+        cases = group_cases(torch, BENCH_SEED + 1, dev)
+        t0 = time.perf_counter()
+        max_err = match_plain(torch, cases)
+        layouts = sorted({(c[1].state_width, c[3][1].shape[1],
+                           kernels.sweep_geometry(c[1].kernel_model,
+                                                  c[1].state_width,
+                                                  c[3][1].shape[1]))
+                          for c in cases})
+        log(f"phase1b: groups: {len(cases)} cases match sweep_plain "
+            f"exactly ({time.perf_counter() - t0:.3f} s); (sw, B, (lanes "
+            f"a block, blocks, rows global)): {layouts}")
+        out["cases"] = len(cases)
+
+    kernels.launches.clear()
+    recorders = {"join": SweepRecorder(), "narrow": SweepRecorder(),
+                 "global": SweepRecorder()}
+    pm = M.cas_register().packed()
+    with recorders["join"]:
+        t0 = time.perf_counter()
+        got = check_wgl_witness(packed, pm, beam=GROUP_BEAM_CHECK,
+                                device=dev)
+        t_bench = time.perf_counter() - t0
+    if got is None or got.valid is not True:
+        raise AssertionError(f"phase1b: beam-{GROUP_BEAM_CHECK} witness on "
+                             f"the bench history gave {got}")
+    out["beam"] = {"beam": GROUP_BEAM_CHECK, "bench_valid": got.valid,
+                   "bench_s": t_bench}
+    for (n, n_ops), what in zip(GROUP_CHECKS, ("narrow", "global")):
+        model = M.multi_register({f"r{i}": 0 for i in range(n)})
+        wpm = model.packed()
+        for bad in (False, True):
+            h = history([Op(**o) for o in multi_register_ops(
+                n_ops, seed=n + bad, bad=bad, n_regs=n)])
+            with recorders[what]:
+                t0 = time.perf_counter()
+                r = check_wgl_witness(pack_history(h, wpm.encode), wpm,
+                                      device=dev)
+                t_check = time.perf_counter() - t0
+            exact = Linearizable(model, "cpu", time_limit_s=120,
+                                 device="cpu").check({}, h, {})["valid"]
+            proven = r is not None and r.valid is True
+            if exact is not (not bad) or proven is not exact:
+                raise AssertionError(
+                    f"phase1b: {n}-register witness "
+                    f"{'proved' if proven else 'did not prove'} a "
+                    f"{'bad' if bad else 'valid'} history, exact {exact}")
+            out[f"{what}/{n}/{'bad' if bad else 'valid'}"] = {
+                "proven": proven, "exact": exact, "check_s": t_check}
+    launches = {k: v for k, v in kernels.launches.items()
+                if k.startswith("witness_sweep[")}
+    out["launches"] = launches
+    log("phase1b: groups " + json.dumps(out))
+    if dev.type != "cuda":
+        return [], out
+    for name in ("witness_sweep[join]",
+                 "witness_sweep[multi-register-wide-narrow]",
+                 "witness_sweep[multi-register-wide-global]"):
+        if launches.get(name, 0) <= 0:
+            raise AssertionError(f"phase1b: {name} never launched")
+    cases = [c for rec in recorders.values() for c in recorded_cases(rec)]
+    t0 = time.perf_counter()
+    for name, err in match_plain(torch, cases).items():
+        max_err[name] = max(max_err.get(name, 0), err)
+    log(f"phase1b: groups: {len(cases)} recorded cases match sweep_plain "
+        f"exactly ({time.perf_counter() - t0:.3f} s)")
+    entries = []
+    for what, name in (("join", "witness_sweep[join]"),
+                       ("narrow", "witness_sweep[multi-register-wide-narrow]"),
+                       ("global", "witness_sweep[multi-register-wide-global]")):
+        rec = recorders[what]
+        longest = {name: max(rec.longest.values(), key=lambda c: c["span"])}
+        (e,) = timing_entries(torch, longest, {name: max(max_err.values())})
+        e["launches"] = launches.get(name, 0)
+        e["layout"] = kernels.sweep_geometry(
+            longest[name]["pm"].kernel_model, e["sw"], e["B"])
+        entries.append(e)
+    return entries, out
 
 
 def phase_batched(torch, recorder: SweepRecorder) -> dict:
@@ -2956,6 +3163,243 @@ def phase_daemon(torch, dev=None, keys: int = MIXED_KEYS,
     return out
 
 
+#: Phase 11: a Jepsen test run through the port's CLI.  The north-star
+#: workload (linearizable_register, in-memory client, noop nemesis,
+#: dummy remote) at 2,000 keys x 100 ops (threads-per-key 4,
+#: concurrency 32: phase 5's 2,000-key shape), at 200 keys with a
+#: stale-read client on keys 0-29, and at 200 keys with the online
+#: session; list-append at 1,000 transactions.
+RUN_KEYS, RUN_KEYS_SMALL, RUN_PER_KEY = 2000, 200, 100
+RUN_THREADS_PER_KEY, RUN_CONCURRENCY, RUN_TIME_LIMIT = 4, 32, 300
+RUN_STALE_KEYS = 30
+RUN_APPEND_TXNS = 1000
+
+
+def stale_read_client():
+    """The north-star workload's in-memory client, but a read of a key
+    below RUN_STALE_KEYS returns a value no write wrote: a test
+    fixture, so that phase 11b's run is invalid on exactly those
+    keys."""
+    from jepsen_tpu_torch.history import OK
+    from jepsen_tpu_torch.workloads import linearizable_register as lr
+
+    class StaleRead(lr.InMemoryKVRegisterClient):
+        def open(self, test, node):
+            return StaleRead(self.state, self.lock)
+
+        def invoke(self, test, op):
+            out = super().invoke(test, op)
+            k = op.value.key
+            if op.f == "read" and k < RUN_STALE_KEYS and out.type == OK:
+                out = out.replace(value=type(op.value)(k, 99))
+            return out
+
+    return StaleRead()
+
+
+def _run_cli(torch, argv, suite, what: str, smi: str) -> dict:
+    """`cli.run` of `argv` over `suite`, the counts set to 0 just before
+    and read just after, the analysis timed apart (core.analyze) ->
+    the readings, with the stored run's directory, results and
+    history."""
+    from jepsen_tpu_torch import cli, core, store
+    from jepsen_tpu_torch import device as D
+    from jepsen_tpu_torch.ops import kernels
+    from jepsen_tpu_torch.parallel import clear_settle_memo
+    from jepsen_tpu_torch.workloads import _extra_opts
+
+    real = core.analyze
+    spent = []
+
+    def timed(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return real(*a, **kw)
+        finally:
+            torch.cuda.synchronize()
+            spent.append(time.perf_counter() - t0)
+
+    parser = cli.single_test_cmd(suite, extra_opts=_extra_opts)
+    clear_settle_memo()
+    kernels.launches.clear()
+    D.counters.clear()
+    core.analyze = timed
+    try:
+        t0 = time.perf_counter()
+        code = cli.run(parser, argv)
+        wall = time.perf_counter() - t0
+    finally:
+        core.analyze = real
+    launches = {k: v for k, v in kernels.launches.items()
+                if k.startswith("witness_sweep")}
+    counts = dict(D.counters)
+    root = argv[argv.index("--store-dir") + 1]
+    d = store.latest(root)
+    tf = store.load(d)
+    try:
+        results, h = tf.results, tf.history()
+    finally:
+        tf.close()
+    analyze_s = sum(spent)
+    r = {"exit": code, "ops": len(h) // 2, "wall_s": wall,
+         "run_s": wall - analyze_s, "analyze_s": analyze_s,
+         "ops_per_s": len(h) / 2 / wall, "sweeps": launches.get(
+             "witness_sweep", 0), "launches": launches,
+         "host_syncs": counts.get("host_syncs", 0),
+         "stream_passes": counts.get("stream_passes", 0), "card": smi}
+    log(f"phase11{what}: " + json.dumps(r))
+    r.update(dir=d, results=results, history=h)
+    return r
+
+
+def _exact_per_key(history) -> dict:
+    """Each key's verdict from the exact CPU engine (`algorithm="cpu"`,
+    checker/wgl_cpu.py) on its subhistory of a stored keyed history."""
+    from jepsen_tpu_torch.checker import Linearizable
+    from jepsen_tpu_torch.models import cas_register
+    from jepsen_tpu_torch.parallel import subhistories
+    from jepsen_tpu_torch.utils import bounded_pmap
+    from jepsen_tpu_torch.workloads.linearizable_register import revive_kv
+
+    subs = subhistories(revive_kv(history))
+    keys = list(subs)
+    res = bounded_pmap(lambda k: Linearizable(
+        cas_register(), "cpu", time_limit_s=120, device="cpu").check(
+            {}, subs[k], {})["valid"], keys)
+    return dict(zip(keys, res))
+
+
+def _per_key(results) -> dict:
+    return {int(k): r["valid"] for k, r in results["results"].items()}
+
+
+def _hold_exact(what: str, run: dict, want_invalid=()) -> None:
+    exact = _exact_per_key(run["history"])
+    got = _per_key(run["results"])
+    diff = {k: (got.get(k), v) for k, v in exact.items() if got.get(k) != v}
+    if diff or set(got) != set(exact):
+        raise AssertionError(f"phase11{what}: per-key verdicts differ from "
+                             f"the exact CPU engine's (got, exact): "
+                             f"{dict(list(diff.items())[:8])}")
+    bad = sorted(k for k, v in exact.items() if v is not True)
+    if bad != sorted(want_invalid):
+        raise AssertionError(f"phase11{what}: invalid keys {bad[:40]}, want "
+                             f"{sorted(want_invalid)[:40]}")
+
+
+def phase_run(torch, dev=None, keys: int = RUN_KEYS,
+              small: int = RUN_KEYS_SMALL,
+              txns: int = RUN_APPEND_TXNS) -> dict:
+    """Phase 11: a Jepsen test run on the card, through the port's CLI
+    (`cli test --dummy-ssh`, `cli analyze`) and its normal entry points:
+    core.run -> generator -> interpreter -> in-memory client workers ->
+    history -> store -> core.analyze -> the checkers on the card.
+    (11a) the north-star workload at `keys` keys: EXIT_VALID, every
+    per-key verdict the exact CPU engine's on the stored history; (11b)
+    at `small` keys with the stale-read client: EXIT_INVALID, exactly
+    keys 0-29 invalid, as the exact engine finds them; (11c) at `small`
+    keys with the online session (--streaming): every key "wgl-online",
+    each verdict the post-hoc check's of the same stored history, and
+    the verdict lag; (11d) `cli analyze` of 11a's stored run: 11a's
+    results; (11e) list-append at `txns` transactions: the verdict and
+    anomaly types of the host search (device="off").  Each prints ops,
+    run and analyze seconds, sweeps and host syncs, and the card."""
+    import tempfile
+
+    from jepsen_tpu_torch import cli
+    from jepsen_tpu_torch import generator as gen
+    from jepsen_tpu_torch.checker import Linearizable
+    from jepsen_tpu_torch.checker.elle import AppendChecker
+    from jepsen_tpu_torch.models import cas_register
+    from jepsen_tpu_torch.parallel import IndependentChecker, \
+        clear_settle_memo
+    from jepsen_tpu_torch.workloads import append, test_fn
+    from jepsen_tpu_torch.workloads.linearizable_register import revive_kv
+
+    dev = "cuda" if dev is None else str(dev)
+    smi = (torch.cuda.get_device_name(0) if dev == "cuda" else "cpu")
+    if dev == "cuda":
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True).stdout.strip()
+    out: dict = {}
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="phase11-") as tmp:
+        def argv(cmd, n_keys, sub, *more):
+            return [cmd, "--workload", "linearizable-register",
+                    "--dummy-ssh", "--device", dev, "--key-count",
+                    str(n_keys), "--per-key-limit", str(RUN_PER_KEY),
+                    "--threads-per-key", str(RUN_THREADS_PER_KEY),
+                    "--concurrency", str(RUN_CONCURRENCY), "--time-limit",
+                    str(RUN_TIME_LIMIT), "--seed", str(BENCH_SEED),
+                    "--store-dir", os.path.join(tmp, sub), *more]
+
+        a = _run_cli(torch, argv("test", keys, "a"), test_fn, "a", smi)
+        if a["exit"] != cli.EXIT_VALID or a["ops"] != keys * RUN_PER_KEY:
+            raise AssertionError(f"phase11a: exit {a['exit']}, {a['ops']} "
+                                 f"ops")
+        _hold_exact("a", a)
+
+        def stale(opts):
+            return {**test_fn(opts), "client": stale_read_client()}
+
+        b = _run_cli(torch, argv("test", small, "b"), stale, "b", smi)
+        if b["exit"] != cli.EXIT_INVALID:
+            raise AssertionError(f"phase11b: exit {b['exit']}")
+        _hold_exact("b", b, want_invalid=range(RUN_STALE_KEYS))
+
+        c = _run_cli(torch, argv("test", small, "c", "--streaming"),
+                     test_fn, "c", smi)
+        algos = {r.get("algorithm") for r in c["results"]["results"].values()}
+        clear_settle_memo()
+        post = IndependentChecker(Linearizable(cas_register(), device=dev),
+                                  streaming=False, device=dev).check(
+            {}, revive_kv(c["history"]), {})
+        if (c["exit"] != cli.EXIT_VALID or algos != {"wgl-online"}
+                or _per_key(c["results"]) != _per_key(post)):
+            raise AssertionError(f"phase11c: exit {c['exit']}, algorithms "
+                                 f"{algos}, verdicts equal post-hoc "
+                                 f"{_per_key(c['results']) == _per_key(post)}")
+        stream = c["results"].get("streaming", {})
+        log("phase11c: session " + json.dumps(stream, default=str))
+
+        d = _run_cli(torch, argv("analyze", keys, "a"), test_fn, "d", smi)
+        if d["exit"] != cli.EXIT_VALID or d["results"]["results"].keys() \
+                != a["results"]["results"].keys() or \
+                _per_key(d["results"]) != _per_key(a["results"]):
+            raise AssertionError(f"phase11d: exit {d['exit']}, results "
+                                 f"differ from 11a's")
+
+        def txn_suite(opts):
+            wl = append.workload({"seed": BENCH_SEED, "device": dev})
+            return {**wl, "generator": gen.clients(gen.limit(
+                txns, wl["generator"]))}
+
+        e = _run_cli(torch, ["test", "--dummy-ssh", "--device", dev,
+                             "--concurrency", "10", "--store-dir",
+                             os.path.join(tmp, "e")], txn_suite, "e", smi)
+        host = AppendChecker("serializable", device="off").check(
+            {}, e["history"], {})
+        if (e["exit"] != cli.EXIT_VALID or e["ops"] != txns
+                or e["results"]["valid"] != host["valid"]
+                or e["results"].get("anomaly-types")
+                != host.get("anomaly-types")):
+            raise AssertionError(f"phase11e: exit {e['exit']}, {e['ops']} "
+                                 f"txns, {e['results'].get('valid')} vs host "
+                                 f"{host.get('valid')}")
+        for k, r in zip("abcde", (a, b, c, d, e)):
+            if dev == "cuda" and k != "e" and r["sweeps"] <= 0:
+                raise AssertionError(f"phase11{k}: the witness sweep kernel "
+                                     f"never launched on the run's path")
+            out[k] = {x: r[x] for x in r
+                      if x not in ("dir", "results", "history")}
+        out["c"]["verdict_lag_s"] = stream.get("verdict-lag-s")
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"phase11: done in {out['wall_s']:.3f} s")
+    return out
+
+
 def elle_programs(torch, elle: dict) -> list:
     """The device-program entries (B7 and B8) of phase 8 for the JSON
     line before the kernels line: CUDA-event times from phase 8, device
@@ -3172,6 +3616,7 @@ def main() -> int:
     elle_r = phase_elle(torch)
     plan_r = phase_plan(torch, history)
     daemon_r = phase_daemon(torch)
+    run_r = phase_run(torch)
     entry["launches_online"] = {
         "carry": online_r["carry"]["sweep_launches"],
         "scale": online_r["scale"]["sweep_launches"],
@@ -3184,6 +3629,7 @@ def main() -> int:
         launches.update(r["launches"])
     more = phase_instantiations(torch, recorder, seed=BENCH_SEED)
     wide, wide_r = phase_wide(torch, packed)
+    groups, groups_r = phase_groups(torch, packed)
     batched = phase_batched(torch, recorder)
     ptxas = ptxas_report(kernels.build_log)
     for key, n in sass_instructions(kernels.sweep_lib()._name).items():
@@ -3207,7 +3653,13 @@ def main() -> int:
                       if e["name"] == "witness_sweep[beam>32]"
                       else {"wide": ptxas.get(
                           f"wide,{int(e['name'].endswith('+stream]'))}")})
-    more += wide
+    for e in groups:
+        e["ptxas"] = ({"NW9": ptxas.get("1,1,9,0"),
+                       "combine": ptxas.get("combine")}
+                      if e["name"] == "witness_sweep[join]"
+                      else {"wide": ptxas.get("wide,0")})
+    more += wide + groups
+    entry["launches_run"] = {k: run_r[k]["sweeps"] for k in "abcd"}
     for key, rep in sorted(ptxas.items()):
         log(f"ptxas: witness_sweep_kernel<MODEL,SW,NW,STREAM>=<{key}>: "
             f"{json.dumps(rep)}")
@@ -3248,7 +3700,10 @@ def main() -> int:
         f"{daemon_r['wall_s']:.3f} s (cohort check "
         f"{daemon_r['10a']['cohort_check_s']:.4f} s, overhead "
         f"{daemon_r['10a']['overhead_fraction']:.4f}); wide phase 1b beam "
-        f"{wide_r['beam']['bench_valid']}")
+        f"{wide_r['beam']['bench_valid']}, beam {GROUP_BEAM_CHECK} "
+        f"{groups_r['beam']['bench_valid']}; run phase 11 "
+        f"{run_r['wall_s']:.3f} s (11a {run_r['a']['ops_per_s']:.1f} ops/s, "
+        f"analyze {run_r['a']['analyze_s']:.3f} s)")
     print(json.dumps({"device_programs": programs}))
     print(json.dumps({"kernels": [entry] + more}))
     print(smi)

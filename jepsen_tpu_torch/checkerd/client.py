@@ -499,15 +499,19 @@ class RemoteChecker(Checker):
 
 def wrap_remote(checker: Checker, addr: str, *,
                 run_id: Optional[str] = None) -> Checker:
-    """Routes a remotable checker through the daemon: Linearizable and
-    IndependentChecker-over-Linearizable become RemoteChecker; anything
-    else is returned unchanged (the port has no Compose checker to
-    recurse into)."""
+    """Routes every remotable piece of a checker tree through the
+    daemon: Linearizable and IndependentChecker-over-Linearizable become
+    RemoteChecker; Compose children are wrapped recursively; anything
+    else is returned unchanged."""
+    from ..checker.core import Compose
     from ..checker.linearizable import Linearizable
     from ..parallel.independent import IndependentChecker
 
     if isinstance(checker, RemoteChecker):
         return checker
+    if isinstance(checker, Compose):
+        return Compose({name: wrap_remote(c, addr, run_id=run_id)
+                        for name, c in checker.checkers.items()})
     if isinstance(checker, Linearizable):
         return RemoteChecker(checker, addr, run_id=run_id)
     if isinstance(checker, IndependentChecker) and \

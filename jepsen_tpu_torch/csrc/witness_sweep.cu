@@ -25,37 +25,44 @@
 //
 // Layout (all contiguous, as the port holds them):
 //   bars        (6, K)  int32  rows: window column, ret, real, f, a0, a1
-//   member      (W, B)  bool   one byte per beam lane, B <= 64
+//   member      (W, B)  bool   one byte per beam lane, any B >= 1
 //   states_in   (B, sw) int32
 //   alive_in    (B,)    bool
 //   init        (sw,)   int32  (stream instantiations only)
 //   states_out  (B, sw) int32, alive_out (B,) bool,
-//   death_out   (G,)    int32  G = ceil(B / 32) lane groups; [0] is the
-//                              sweep's death
+//   death_out   (B,)    int32  one death per lane group, G = ceil(B / L)
+//                              of them, L the lanes a block sweeps; [0]
+//                              is the sweep's death
 // death_out[0] is -1 if a block's two warps lost their hand-off (a
 // fault; the caller raises).
 //
-// Wide beams (32 < B <= 64).  The lanes are independent but for the
-// death test, so each group of 32 lanes sweeps in a block of its own
-// (grid = 2), exactly as one block sweeps a beam of <= 32, and writes its
-// own death.  A second small kernel combines them: the joint sweep dies
-// at the later of the two deaths (the first real barrier no lane of
-// either group survives).  A group that died earlier has no lane alive
-// from its death on, so nothing of it changes after it: its states are
-// the ones it returned and its alive mask is all false.
+// Beams of any width.  The lanes are independent but for the death test,
+// so each group of L lanes (32, or fewer for a wide state: below) sweeps
+// in a block of its own, G = ceil(B / L) blocks, exactly as one block
+// sweeps a beam of <= L, and writes its own death.  A second small kernel
+// joins the G groups: the joint sweep dies at the latest group death (the
+// first real barrier no lane of any group survives).  A group that died
+// earlier has no lane alive from its death on, so nothing of it changes
+// after it: its states are the ones it returned and its alive mask is all
+// false.  Every block runs both warps in full, whatever its lane count:
+// the lanes past the group are never alive, so each vote and ballot is
+// over the whole warp and a lane outside the group adds nothing to it.
 //
-// Wide states (the multi-register past 32 registers, sw up to
-// MAX_WIDE_SW).  The state no longer fits registers: each lane's row
-// lives in dynamic shared memory, column-major (word j of lane b at
-// j * Bg + b, Bg the block's lanes, so the lanes' loads of one register
-// fall in distinct banks), Bg * sw * 4 bytes beside the 11,920 bytes of
-// rings (ptxas): 227 KB a block bounds sw at 1,722 words for 32 lanes.  A register step
-// touches one word, so the lane reads and writes that word in place.
-// The batch needs no rewind copy: at the death barrier every alive lane
-// stepped illegally (a lane that stays survives), which commits nothing,
-// and after it no lane is alive to commit, so the state after the
-// batch's speculative pass is the state before the death; only the alive
-// mask is rewound, from the lane's alive count.
+// Wide states (the multi-register past 32 registers, any sw).  The state
+// no longer fits registers: each lane's row lives in dynamic shared
+// memory, column-major (word j of lane b at j * Bg + b, Bg the block's
+// lanes, so the lanes' loads of one register fall in distinct banks),
+// Bg * sw * 4 bytes beside the kernel's static rings (11,920 bytes as
+// ptxas counts them).  The block's lanes L shrink as sw grows, so that
+// L rows fit its 227 KB: 32 lanes up to 1,722 words, one lane up to
+// 55,132.  A row wider than that stays in global memory, in states_out
+// (copied from states_in first), with 32 lanes a block.  A register
+// step touches one word, so the lane reads and writes that word in
+// place.  The batch needs no rewind copy: at the death barrier every
+// alive lane stepped illegally (a lane that stays survives), which
+// commits nothing, and after it no lane is alive to commit, so the state
+// after the batch's speculative pass is the state before the death; only
+// the alive mask is rewound, from the lane's alive count.
 //
 // What bounds it on this card: not bytes (about 20 B per barrier: five
 // bars words and a member row; the ret row is never read) but a chain of
@@ -534,19 +541,20 @@ __device__ int sweep_records(const Record* ring, Shared& sh, int K,
   return K;
 }
 
-// The block's lane group: beam lanes [lane0, lane0 + Bg) of B.
+// The block's lane group: beam lanes [lane0, lane0 + Bg) of B, L lanes
+// a block.
 struct Group {
   int lane0, Bg;
 };
 
-__device__ __forceinline__ Group block_group(int B) {
-  const int lane0 = static_cast<int>(blockIdx.x) * 32;
-  return {lane0, min(32, B - lane0)};
+__device__ __forceinline__ Group block_group(int B, int L) {
+  const int lane0 = static_cast<int>(blockIdx.x) * L;
+  return {lane0, min(L, B - lane0)};
 }
 
 template <int MODEL, int SW, int NW, bool STREAM>
 __global__ void __launch_bounds__(64)
-witness_sweep_kernel(int B, int K, int W, int sw, int start,
+witness_sweep_kernel(int B, int L, int K, int W, int sw, int start,
                      const int32_t* __restrict__ bars,
                      const uint8_t* __restrict__ member,
                      const int32_t* __restrict__ states_in,
@@ -559,7 +567,7 @@ witness_sweep_kernel(int B, int K, int W, int sw, int start,
   __shared__ Stage<NW> stages[STAGES];
   __shared__ Shared sh;
   const int lane = threadIdx.x & 31;
-  const Group g = block_group(B);
+  const Group g = block_group(B, L);
   const int batches = (K - start + T - 1) / T;
   if (threadIdx.x == 0) {
     sh.produced = 0;
@@ -575,7 +583,7 @@ witness_sweep_kernel(int B, int K, int W, int sw, int start,
   // Only the sw real columns are read and written; the bucket's padding
   // columns stay 0, and no step reaches them.
   const bool in_beam = lane < g.Bg;
-  const int row = g.lane0 + lane;
+  const int64_t row = g.lane0 + lane;
   int32_t st[SW];
   int32_t init[SW];
 #pragma unroll
@@ -660,11 +668,12 @@ __device__ int sweep_records_wide(const Record* ring, Shared& sh, int K,
 }
 
 // The multi-register at a run-time width sw > 32: the state rows in
-// dynamic shared memory (Bg * sw int32), the producer as for the
-// register-resident instantiations.
+// dynamic shared memory (Bg * sw int32), or, with `rows_global`, in
+// states_out; the producer as for the register-resident instantiations.
 template <bool STREAM>
 __global__ void __launch_bounds__(64)
-witness_sweep_wide_kernel(int B, int K, int W, int sw, int start,
+witness_sweep_wide_kernel(int B, int L, int rows_global, int K, int W,
+                          int sw, int start,
                           const int32_t* __restrict__ bars,
                           const uint8_t* __restrict__ member,
                           const int32_t* __restrict__ states_in,
@@ -678,7 +687,7 @@ witness_sweep_wide_kernel(int B, int K, int W, int sw, int start,
   __shared__ Stage<9> stages[STAGES];
   __shared__ Shared sh;
   const int lane = threadIdx.x & 31;
-  const Group g = block_group(B);
+  const Group g = block_group(B, L);
   const int batches = (K - start + T - 1) / T;
   if (threadIdx.x == 0) {
     sh.produced = 0;
@@ -695,38 +704,55 @@ witness_sweep_wide_kernel(int B, int K, int W, int sw, int start,
   // A lane outside the beam is never alive, so it never writes; it reads
   // lane 0's row and ignores what it reads.
   const bool in_beam = lane < g.Bg;
-  const int row = g.lane0 + lane;
-  int32_t* st = wide_states + (in_beam ? lane : 0);
-  if (in_beam) {
-    for (int j = 0; j < sw; ++j) st[j * g.Bg] = states_in[row * sw + j];
+  const int64_t row = g.lane0 + lane;
+  int32_t* st;
+  int stride;
+  if (rows_global) {
+    st = states_out + (in_beam ? row : g.lane0) * sw;
+    stride = 1;
+    if (in_beam) {
+      for (int j = 0; j < sw; ++j) st[j] = states_in[row * sw + j];
+    }
+  } else {
+    st = wide_states + (in_beam ? lane : 0);
+    stride = g.Bg;
+    if (in_beam) {
+      for (int j = 0; j < sw; ++j) st[j * stride] = states_in[row * sw + j];
+    }
   }
   __syncwarp();
   bool alive = in_beam && alive_in[row] != 0;
   const int death = sweep_records_wide<STREAM>(
-      ring, sh, K, start, batches, st, g.Bg, sw, alive, init_in, lane);
+      ring, sh, K, start, batches, st, stride, sw, alive, init_in, lane);
   if (lane == 0) store_release(&sh.stop, 1);
   if (in_beam) {
-    for (int j = 0; j < sw; ++j) states_out[row * sw + j] = st[j * g.Bg];
+    if (!rows_global) {
+      for (int j = 0; j < sw; ++j) states_out[row * sw + j] = st[j * stride];
+    }
     alive_out[row] = alive ? 1 : 0;
   }
   if (lane == 0) death_out[blockIdx.x] = death;
 }
 
-// Joins the two lane groups of a beam wider than 32: the sweep's death
-// is the later group death (-1 if either faulted), and a group that died
-// before it leaves every lane dead.  One block; death_out[0] is written
-// after every thread has read both deaths.
-__global__ void __launch_bounds__(64)
-combine_groups_kernel(int B, int32_t* __restrict__ death_out,
+// Joins the G lane groups (L lanes each) of a beam that spans more than
+// one block: the sweep's death is the latest group death (-1 if any
+// faulted), and a group that died before it leaves every lane dead, its
+// states as it left them.  One block; every thread reads the deaths it
+// needs before the barrier, and death_out[0] is written after it.
+__global__ void __launch_bounds__(256)
+combine_groups_kernel(int B, int L, int G, int32_t* __restrict__ death_out,
                       uint8_t* __restrict__ alive_out) {
-  const int d0 = death_out[0];
-  const int d1 = death_out[1];
-  __syncthreads();
-  const int d = d0 < 0 || d1 < 0 ? -1 : max(d0, d1);
-  for (int b = threadIdx.x; b < B; b += blockDim.x) {
-    const int own = b < 32 ? d0 : d1;
-    if (d >= 0 && own < d) alive_out[b] = 0;
+  int d = death_out[0];
+  for (int i = 1; i < G; ++i) {
+    const int di = death_out[i];
+    d = d < 0 || di < 0 ? -1 : max(d, di);
   }
+  if (d >= 0) {
+    for (int b = threadIdx.x; b < B; b += blockDim.x) {
+      if (death_out[b / L] < d) alive_out[b] = 0;
+    }
+  }
+  __syncthreads();
   if (threadIdx.x == 0) death_out[0] = d;
 }
 
@@ -760,9 +786,10 @@ chain_probe_kernel(int steps, const int4* __restrict__ ops,
   out[lane] = st[0] + (alive ? 1 : 0);
 }
 
-// The launch's arguments, as the C interface takes them.
+// The launch's arguments, as the C interface takes them; the launch sets
+// L (lanes a block) and rows_global.
 struct Args {
-  int B, K, W, sw, start;
+  int B, L, rows_global, K, W, sw, start;
   const void* bars;
   const void* member;
   const void* states_in;
@@ -779,7 +806,7 @@ struct Args {
 constexpr int MAX_BLOCK_SMEM = 232448;
 
 #define JT_SWEEP_ARGS                                                       \
-  a.B, a.K, a.W, a.sw, a.start, static_cast<const int32_t*>(a.bars),       \
+  a.K, a.W, a.sw, a.start, static_cast<const int32_t*>(a.bars),             \
       static_cast<const uint8_t*>(a.member),                               \
       static_cast<const int32_t*>(a.states_in),                            \
       static_cast<const uint8_t*>(a.alive_in),                             \
@@ -787,41 +814,61 @@ constexpr int MAX_BLOCK_SMEM = 232448;
       static_cast<int32_t*>(a.states_out),                                 \
       static_cast<uint8_t*>(a.alive_out), static_cast<int32_t*>(a.death_out)
 
-inline int groups(int B) { return (B + 31) / 32; }
+inline int groups(const Args& a) { return (a.B + a.L - 1) / a.L; }
 
 // A row of Bg bytes at any byte offset spans ceil((Bg + 3) / 4) words;
 // the pack reads one word past its last group.  One block per 32 lanes.
 template <int MODEL, int SW, bool STREAM>
-cudaError_t launch(const Args& a) {
+cudaError_t launch(Args& a) {
+  a.L = 32;
+  a.rows_global = 0;
   if (a.B <= 8) {
     witness_sweep_kernel<MODEL, SW, 3, STREAM>
-        <<<groups(a.B), 64, 0, a.stream>>>(JT_SWEEP_ARGS);
+        <<<groups(a), 64, 0, a.stream>>>(a.B, a.L, JT_SWEEP_ARGS);
   } else {
     witness_sweep_kernel<MODEL, SW, 9, STREAM>
-        <<<groups(a.B), 64, 0, a.stream>>>(JT_SWEEP_ARGS);
+        <<<groups(a), 64, 0, a.stream>>>(a.B, a.L, JT_SWEEP_ARGS);
   }
   return cudaGetLastError();
 }
 
-// The wide multi-register: refuses (cudaErrorInvalidValue, no launch) a
-// width whose rows do not fit the block's shared memory beside the
-// kernel's static rings.
+// The lanes a block of the wide kernel sweeps at width sw, whose rows
+// fill at most `room` bytes of shared memory: as many as fit, at most
+// 32; 0 if one row does not fit (the rows then stay in global memory).
+inline int wide_lanes(int sw, size_t room) {
+  const size_t fit = room / (sizeof(int32_t) * static_cast<size_t>(sw));
+  return fit < 32 ? static_cast<int>(fit) : 32;
+}
+
+// The wide multi-register: L lanes a block with their rows in shared
+// memory beside the kernel's static rings, or 32 lanes a block with the
+// rows in global memory where one row does not fit.
 template <bool STREAM>
-cudaError_t launch_wide(const Args& a) {
-  const auto kernel = witness_sweep_wide_kernel<STREAM>;
+cudaError_t wide_layout(Args& a) {
   cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  cudaError_t err =
+      cudaFuncGetAttributes(&attr, witness_sweep_wide_kernel<STREAM>);
   if (err != cudaSuccess) return err;
-  const size_t lanes = a.B < 32 ? a.B : 32;
-  const size_t dyn = sizeof(int32_t) * lanes * static_cast<size_t>(a.sw);
-  if (dyn + attr.sharedSizeBytes > static_cast<size_t>(MAX_BLOCK_SMEM)) {
-    return cudaErrorInvalidValue;
-  }
+  const int fit = wide_lanes(a.sw, MAX_BLOCK_SMEM - attr.sharedSizeBytes);
+  a.rows_global = fit == 0;
+  a.L = fit == 0 ? 32 : fit;
+  return cudaSuccess;
+}
+
+template <bool STREAM>
+cudaError_t launch_wide(Args& a) {
+  const auto kernel = witness_sweep_wide_kernel<STREAM>;
+  cudaError_t err = wide_layout<STREAM>(a);
+  if (err != cudaSuccess) return err;
+  const size_t lanes = a.B < a.L ? a.B : a.L;
+  const size_t dyn = a.rows_global ? 0 : sizeof(int32_t) * lanes *
+                                             static_cast<size_t>(a.sw);
   err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(dyn));
   if (err != cudaSuccess) return err;
-  kernel<<<groups(a.B), 64, dyn, a.stream>>>(JT_SWEEP_ARGS);
+  kernel<<<groups(a), 64, dyn, a.stream>>>(a.B, a.L, a.rows_global,
+                                           JT_SWEEP_ARGS);
   return cudaGetLastError();
 }
 
@@ -830,7 +877,7 @@ cudaError_t launch_wide(const Args& a) {
 // Launches the instantiation for (model, sw); cudaErrorInvalidValue,
 // without launching, if there is none.
 template <bool STREAM>
-cudaError_t dispatch(int model, const Args& a) {
+cudaError_t dispatch(int model, Args& a) {
   switch (model) {
     case MODEL_REGISTER:
       if (a.sw != 1) break;
@@ -864,25 +911,29 @@ extern "C" {
 
 // Launches the sweep on `stream` and returns the launch's CUDA error (0
 // on success).  `stream_model` != 0 selects the stream instantiation,
-// which reads the (sw,) initial state at `init`.  `death_out` holds one
-// int32 per 32 beam lanes; for B > 32 a second kernel joins the groups
-// into death_out[0].  A model with no instantiation at `sw`, a wide state
-// that does not fit shared memory, a bad shape, a stream launch without
-// `init`, or a member window that is not 4-byte aligned returns
-// cudaErrorInvalidValue without launching.
+// which reads the (sw,) initial state at `init`.  `death_out` holds B
+// int32 (one per lane group is used); where the beam spans G > 1 blocks
+// a second kernel joins the groups into death_out[0].  `info` (3 host
+// ints) receives the lanes a block swept, G, and 1 if the wide
+// kernel's rows stayed in global memory.  A model with no instantiation
+// at `sw`, a bad shape, a stream launch without `init`, or a member
+// window that is not 4-byte aligned returns cudaErrorInvalidValue
+// without launching.
 int witness_sweep_launch(int model, int sw, int stream_model, int B, int K,
                          int W, int start, const void* bars,
                          const void* member, const void* states_in,
                          const void* alive_in, const void* init,
                          void* states_out, void* alive_out, void* death_out,
-                         void* stream) {
-  if (B < 1 || B > 64 || K < 1 || W < 1 || start < 0 || start > K ||
+                         void* stream, int* info) {
+  if (B < 1 || K < 1 || W < 1 || start < 0 || start > K ||
       reinterpret_cast<uintptr_t>(member) % 4 != 0 ||
       (stream_model != 0 && init == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Args a;
   a.B = B;
+  a.L = 32;
+  a.rows_global = 0;
   a.K = K;
   a.W = W;
   a.sw = sw;
@@ -898,13 +949,38 @@ int witness_sweep_launch(int model, int sw, int stream_model, int B, int K,
   a.stream = static_cast<cudaStream_t>(stream);
   cudaError_t err =
       stream_model != 0 ? dispatch<true>(model, a) : dispatch<false>(model, a);
-  if (err == cudaSuccess && groups(B) > 1) {
-    combine_groups_kernel<<<1, 64, 0, a.stream>>>(
-        B, static_cast<int32_t*>(death_out),
+  const int G = groups(a);
+  if (err == cudaSuccess && G > 1) {
+    combine_groups_kernel<<<1, 256, 0, a.stream>>>(
+        B, a.L, G, static_cast<int32_t*>(death_out),
         static_cast<uint8_t*>(alive_out));
     err = cudaGetLastError();
   }
+  info[0] = a.L;
+  info[1] = G;
+  info[2] = a.rows_global;
   return static_cast<int>(err);
+}
+
+// The layout witness_sweep_launch gives a sweep of `model` at width `sw`
+// over B lanes, without launching: info = {lanes a block, blocks, rows in
+// global memory}.  Returns the CUDA error of reading the wide kernel's
+// attributes (0 on success).
+int witness_sweep_geometry(int model, int sw, int B, int* info) {
+  if (B < 1 || sw < 1) return static_cast<int>(cudaErrorInvalidValue);
+  Args a;
+  a.B = B;
+  a.sw = sw;
+  a.L = 32;
+  a.rows_global = 0;
+  if (model == MODEL_MULTI_REGISTER && sw > MAX_SW) {
+    const cudaError_t err = wide_layout<false>(a);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  info[0] = a.L;
+  info[1] = groups(a);
+  info[2] = a.rows_global;
+  return 0;
 }
 
 // Launches the per-lane chain probe (one warp, `steps` steps, a multiple

@@ -1,11 +1,12 @@
 """Operations and histories — the port's copy of
 `jepsen_tpu/history/core.py`, trimmed to what history generation,
-packing and the Elle analyses need: the `Op` record, the op types, a
-dense-indexed `History` sequence with invoke/completion pairing, the
-filtered views `filter` and `client_ops`, and the op-dict form
-(`Op.to_dict` / `Op.from_dict`, `History.to_dicts`) the checker
-daemon's wire and queue journal carry.  Folds and the other
-views wait for the slices that use them.
+packing, the Elle analyses and a test run need: the `Op` record with
+its completion helpers, the op types and the nemesis process, a
+dense-indexed `History` sequence with invoke/completion pairing and
+its filtered views, the terse constructors (`invoke`, `ok`, ...,
+`parse_literal`), and the op-dict form (`Op.to_dict` / `Op.from_dict`,
+`History.to_dicts`) the checker daemon's wire, its queue journal and
+the store carry.  Folds wait for the slices that use them.
 """
 
 from __future__ import annotations
@@ -20,6 +21,12 @@ FAIL = "fail"
 INFO = "info"
 
 TYPES = (INVOKE, OK, FAIL, INFO)
+
+#: The nemesis's logical process.
+NEMESIS = "nemesis"
+
+#: Sentinel for Op.complete: keep the invocation's value.
+_KEEP = object()
 
 
 @dataclass(slots=True)
@@ -59,14 +66,35 @@ class Op:
         """Client ops have integer processes; the nemesis doesn't."""
         return isinstance(self.process, int)
 
-    def replace(self, **kw: Any) -> "Op":
-        fields = {
-            "type": self.type, "f": self.f, "value": self.value,
-            "process": self.process, "time": self.time,
-            "index": self.index, "ext": self.ext,
-        }
-        fields.update(kw)
-        return Op(**fields)
+    @property
+    def error(self) -> Any:
+        return self.ext.get("error")
+
+    def replace(self, *, type: Any = _KEEP, f: Any = _KEEP,
+                value: Any = _KEEP, process: Any = _KEEP,
+                time: Any = _KEEP, index: Any = _KEEP,
+                ext: Any = _KEEP) -> "Op":
+        # Named sentinels, not **kw: the interpreter calls this three
+        # times per executed op.
+        return Op(
+            type=self.type if type is _KEEP else type,
+            f=self.f if f is _KEEP else f,
+            value=self.value if value is _KEEP else value,
+            process=self.process if process is _KEEP else process,
+            time=self.time if time is _KEEP else time,
+            index=self.index if index is _KEEP else index,
+            ext=self.ext if ext is _KEEP else ext,
+        )
+
+    def complete(self, type: str, value: Any = _KEEP, **ext: Any) -> "Op":
+        """The completion of this invocation: same process and f, a new
+        type, optionally a new value and extra keys (error=...); time
+        and index are left for the interpreter to fill."""
+        new_ext = dict(self.ext)
+        new_ext.update(ext)
+        return self.replace(type=type,
+                            value=self.value if value is _KEEP else value,
+                            time=-1, index=-1, ext=new_ext)
 
     def to_dict(self) -> dict[str, Any]:
         """The op as a flat dict, extra keys beside the fields."""
@@ -83,6 +111,35 @@ class Op:
         return cls(type=d["type"], f=d.get("f"), value=d.get("value"),
                    process=d.get("process"), time=d.get("time", -1),
                    index=d.get("index", -1), ext=ext)
+
+    def __str__(self) -> str:
+        return (f"{self.index}\t{self.process}\t{self.type}\t{self.f}\t"
+                f"{self.value!r}" + (f"\t{self.ext}" if self.ext else ""))
+
+
+def op(type: str, f: Any = None, value: Any = None, process: Any = None,
+       **ext: Any) -> Op:
+    """Terse Op constructor for tests and literal histories."""
+    return Op(type=type, f=f, value=value, process=process, ext=ext)
+
+
+def invoke(f: Any = None, value: Any = None, process: Any = 0,
+           **ext: Any) -> Op:
+    return op(INVOKE, f, value, process, **ext)
+
+
+def ok(f: Any = None, value: Any = None, process: Any = 0, **ext: Any) -> Op:
+    return op(OK, f, value, process, **ext)
+
+
+def fail(f: Any = None, value: Any = None, process: Any = 0,
+         **ext: Any) -> Op:
+    return op(FAIL, f, value, process, **ext)
+
+
+def info(f: Any = None, value: Any = None, process: Any = 0,
+         **ext: Any) -> Op:
+    return op(INFO, f, value, process, **ext)
 
 
 class History(Sequence[Op]):
@@ -181,9 +238,24 @@ class History(Sequence[Op]):
     def to_dicts(self) -> list[dict[str, Any]]:
         return [o.to_dict() for o in self.ops]
 
+    def __eq__(self, other: object) -> bool:
+        if isinstance(other, History):
+            return self.ops == other.ops
+        if isinstance(other, (list, tuple)):
+            return list(self.ops) == list(other)
+        return NotImplemented
+
+    __hash__ = None  # type: ignore[assignment]
+
     def __repr__(self) -> str:
         return f"History({len(self.ops)} ops)"
 
 
 def history(ops: Iterable[Op], **kw: Any) -> History:
     return History(ops, **kw)
+
+
+def parse_literal(rows: Iterable[tuple]) -> History:
+    """A history from terse (process, type, f, value) tuples."""
+    return History([Op(type=t, f=f, value=v, process=p)
+                    for p, t, f, v in rows])

@@ -13,8 +13,12 @@ nowhere else — so a run can show that its main path went through the
 kernel.  The sweep also counts each instantiation it launched, under
 `witness_sweep[<model>]` (`witness_sweep[<model>+stream]` for the
 stream's, `witness_sweep[multi-register-wide]` for the multi-register
-past 32 words of state), and its launches over a beam wider than 32
-lanes under `witness_sweep[beam>32]`.  Counts are taken under a lock:
+past 32 words of state), its launches over a beam wider than 32 lanes
+under `witness_sweep[beam>32]`, those whose lane groups took the join
+kernel under `witness_sweep[join]`, and the wide launches whose blocks
+took fewer than 32 lanes, or whose state rows stayed in global memory,
+under `witness_sweep[multi-register-wide-narrow]` and
+`witness_sweep[multi-register-wide-global]`.  Counts are taken under a lock:
 the many-key checker launches from worker threads.  Callers reset them
 with `launches.clear()`.
 """
@@ -58,24 +62,11 @@ SWEEP_MODELS = {
 }
 
 #: The multi-register's widths past 32 words run the wide instantiation,
-#: whose state rows live in shared memory: (lanes per block) x sw x 4
-#: bytes must fit the block's 227 KB (Hopper's 232,448 bytes) beside the
-#: kernel's static rings, 11,920 bytes as ptxas counts them (`-Xptxas
-#: -v`, `build_log`); the launch checks the built kernel's own count.
+#: whose state rows live in shared memory: its blocks take as many lanes
+#: (at most 32) as have rows that fit the block's 227 KB beside the
+#: kernel's static rings, and a row wider than that stays in global
+#: memory (`sweep_geometry`).
 SWEEP_WIDE_MODEL = 3
-SMEM_PER_BLOCK = 232_448
-SWEEP_RING_SMEM = 11_920
-
-#: Beam lanes one sweep launch takes: two blocks of 32 lanes.
-MAX_SWEEP_BEAM = 64
-
-
-def max_sweep_width(B: int) -> int:
-    """The widest multi-register state (words) the wide instantiation
-    takes at beam width B: its lanes per block (at most 32) times the
-    width, in int32, must fit the block's shared memory beside the
-    rings.  1,722 words at 32 or more lanes."""
-    return (SMEM_PER_BLOCK - SWEEP_RING_SMEM) // (4 * min(max(B, 1), 32))
 
 #: Compiler output of this process's kernel build (with `-Xptxas -v`:
 #: registers, shared memory and spills); empty when the library was
@@ -137,8 +128,12 @@ def _sweep_lib_locked() -> ctypes.CDLL:
     # Every pointer and the stream as c_void_p: ctypes would pass a bare
     # Python int as a 32-bit int and cut the pointer.
     lib.witness_sweep_launch.argtypes = (
-        [ctypes.c_int] * 7 + [ctypes.c_void_p] * 9)
+        [ctypes.c_int] * 7 + [ctypes.c_void_p] * 9
+        + [ctypes.POINTER(ctypes.c_int)])
     lib.witness_sweep_launch.restype = ctypes.c_int
+    lib.witness_sweep_geometry.argtypes = (
+        [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)])
+    lib.witness_sweep_geometry.restype = ctypes.c_int
     lib.witness_sweep_chain_probe.argtypes = (
         [ctypes.c_int] + [ctypes.c_void_p] * 3)
     lib.witness_sweep_chain_probe.restype = ctypes.c_int
@@ -161,17 +156,18 @@ def witness_sweep(model: int, start_k: int, bars: torch.Tensor,
     them.
 
     bars (6, K) i32, member (W, B) bool, states (B, SW) i32, alive (B,)
-    bool, all contiguous on one card, 1 <= B <= 64 -> (states' (B, SW)
+    bool, all contiguous on one card, any B >= 1 -> (states' (B, SW)
     i32, alive' (B,) bool, death (1,) i32) on that card; death is -1 if
     the kernel's two warps lost their hand-off (see `sweep`).  A beam
-    wider than 32 sweeps as two 32-lane blocks joined by a second
-    kernel.  `model` is a `PackedModel.kernel_model` id (`SWEEP_MODELS`),
-    SW one of its widths, or for the multi-register any width up to
-    `max_sweep_width(B)` (the wide instantiation past 32).  `init`, the
-    (SW,) int32 initial state, selects the stream instantiation, which
-    knows the RESET op.  Raises ValueError on anything else (checked
-    before the device, so CPU tensors show the shape errors first), and
-    KernelLaunchError if the launch fails."""
+    wider than a block's lanes (32, fewer for a wide state:
+    `sweep_geometry`) sweeps as G blocks joined by a second kernel.
+    `model` is a `PackedModel.kernel_model` id (`SWEEP_MODELS`), SW one
+    of its widths, or for the multi-register any width (the wide
+    instantiation past 32).  `init`, the (SW,) int32 initial state,
+    selects the stream instantiation, which knows the RESET op.  Raises
+    ValueError on anything else (checked before the device, so CPU
+    tensors show the shape errors first), and KernelLaunchError if the
+    launch fails."""
     for t, name, dtype, ndim in ((bars, "bars", torch.int32, 2),
                                  (member, "member", torch.bool, 2),
                                  (states, "states", torch.int32, 2),
@@ -186,22 +182,15 @@ def witness_sweep(model: int, start_k: int, bars: torch.Tensor,
     k = bars.shape[1]
     sw = states.shape[1]
     if (bars.shape[0] != 6 or states.shape[0] != b or alive.shape != (b,)
-            or not 1 <= b <= MAX_SWEEP_BEAM):
+            or b < 1 or k < 1 or w < 1):
         raise ValueError(
             f"witness_sweep: bad shapes bars {tuple(bars.shape)}, member "
             f"{tuple(member.shape)}, states {tuple(states.shape)}, alive "
-            f"{tuple(alive.shape)} (B must be 1..{MAX_SWEEP_BEAM}: two "
-            f"32-lane blocks)")
+            f"{tuple(alive.shape)}")
     if model not in SWEEP_MODELS:
         raise ValueError(f"witness_sweep: no device step for model {model}")
     model_name, widths = SWEEP_MODELS[model]
     wide = model == SWEEP_WIDE_MODEL and sw > widths[-1]
-    if wide and sw > max_sweep_width(b):
-        raise ValueError(
-            f"witness_sweep: multi-register width {sw} > "
-            f"{max_sweep_width(b)}: {min(b, 32)} lanes x {sw} words x 4 B "
-            f"of state rows must fit the block's {SMEM_PER_BLOCK} B of "
-            f"shared memory beside the kernel's {SWEEP_RING_SMEM} B rings")
     if not wide and sw not in widths:
         raise ValueError(f"witness_sweep: {model_name} takes state widths "
                          f"{widths[0]}..{widths[-1]}, got {sw}")
@@ -224,8 +213,10 @@ def witness_sweep(model: int, start_k: int, bars: torch.Tensor,
     lib = sweep_lib()
     states_out = torch.empty_like(states)
     alive_out = torch.empty_like(alive)
-    # One death per 32-lane block; the join leaves the sweep's in [0].
-    death = torch.empty((b + 31) // 32, dtype=torch.int32, device=dev)
+    # One death per lane group (at most B of them); the join leaves the
+    # sweep's in [0].
+    death = torch.empty(b, dtype=torch.int32, device=dev)
+    info = (ctypes.c_int * 3)()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.witness_sweep_launch(
@@ -233,15 +224,36 @@ def witness_sweep(model: int, start_k: int, bars: torch.Tensor,
             bars.data_ptr(), member.data_ptr(), states.data_ptr(),
             alive.data_ptr(), None if init is None else init.data_ptr(),
             states_out.data_ptr(), alive_out.data_ptr(), death.data_ptr(),
-            stream)
+            stream, info)
     _check(lib, "witness_sweep", err)
     stream = init is not None
+    names = {instantiation_name(model, sw, stream),
+             instantiation_name(model, sw, stream, b)}
+    if info[1] > 1:
+        names.add("witness_sweep[join]")
+    if info[2]:
+        names.add("witness_sweep[multi-register-wide-global]")
+    elif wide and info[0] < 32:
+        names.add("witness_sweep[multi-register-wide-narrow]")
     with _launches_lock:
         launches["witness_sweep"] += 1
-        for name in {instantiation_name(model, sw, stream),
-                     instantiation_name(model, sw, stream, b)}:
+        for name in names:
             launches[name] += 1
     return states_out, alive_out, death[:1]
+
+
+def sweep_geometry(model: int, sw: int, B: int) -> tuple:
+    """How the built kernel lays a sweep of `model` at state width `sw`
+    over B lanes out on the card -> (lanes a block, blocks, state rows
+    in global memory): 32 lanes a block but for the wide multi-register,
+    whose blocks take as many lanes as have rows that fit its shared
+    memory beside the static rings (read from the built kernel), and
+    keep a row that does not fit in global memory at 32 lanes."""
+    lib = sweep_lib()
+    info = (ctypes.c_int * 3)()
+    _check(lib, "witness_sweep_geometry",
+           lib.witness_sweep_geometry(int(model), int(sw), int(B), info))
+    return info[0], info[1], bool(info[2])
 
 
 def instantiation_name(model: int, sw: int, stream: bool,
@@ -250,7 +262,8 @@ def instantiation_name(model: int, sw: int, stream: bool,
     state width `sw` over `beam` lanes: witness_sweep[<model>], with
     "-wide" for the multi-register past 32 words and "+stream" for a
     stream model; past 32 lanes witness_sweep[beam>32], whatever the
-    model (a launch of B > 32 counts under both)."""
+    model (a launch of B > 32 counts under both, and under
+    witness_sweep[join])."""
     if beam > 32:
         return "witness_sweep[beam>32]"
     model_name, widths = SWEEP_MODELS[model]

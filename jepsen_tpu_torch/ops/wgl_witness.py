@@ -80,15 +80,6 @@ CHAIN_DEPTH = 5
 #: Widest planned window the witness takes on; wider escalates.
 MAX_WINDOW = 32768
 
-#: Beams up to this width fit one sweep launch: two 32-lane blocks,
-#: each with its own one-word member bits.
-MAX_KERNEL_BEAM = kernels.MAX_SWEEP_BEAM
-
-#: The widest model state the sweep kernel takes at a full 32-lane
-#: block: the wide multi-register instantiation's rows in shared memory
-#: (`kernels.max_sweep_width`).
-MAX_KERNEL_STATE = kernels.max_sweep_width(32)
-
 
 def _state_hash_vec(sw: int, seed: int = 0xA11CE) -> np.ndarray:
     rng = np.random.default_rng(seed)
@@ -242,12 +233,11 @@ def sweep(pm: PackedModel, start_k: int, bars: torch.Tensor,
 
     CPU tensors take the plain version.  CUDA tensors go to the
     csrc/witness_sweep.cu kernel as they are (no packing, transpose or
-    cast) or raise: a ValueError for a model with no device step
-    (`pm.kernel_model` None), and the wrapper's (`kernels.witness_sweep`,
-    before any launch) for a beam wider than `MAX_KERNEL_BEAM` or a
-    state wider than the kernel takes at this beam
-    (`kernels.max_sweep_width`); KernelLaunchError for a failed launch
-    or a kernel that reports a fault.  A stream model
+    cast), at any beam and state width, or raise: a ValueError for a
+    model with no device step (`pm.kernel_model` None) and the
+    wrapper's (`kernels.witness_sweep`, before any launch) for bad
+    shapes; KernelLaunchError for a failed launch or a kernel that
+    reports a fault.  A stream model
     (`pm.stream`) needs `init`, its initial state as a (SW,) int32
     tensor on the card, and runs the kernel's stream instantiation.
     Reading the death barrier back is the call's one host sync."""

@@ -303,3 +303,7 @@ class IndependentChecker(Checker):
         return run_cohort(self, test, subs,
                           [k for k in keys if k in all_packs], unpackable,
                           all_packs, model, pm, lin, opts, dev, tiers)
+
+
+def independent_checker(base: Checker, **kw: Any) -> IndependentChecker:
+    return IndependentChecker(base, **kw)

@@ -118,6 +118,38 @@ def reset() -> None:
         _parent_span = None
 
 
+#: Counter prefixes whose values outlive a single run: the online
+#: path, the plan route and the daemon accumulate across many core.run
+#: scopes.  `scoped_reset` keeps these.
+FLEET_COUNTER_PREFIXES = (
+    "nemesis.search.",
+    "wgl.online.",
+    "wgl.plan.",
+    "checkerd.",
+    "router.",
+    "ingest.",
+    "chaos.",
+)
+
+
+def scoped_reset(prefix_keep: tuple = FLEET_COUNTER_PREFIXES) -> None:
+    """`reset()` that keeps the counters under `prefix_keep` — the start
+    of a run's scope (core.run) in a process that outlives it."""
+    global _events_dropped, _trace_id, _parent_span
+    with _lock:
+        kept = {k: v for k, v in _counters.items()
+                if any(k.startswith(p) for p in prefix_keep)}
+        _span_stats.clear()
+        _counters.clear()
+        _counters.update(kept)
+        _gauges.clear()
+        _events.clear()
+        _foreign.clear()
+        _events_dropped = 0
+        _trace_id = None
+        _parent_span = None
+
+
 # ---------------------------------------------------------------------------
 # Trace context
 # ---------------------------------------------------------------------------
@@ -155,6 +187,13 @@ def seed_trace(ctx: Optional[dict]) -> None:
     with _lock:
         _trace_id = str(tid) if tid else new_span_id()
         _parent_span = str(psp) if psp else None
+
+
+def set_parent_span(span_id: Optional[str]) -> None:
+    """Sets the span id that work propagated from here nests under
+    (core.analyze sets its analyze span's id)."""
+    global _parent_span
+    _parent_span = span_id
 
 
 def set_pass_hook(cb: Optional[Callable[[str, int], None]]) -> None:
@@ -314,12 +353,20 @@ def phases(prefix: str) -> dict[str, float]:
     }
 
 
-#: Counter families recording robustness events; the port's checking
-#: paths emit the degradation steps (`wgl.degrade.<tier>.<action>`) and
-#: blown checker budgets.
+#: Counter families recording robustness events: the checking paths'
+#: degradation steps (`wgl.degrade.<tier>.<action>`) and blown checker
+#: budgets; a run's watchdog op timeouts and drain stragglers, fault
+#: ledger events (nemesis.*), node health (node.*), transport flapping
+#: (net.*) and client open failures.
 RESILIENCE_COUNTER_PREFIXES = (
+    "interpreter.op-timeouts",
+    "interpreter.drain-timeouts",
     "checker.budget-exceeded",
     "wgl.degrade.",
+    "nemesis.",
+    "node.",
+    "net.",
+    "client.open.",
 )
 
 
@@ -528,6 +575,17 @@ _PROM_BAD = re.compile(r"[^a-zA-Z0-9_]")
 CHIP_HEALTH_STATES = (
     "unprobed", "ok", "wedged", "ok-after-reset", "absent",
 )
+
+
+def log_top_spans(logger: logging.Logger, n: int = 5) -> None:
+    """INFO-logs the top-n spans by total time (a run's summary line)."""
+    if not _enabled:
+        return
+    tops = top_spans(n)
+    if tops:
+        logger.info("telemetry top spans: %s", "; ".join(
+            f"{name} {st['total_s']:.3f}s x{st['count']}"
+            for name, st in tops))
 
 
 def _prom_name(name: str) -> str:

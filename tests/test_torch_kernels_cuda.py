@@ -262,16 +262,16 @@ def test_kernel_wrapper_refuses_cpu_tensors():
 
 def test_sweep_off_the_cpu_never_takes_the_plain_version():
     """A tensor that is not on the CPU goes to the kernel or raises: a
-    model with no device step, a beam wider than one launch's two
-    32-lane member words, and a beam the kernel takes but on tensors
-    it cannot launch on are errors there, not a route to the plain
-    sweep.  ("meta" tensors stand in for the card: they reach the same
-    checks.)"""
+    model with no device step, and a beam the kernel takes (any width:
+    33, 65, 200 lanes) but on tensors it cannot launch on, are errors
+    there, not a route to the plain sweep.  ("meta" tensors stand in
+    for the card: they reach the same checks.)"""
     pm = cas_register().packed()
     no_step = dataclasses.replace(pm, kernel_model=None)
     before = kernels.launches["witness_sweep"]
     for B, model, match in ((8, no_step, "no device step"),
-                            (65, pm, "B must be 1..64"),
+                            (65, pm, "CUDA tensors"),
+                            (200, pm, "CUDA tensors"),
                             (33, pm, "CUDA tensors")):
         bars, member, states, alive = (
             torch.from_numpy(a).to("meta")
@@ -286,11 +286,12 @@ def test_sweep_off_the_cpu_never_takes_the_plain_version():
 
 @pytest.mark.parametrize("B", [33, 64])
 def test_sweep_refuses_a_beam_wider_than_one_member_word(B):
-    """A beam of B > 32 lanes spans a second member word: the kernel
-    sweeps it as two 32-lane blocks, so the sweep passes it on to the
-    kernel's wrapper (which refuses these "meta" tensors only for not
-    being on a card); the wrapper refuses a beam past two words, B +
-    32, before the kernel is reached."""
+    """A beam of B > 32 lanes spans more than one member word: the
+    kernel sweeps it as ceil(B / 32) 32-lane blocks joined by a second
+    kernel, so the sweep passes it on to the kernel's wrapper (which
+    refuses these "meta" tensors only for not being on a card), and so
+    a beam of B + 32 and of 4 B lanes too: no beam width is refused
+    before the kernel is reached."""
     pm = cas_register().packed()
 
     def tables(b):
@@ -302,8 +303,9 @@ def test_sweep_refuses_a_beam_wider_than_one_member_word(B):
     before = kernels.launches["witness_sweep"]
     with pytest.raises(ValueError, match="CUDA tensors"):
         sweep(pm, 0, *tables(B))
-    with pytest.raises(ValueError, match="B must be 1..64"):
-        sweep(pm, 0, *tables(B + 32))
+    for wider in (B + 32, 4 * B):
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            sweep(pm, 0, *tables(wider))
     assert kernels.launches["witness_sweep"] == before
 
 
@@ -327,7 +329,7 @@ def _good_args():
 def test_kernel_wrapper_checks_its_arguments(bad, match):
     """kernels.witness_sweep takes the port's own layout — (6, K) int32
     bars, (W, B) bool member, (B, SW) int32 states, (B,) bool alive,
-    contiguous, 1 <= B <= 32, on the card — and raises on anything else
+    contiguous, B >= 1, on the card — and raises on anything else
     without launching."""
     args = _good_args()
     bad(args)
@@ -401,6 +403,36 @@ def test_cuda_kernel_matches_plain_every_model(name, B, start_k, kind):
         assert got[2] == start_k + int(kind[len("dead+"):])
 
 
+#: Every model at beams of G = ceil(B / 32) blocks: the death in the
+#: first group, at batch edges, from a start past 0.
+G_CASES = [(m, B, start, kind) for m in MODEL_NAMES for B in (96, 128, 200)
+           for start, kind in ((0, "death"), (0, "clean"), (33, "padding"),
+                               (31, "dead+0"), (1, "dead+31"))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,B,start_k,kind", G_CASES)
+def test_cuda_kernel_matches_plain_in_g_lane_groups(name, B, start_k, kind):
+    """Every model's instantiation over a beam of 3, 4 and 7 blocks
+    equals the plain sweep of the whole beam, and the launch took the
+    join."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the sweep kernel has no CPU mode")
+    dev = torch.device("cuda")
+    pm = model_pm(name)
+    host = tuple(torch.from_numpy(a)
+                 for a in model_case_tables(name, B, start_k, kind))
+    before = kernels.launches["witness_sweep[join]"]
+    got = sweep(pm, start_k, *(t.to(dev) for t in host),
+                model_init(name, dev))
+    torch.cuda.synchronize()
+    want = sweep_plain(start_k, *host, pm.torch_step_rows)
+    assert kernels.launches["witness_sweep[join]"] == before + 1
+    assert got[2] == want[2]
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])
+
+
 def test_kernel_wrapper_checks_model_and_width():
     """An unknown model id, a width the model is not compiled for, and
     an init of the wrong shape are refused before any launch."""
@@ -411,12 +443,14 @@ def test_kernel_wrapper_checks_model_and_width():
         kernels.witness_sweep(9, 0, bars, member, states, alive)
     with pytest.raises(ValueError, match="state widths"):
         kernels.witness_sweep(4, 0, bars, member, states, alive)
-    # Past 32 words the multi-register takes the wide instantiation, up
-    # to what the block's shared memory holds at this beam.
-    wide = torch.zeros((8, kernels.max_sweep_width(8) + 1),
-                       dtype=torch.int32)
-    with pytest.raises(ValueError, match="shared memory"):
-        kernels.witness_sweep(3, 0, bars, member, wide, alive)
+    # Past 32 words the multi-register takes the wide instantiation at
+    # any width (fewer lanes a block, or its rows in global memory): a
+    # width past what 8 lanes' rows in shared memory hold is refused
+    # only for these tensors not being on a card.
+    for n in (6_891, 55_133):
+        wide = torch.zeros((8, n), dtype=torch.int32)
+        with pytest.raises(ValueError, match="CUDA"):
+            kernels.witness_sweep(3, 0, bars, member, wide, alive)
     with pytest.raises(ValueError, match="init"):
         kernels.witness_sweep(1, 0, bars, member, states, alive,
                               torch.zeros(2, dtype=torch.int32))
