@@ -6,9 +6,11 @@
 Needs one CUDA card and the CUDA toolkit (nvcc): the witness sweep
 kernel is built from jepsen_tpu_torch/csrc/ into build/jepsen_tpu_torch/
 at first use.  Exits non-zero, printing no result, when torch sees no
-CUDA device or the package is missing.  Twelve phases, each raising on
-failure, run in the order 1, 2, 5, 6, 7, 8, 9, 10, 11, 1b, 3, 4 (every
-host-clock and CUDA-event timing before the profiler first runs).  The
+CUDA device or the package is missing.  Thirteen phases, each raising on
+failure, run in the order 1, 2, 5, 6, 7, 8, 9, 10, 11, 1b, 12, 3, 4
+(every host-clock and CUDA-event timing before the profiler first
+runs).  The searches run with the packed member lanes at their default
+(`JEPSEN_WGL_PACKED`, on), as users run them.  The
 checkers' only route is the compiled plan, so phases 1-8, 10 and 11 run
 it; phase 9 reads its own parts (JEPSEN_PLAN=0, memo, faults, records):
 
@@ -162,7 +164,23 @@ it; phase 9 reads its own parts (JEPSEN_PLAN=0, memo, faults, records):
    (11d) `cli analyze` of 11a's stored run: 11a's results; (11e)
    list-append at 1,000 transactions: the host search's verdict and
    anomaly types.  Each prints ops, run and analyze seconds, sweeps,
-   host syncs and the card.
+   host syncs and the card; the stored runs of 11a and 11b hold
+   independent/<key>/{results.json,history.txt} for every failed key
+   and up to 256 passing ones (printed as phase12d).
+12. The packed member lanes and the witness checkpoint
+   (`phase_packing`): (12a) the uint32 dedup hash on the card against a
+   plain numpy uint32 multiply-add, bit for bit, on words with the top
+   bit set at 1, 2 and 33 words; (12b) phase 4's history and the bench
+   history through `check_wgl_device` with JEPSEN_WGL_PACKED on and
+   then off: equal verdicts, sweeps and chain rounds, the BFS levels
+   and configs explored printed; phase 6's FIFO cohort through the
+   batched BFS the same way: no key decided differently (which keys
+   overflow the beam to "unknown" depends on the children each hash
+   keeps), and its whole check (settle included) with equal per-key
+   verdicts; (12c) a 2M-op `random_register_packed` history:
+   one fresh check, then one whose budget expires mid-search with a
+   checkpoint directory, then a resume from the file: valid, fewer
+   sweeps than the fresh run, the file gone; all three walls printed.
 
 The last lines are the device-program JSON line (the closure screen and
 the extraction, plain PyTorch: time, launches per check, bound), the
@@ -2390,10 +2408,9 @@ PLAN_ORDER_BIG = ("on", "off", "off", "on")
 FAULT_OPS = 2000
 
 #: The JAX package's profile records for phase 9e's checks of the bench
-#: history and of phase 5's history, on its plan route
-#: (JEPSEN_WGL_PACKED=0, on the CPU: pass names, shape features and
-#: knobs are counts, whatever the device), as (pass, features, plan);
-#: its "packed" knob is left out (the port has no packed lanes).
+#: history and of phase 5's history, on its plan route (packed lanes at
+#: their default, on the CPU: pass names, shape features and knobs are
+#: counts, whatever the device), as (pass, features, plan).
 #: tests/test_torch_telemetry.py holds the two packages' records equal
 #: on the same shapes at a smaller size.
 REF_PROFILE = {
@@ -2405,7 +2422,7 @@ REF_PROFILE = {
         ("stream", {"keys": 200, "ops": 40364, "passes": 37,
                     "restarts": 30},
          {"bars_per_block": 2048, "blocks_per_call": 32,
-          "max_restarts": 100, "segment": 25}),
+          "max_restarts": 100, "packed": True, "segment": 25}),
         ("settle", {"keys": 30, "ops": 2249}, {})],
 }
 
@@ -2579,10 +2596,11 @@ def plan_memo(torch, dev, history) -> dict:
 
 
 def plan_faults(torch, dev) -> dict:
-    """9d: the fault hook on the card.  A witness fault retries at half
-    the block shape, falls through, and the frontier BFS still proves the
-    history; with every tier faulted the check raises after the one
-    halved retry, carrying the card probe's result."""
+    """9d: the fault hook on the card.  A witness fault sheds the packed
+    lanes, retries at half the block shape, falls through, and the
+    frontier BFS still proves the history; with every tier faulted the
+    check raises after the one halved retry, carrying the card probe's
+    result."""
     from jepsen_tpu_torch.checker import Linearizable
     from jepsen_tpu_torch.models import cas_register
     from jepsen_tpu_torch.ops import degrade
@@ -2618,7 +2636,8 @@ def plan_faults(torch, dev) -> dict:
     log("phase9d: " + json.dumps(r))
     w = r["witness"]
     if (w["valid"] is not True or w["degradations"] != [
-            ("witness", "retry-halved"), ("witness", "fall-through")]
+            ("witness", "packed-fallback"), ("witness", "retry-halved"),
+            ("witness", "fall-through")]
             or w["bfs_levels"] <= 0):
         raise AssertionError(f"phase9d: witness fault gave {w}")
     if dev.type == "cuda" and not r["all"]["probe"]["ok"]:
@@ -3388,6 +3407,8 @@ def phase_run(torch, dev=None, keys: int = RUN_KEYS,
             raise AssertionError(f"phase11e: exit {e['exit']}, {e['ops']} "
                                  f"txns, {e['results'].get('valid')} vs host "
                                  f"{host.get('valid')}")
+        out["artifacts"] = {k: key_artifacts(r, k)
+                            for k, r in (("a", a), ("b", b))}
         for k, r in zip("abcde", (a, b, c, d, e)):
             if dev == "cuda" and k != "e" and r["sweeps"] <= 0:
                 raise AssertionError(f"phase11{k}: the witness sweep kernel "
@@ -3397,6 +3418,227 @@ def phase_run(torch, dev=None, keys: int = RUN_KEYS,
         out["c"]["verdict_lag_s"] = stream.get("verdict-lag-s")
     out["wall_s"] = time.perf_counter() - t_phase
     log(f"phase11: done in {out['wall_s']:.3f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The packed member lanes and the witness checkpoint (phase 12).
+
+#: Phase 12c's one-shot history: 2M ops, phase 7b's size.
+CKPT_OPS = 2_000_000
+#: Phase 12a's word counts.
+HASH_WORDS = (1, 2, 33)
+
+
+def key_artifacts(run: dict, what: str) -> dict:
+    """12d: the stored run's independent/<key>/ directories: one for
+    every key that did not pass and for min(passing, 256) passing keys,
+    each with results.json and history.txt."""
+    root = os.path.join(run["dir"], "independent")
+    dirs = set(os.listdir(root)) if os.path.isdir(root) else set()
+    results = run["results"]["results"]
+    failed = {str(k) for k, r in results.items() if r["valid"] is not True}
+    ok_dirs = len(dirs - failed)
+    complete = all(os.path.isfile(os.path.join(root, d, f))
+                   for d in dirs for f in ("results.json", "history.txt"))
+    r = {"keys": len(results), "failed": len(failed), "dirs": len(dirs),
+         "passing_dirs": ok_dirs}
+    log(f"phase12d: run 11{what}: " + json.dumps(r))
+    if (not failed <= dirs or ok_dirs != min(len(results) - len(failed),
+                                             256) or not complete):
+        raise AssertionError(f"phase12d: run 11{what}'s key artifacts: {r}")
+    return r
+
+
+def packed_hash(torch, dev) -> dict:
+    """12a: `packing.hash_words` on the card against the plain numpy
+    uint32 multiply-add (the reference's formula), bit for bit."""
+    import numpy as np
+
+    from jepsen_tpu_torch.ops import packing
+
+    rng = np.random.default_rng(BENCH_SEED)
+    out = {}
+    for wp in HASH_WORDS:
+        words = (rng.integers(0, 1 << 32, size=(4096, wp), dtype=np.uint32)
+                 | np.uint32(1 << 31))
+        consts = packing.hash_consts(wp, 1)
+        want = (words * consts).sum(axis=-1, dtype=np.uint32)
+        got = packing.hash_words(torch.from_numpy(words.view(np.int32)).to(
+            dev), consts).cpu().numpy()
+        bad = int((got != want.astype(np.int64)).sum())
+        out[wp] = {"rows": len(words), "mismatches": bad}
+        if bad:
+            raise AssertionError(f"phase12a: {bad} hashes differ at "
+                                 f"{wp} words")
+    log("phase12a: " + json.dumps(out))
+    return out
+
+
+def packed_modes(torch, dev, what: str, fn) -> dict:
+    """fn() with JEPSEN_WGL_PACKED on and then off, each counted ->
+    {"on": reading, "off": reading}."""
+    out = {}
+    try:
+        for mode in ("on", "off"):
+            set_env("JEPSEN_WGL_PACKED", "1" if mode == "on" else "0")
+            t0 = time.perf_counter()
+            res, launches, counts = counted(torch, dev, fn)
+            out[mode] = {"res": res, "wall_s": time.perf_counter() - t0,
+                         "sweeps": launches.get("witness_sweep", 0),
+                         "chain_rounds": counts.get("heavy_rounds", 0),
+                         "bfs_levels": counts.get("bfs_levels", 0),
+                         "host_syncs": counts.get("host_syncs", 0)}
+    finally:
+        set_env("JEPSEN_WGL_PACKED", None)
+    return out
+
+
+def packed_parity(torch, dev, history, recorder) -> dict:
+    """12b: phase 4's history, the bench history and phase 6's FIFO
+    cohort with the packed lanes on and off."""
+    from jepsen_tpu_torch.history.packed import pack_history
+    from jepsen_tpu_torch.models import cas_register
+    from jepsen_tpu_torch.ops.wgl import check_wgl_device
+    from jepsen_tpu_torch.ops.wgl_batched import check_wgl_batched
+    from jepsen_tpu_torch.utils.histgen import random_register_history
+
+    pm = cas_register().packed()
+    out = {}
+    for name, h in (("invalid", random_register_history(
+            2000, procs=8, info_rate=0.0, seed=BENCH_SEED, bad=True)),
+                    ("bench", history)):
+        packed = pack_history(h, pm.encode)
+        r = packed_modes(torch, dev, name, lambda: check_wgl_device(
+            packed, pm, time_limit_s=300, device=dev))
+        for m in r.values():
+            res = m.pop("res")
+            m.update(valid=res.valid, configs_explored=res.configs_explored)
+        out[name] = r
+        # The explored counts may differ: the two hashes order the
+        # children an overflowing level keeps differently.
+        keys = ("valid", "sweeps", "chain_rounds")
+        if any(r["on"][k] != r["off"][k] for k in keys):
+            raise AssertionError(f"phase12b: {name}: packed {r['on']} != "
+                                 f"wide {r['off']}")
+    want_valid = {"invalid": False, "bench": True}
+    for name, v in want_valid.items():
+        if out[name]["on"]["valid"] is not v:
+            raise AssertionError(f"phase12b: {name} gave "
+                                 f"{out[name]['on']['valid']}")
+    if out["invalid"]["on"]["bfs_levels"] <= 0:
+        raise AssertionError("phase12b: the invalid history ran no BFS")
+    name = next(n for n in recorder.batched if "fifo" in n)
+    packs, qpm, kw = recorder.batched[name]
+    r = packed_modes(torch, dev, name, lambda: check_wgl_batched(
+        packs, qpm, **kw))
+    on, off = (r[m].pop("res").valid for m in ("on", "off"))
+    # A key whose search overflowed max_beam is "unknown" (the exact
+    # CPU settle decides it); which keys overflow depends on the
+    # children the hashes keep.  A decided key never differs.
+    clash = [i for i, (a, b) in enumerate(zip(on, off))
+             if "unknown" not in (a, b) and a != b]
+    for m, valid in (("on", on), ("off", off)):
+        r[m].update(keys=len(packs), valid={str(v): valid.count(v)
+                                            for v in set(valid)})
+    r["decided_both"] = sum(1 for a, b in zip(on, off)
+                            if "unknown" not in (a, b))
+    if clash:
+        raise AssertionError(f"phase12b: batched {name}: keys {clash} "
+                             f"decided differently")
+    # The whole check, settle included: equal per-key verdicts.
+    from jepsen_tpu_torch.checker import Linearizable
+    from jepsen_tpu_torch.history.core import Op
+    from jepsen_tpu_torch.history.core import history as make_history
+    from jepsen_tpu_torch.parallel import IndependentChecker, \
+        clear_settle_memo, kv
+
+    _, make, gen, gkw = next(m for m in model_specs() if m[0] == name)
+    h = keyed_history(gen, MODEL_KEYS, MODEL_OPS,
+                      set(range(0, MODEL_KEYS, 7)), Op=Op, kv=kv,
+                      history=make_history, long_key_ops=LONG_KEY_OPS.get(
+                          name, LONG_KEY_OPS_DEFAULT), **gkw)
+
+    def whole():
+        clear_settle_memo()
+        return IndependentChecker(Linearizable(
+            make(), time_limit_s=120, device=dev), device=dev).check(
+                {}, h, {})
+
+    w = packed_modes(torch, dev, name, whole)
+    verdicts = {m: {k: x["valid"] for k, x in w[m].pop("res")[
+        "results"].items()} for m in ("on", "off")}
+    if verdicts["on"] != verdicts["off"]:
+        raise AssertionError(f"phase12b: {name} check: per-key verdicts "
+                             f"differ with the packed lanes on and off")
+    for m in ("on", "off"):
+        w[m]["failures"] = sum(1 for v in verdicts[m].values()
+                               if v is False)
+    r["check"] = w
+    out["batched"] = r
+    log("phase12b: " + json.dumps(out))
+    return out
+
+
+def packed_resume(torch, dev, n_ops: int = CKPT_OPS) -> dict:
+    """12c: an `n_ops` one-shot check: fresh, then with a budget that
+    expires mid-search and a checkpoint directory, then resumed."""
+    import glob
+    import tempfile
+
+    from jepsen_tpu_torch.models import cas_register
+    from jepsen_tpu_torch.ops.wgl import check_wgl_device
+    from jepsen_tpu_torch.ops.wgl_witness import plan_width
+    from jepsen_tpu_torch.utils.histgen import random_register_packed
+
+    pm = cas_register().packed()
+    packed = random_register_packed(n_ops, procs=BENCH_PROCS,
+                                    info_rate=BENCH_INFO, seed=BENCH_SEED,
+                                    model=pm)
+    width = plan_width(packed)
+    out = {"ops": packed.n}
+    with tempfile.TemporaryDirectory(prefix="phase12-") as d:
+        def run(what, budget, ckpt):
+            t0 = time.perf_counter()
+            res, launches, counts = counted(torch, dev, lambda: (
+                check_wgl_device(packed, pm, time_limit_s=budget,
+                                 width_hint=width, checkpoint_dir=ckpt,
+                                 device=dev)))
+            need_launches(f"phase12c {what}", dev, launches)
+            out[what] = {"valid": res.valid, "reason": res.reason,
+                         "wall_s": time.perf_counter() - t0,
+                         "sweeps": launches.get("witness_sweep", 0),
+                         "chain_rounds": counts.get("heavy_rounds", 0),
+                         "host_syncs": counts.get("host_syncs", 0),
+                         "files": len(glob.glob(os.path.join(
+                             d, "wgl-witness-*.ckpt.npz")))}
+
+        run("fresh", None, None)
+        run("expired", out["fresh"]["wall_s"] / 3, d)
+        run("resumed", None, d)
+    log("phase12c: " + json.dumps(out))
+    f, e, r = out["fresh"], out["expired"], out["resumed"]
+    # The work skipped: sweep launches on the card (chain rounds on the
+    # CPU, where the sweep launches no kernel).
+    work = "sweeps" if dev.type == "cuda" else "chain_rounds"
+    if (f["valid"] is not True or e["valid"] != "unknown"
+            or e["files"] != 1 or r["valid"] is not True
+            or not 0 < r[work] < f[work] or r["files"] != 0):
+        raise AssertionError(f"phase12c: {out}")
+    return out
+
+
+def phase_packing(torch, history, recorder, dev=None,
+                  ckpt_ops: int = CKPT_OPS) -> dict:
+    """Phase 12 (12a-12c; 12d runs inside phase 11).  `recorder` holds
+    phase 6's batched cohorts."""
+    dev = torch.device("cuda") if dev is None else torch.device(dev)
+    t0 = time.perf_counter()
+    out = {"hash": packed_hash(torch, dev),
+           "parity": packed_parity(torch, dev, history, recorder),
+           "resume": packed_resume(torch, dev, ckpt_ops)}
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"phase12: done in {out['wall_s']:.3f} s")
     return out
 
 
@@ -3631,6 +3873,7 @@ def main() -> int:
     wide, wide_r = phase_wide(torch, packed)
     groups, groups_r = phase_groups(torch, packed)
     batched = phase_batched(torch, recorder)
+    packing_r = phase_packing(torch, history, recorder)
     ptxas = ptxas_report(kernels.build_log)
     for key, n in sass_instructions(kernels.sweep_lib()._name).items():
         ptxas.setdefault(key, {})["sass_instructions"] = n
@@ -3703,7 +3946,10 @@ def main() -> int:
         f"{wide_r['beam']['bench_valid']}, beam {GROUP_BEAM_CHECK} "
         f"{groups_r['beam']['bench_valid']}; run phase 11 "
         f"{run_r['wall_s']:.3f} s (11a {run_r['a']['ops_per_s']:.1f} ops/s, "
-        f"analyze {run_r['a']['analyze_s']:.3f} s)")
+        f"analyze {run_r['a']['analyze_s']:.3f} s); packing phase 12 "
+        f"{packing_r['wall_s']:.3f} s (resume "
+        f"{packing_r['resume']['resumed']['wall_s']:.3f} s of fresh "
+        f"{packing_r['resume']['fresh']['wall_s']:.3f} s)")
     print(json.dumps({"device_programs": programs}))
     print(json.dumps({"kernels": [entry] + more}))
     print(smi)

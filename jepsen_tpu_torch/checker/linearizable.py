@@ -161,9 +161,13 @@ class Linearizable(Checker):
             out["packed-fallback-reason"] = reason
         return out
 
-    def _device_first(self, packed, pm: PackedModel, dev: torch.device) -> dict:
+    def _device_first(self, packed, pm: PackedModel, dev: torch.device,
+                      opts: Optional[dict] = None) -> dict:
         """Sound refutation screens, the device search, and the exact
-        CPU settling passes — one budget for the whole chain."""
+        CPU settling passes — one budget for the whole chain.  When the
+        store gives the check a directory (`opts["dir"]`), the witness
+        saves its carry there and a later check of the same history
+        (an `analyze` after a kill or a blown budget) resumes from it."""
         from ..ops.wgl import check_wgl_device
 
         t_start = time.monotonic()
@@ -183,6 +187,7 @@ class Linearizable(Checker):
         def _device_search(beam, max_beam, block, budget):
             return check_wgl_device(packed, pm, beam=beam, max_beam=max_beam,
                                     block=block, time_limit_s=budget,
+                                    checkpoint_dir=(opts or {}).get("dir"),
                                     device=dev)
 
         try:

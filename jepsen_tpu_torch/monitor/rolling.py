@@ -220,7 +220,7 @@ class RollingChecker:
             total += ks.packer.n_rows * ROW_BYTES
             f = ks.frontier
             if f._member is not None:
-                total += f._W * f.B  # bool member matrix
+                total += f._member.numel() * f._member.element_size()
                 total += f.B * (self.pm.state_width * 4 + 1)
             if f._prev_active is not None:
                 total += int(f._prev_active.nbytes)

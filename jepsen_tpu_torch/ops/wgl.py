@@ -14,8 +14,14 @@ level-synchronous frontier BFS below settles the verdict:
   other non-members) is two masked min-reductions per config.
 * Candidate (config, op) pairs are compacted to a fixed number of
   slots, the model step runs over them, and children are deduplicated
-  by a float-hash lexsort plus exact adjacent compare — equal configs
-  always hash equal, so dedup is exact.
+  by a hash lexsort plus exact adjacent compare — equal configs always
+  hash equal, so dedup is exact.
+* By default (`JEPSEN_WGL_PACKED`, as in the reference) the member
+  sets ride as 32-bit lane words (ops/packing.py): children are built
+  by word-OR plus one hot bit, acceptance is a packed cover test and
+  the dedup hashes are the reference's wrapping uint32 multiply-adds,
+  bit for bit, so the sort keeps the same children.  With
+  `JEPSEN_WGL_PACKED=0` the sets are bool rows hashed in float32.
 * Beam or candidate overflow retries the block with a doubled beam
   from its start; past `max_beam` an invalid verdict degrades to
   "unknown" (valid stays sound).
@@ -27,6 +33,7 @@ level loop runs on the host with one device read per level
 
 from __future__ import annotations
 
+import os
 import time
 from typing import Optional, Union
 
@@ -39,7 +46,7 @@ from ..checker.wgl_cpu import WGLResult
 from ..history.packed import ST_OK, PackedOps
 from ..models.base import PackedModel
 from ..telemetry import profile, roofline
-from . import degrade
+from . import degrade, packing
 
 #: int32 "never" sentinel (ret of indeterminate ops, padding).  A
 #: Python int so torch ops against int32 tensors stay int32.
@@ -50,6 +57,18 @@ CAND_FACTOR = 4
 
 #: Widest active window the BFS takes on; wider returns "unknown".
 MAX_WINDOW = 16384
+
+#: JEPSEN_WGL_PACKED=0 turns the 32-bit packed member lanes off: the
+#: wide bool (B, W) tensors everywhere (the reference's switch).
+PACKED_ENV = "JEPSEN_WGL_PACKED"
+
+
+def packed_enabled(packed_lanes: Optional[bool] = None) -> bool:
+    """The packed-lane switch: an explicit argument wins, then the
+    JEPSEN_WGL_PACKED environment variable (default on)."""
+    if packed_lanes is not None:
+        return bool(packed_lanes)
+    return os.environ.get(PACKED_ENV, "1") not in ("0", "false", "off")
 
 
 def _bucket(x: int, lo: int = 256) -> int:
@@ -131,17 +150,16 @@ def _window_tables(packed: PackedOps, n0: int, K: int, max_window: int):
     return active, W, tables
 
 
-def _expand_level(member, states, alive, tables, n_slots, pm: PackedModel):
-    """One frontier level's expansion: candidate rule, fixed-size
-    compaction, model step, child bitsets, acceptance and dedup hashes.
-    member (B, W) bool, states (B, SW) i32, alive (B,) bool.
+def _candidates(member, states, alive, tables, n_slots, pm: PackedModel):
+    """The candidate rule, fixed-size compaction and model step of one
+    level, shared by the wide and packed expansions.  member (B, W)
+    bool, states (B, SW) i32, alive (B,) bool.
 
-    Returns (child, new_states, live_c, h1, h2, accepted_any,
-    overflow), the last two as 0-d device tensors."""
-    ret_w, inv_w, f_w, a0_w, a1_w, ok_w = (
-        tables[k] for k in ("ret_w", "inv_w", "f_w", "a0_w", "a1_w", "ok_w"))
-    fmin1, f_has_ok = tables["fmin1"], tables["f_has_ok"]
-    h1v, h2v, sh1v, sh2v = tables["hash"]
+    Returns (parent, a, new_states, live_c, overflow), the last a 0-d
+    device tensor."""
+    ret_w, inv_w, f_w, a0_w, a1_w = (
+        tables[k] for k in ("ret_w", "inv_w", "f_w", "a0_w", "a1_w"))
+    fmin1 = tables["fmin1"]
     B, W = member.shape
     dev = member.device
     rows = torch.arange(B, device=dev)
@@ -176,14 +194,27 @@ def _expand_level(member, states, alive, tables, n_slots, pm: PackedModel):
 
     # --- model transition over the candidates -------------------------
     new_states, legal = pm.torch_step(states[parent], f_w[a], a0_w[a], a1_w[a])
-    live_c = valid_c & legal
+    return parent, a, new_states, valid_c & legal, overflow
+
+
+def _expand_level(member, states, alive, tables, n_slots, pm: PackedModel):
+    """One frontier level's expansion over wide bool member rows:
+    candidates, child bitsets, acceptance and float32 dedup hashes.
+
+    Returns (child, new_states, live_c, h1, h2, accepted_any,
+    overflow), the last two as 0-d device tensors."""
+    ok_w = tables["ok_w"]
+    h1v, h2v, sh1v, sh2v = tables["hash"]
+    parent, a, new_states, live_c, overflow = _candidates(
+        member, states, alive, tables, n_slots, pm)
+    dev = member.device
 
     child = member[parent]
     child[torch.arange(n_slots, device=dev), a] = True
 
     # --- acceptance: some live child covers every :ok op -------------
     cover = (child | ~ok_w[None, :]).all(dim=1)
-    accepted_any = (live_c & cover).any() & (not f_has_ok)
+    accepted_any = (live_c & cover).any() & (not tables["f_has_ok"])
 
     # --- dedup hashes (full float32: equal configs hash equal) --------
     cf = child.to(torch.float32)
@@ -193,6 +224,35 @@ def _expand_level(member, states, alive, tables, n_slots, pm: PackedModel):
         h1 = torch.where(live_c, cf @ h1v + sf @ sh1v, big)
         h2 = torch.where(live_c, cf @ h2v + sf @ sh2v, big)
     return child, new_states, live_c, h1, h2, accepted_any, overflow
+
+
+def _expand_level_packed(member_w, states, alive, tables, n_slots,
+                         pm: PackedModel):
+    """The packed twin of `_expand_level`: member_w (B, ceil(W/32))
+    int32 words.  The candidate rule needs per-slot bools, so the
+    member bits are unpacked once per level; children are built by
+    word-OR plus one hot bit, acceptance is the packed cover test, and
+    the dedup hashes are the reference's wrapping uint32 multiply-adds
+    over the words and the states (int64 values in [0, 2^32); a dead
+    candidate hashes 0xFFFFFFFF)."""
+    W = tables["ret_w"].shape[0]
+    hw1, hw2, shw1, shw2 = tables["hash"]
+    member = packing.unpack_bits(member_w, W)
+    parent, a, new_states, live_c, overflow = _candidates(
+        member, states, alive, tables, n_slots, pm)
+
+    child_w = packing.set_bit(member_w[parent], a)
+    cover = packing.covers(child_w, tables["ok_w"])
+    accepted_any = (live_c & cover).any() & (not tables["f_has_ok"])
+
+    dead = packing.FULL_WORD.item()
+    h1 = torch.where(live_c, (packing.hash_words(child_w, hw1)
+                              + packing.hash_words(new_states, shw1))
+                     & dead, dead)
+    h2 = torch.where(live_c, (packing.hash_words(child_w, hw2)
+                              + packing.hash_words(new_states, shw2))
+                     & dead, dead)
+    return child_w, new_states, live_c, h1, h2, accepted_any, overflow
 
 
 def _dedup_sort(child, new_states, live_c, h1, h2):
@@ -220,19 +280,22 @@ def _dedup_sort(child, new_states, live_c, h1, h2):
 
 
 def _run_block(member, states, alive, iters: int, tables, B: int,
-               Cmax: int, pm: PackedModel):
+               Cmax: int, pm: PackedModel, packed_on: bool = False):
     """Up to `iters` BFS levels from one frontier: the reference's
     jitted `block` while-loop, driven from the host with one device
     read per level.  An overflow does not stop the block: a truncated
     frontier that reaches acceptance still proves the history valid.
+    With `packed_on`, member is (B, ceil(W/32)) int32 words.
 
     Returns (member, states, alive, accepted, incomplete, explored,
     levels)."""
     accepted = incomplete = False
     explored = it = 0
     dev = member.device
+    expand = _expand_level_packed if packed_on else _expand_level
+    W = tables["ret_w"].shape[0]
     while it < iters:
-        child, new_states, live_c, h1, h2, acc, overflow = _expand_level(
+        child, new_states, live_c, h1, h2, acc, overflow = expand(
             member, states, alive, tables, Cmax, pm)
         child_s, states_s, uniq, n_uniq = _dedup_sort(
             child, new_states, live_c, h1, h2)
@@ -246,7 +309,7 @@ def _run_block(member, states, alive, iters: int, tables, B: int,
         _device.count("bfs_levels")
         if profile.cost_hooked():
             profile.note_cost(roofline.bfs_level_cost(
-                member.shape[1], B, states.shape[1], Cmax))
+                W, B, states.shape[1], Cmax))
         it += 1
         explored += n_keep_h
         accepted = accepted or bool(acc_h)
@@ -266,6 +329,8 @@ def check_wgl_device(
     time_limit_s: Optional[float] = None,
     witness: bool = True,
     width_hint: int = 0,
+    checkpoint_dir: Optional[str] = None,
+    packed_lanes: Optional[bool] = None,
     device: Union[str, torch.device, None] = "cuda",
 ) -> WGLResult:
     """Decides linearizability of one packed history on `device` (the
@@ -273,14 +338,20 @@ def check_wgl_device(
 
     First the witness search (valid verdicts) with the narrow info
     window, then — only when that plan dropped info columns — the wide
-    one; each rung gets the budget that remains.  If no witness is
-    found, the frontier BFS settles the verdict: exact until
-    `max_beam`/`MAX_WINDOW` overflow, after which invalid degrades to
-    "unknown".  A device resource error in a BFS block (an
-    out-of-memory error, or the `JEPSEN_WGL_FAULT` hook's "device"
-    tier) retries the block once at half the beam on the same device,
-    when the frontier fits in half; the search then stays at most that
-    wide.  Otherwise it returns "unknown" with reason
+    one; each rung gets the budget that remains, and both save their
+    carry to `checkpoint_dir` and resume from it (see
+    `check_wgl_witness`).  If no witness is found, the frontier BFS
+    settles the verdict: exact until `max_beam`/`MAX_WINDOW` overflow,
+    after which invalid degrades to "unknown".  `packed_lanes` (None:
+    `JEPSEN_WGL_PACKED`, default on) carries the BFS's member sets as
+    32-bit lane words.
+
+    A device resource error in a BFS block (an out-of-memory error, or
+    the `JEPSEN_WGL_FAULT` hook's "device" tier) first sheds the packed
+    lanes and retries the block wide at the same beam; then it retries
+    the block once at half the beam on the same device, when the
+    frontier fits in half; the search then stays at most that wide.
+    Otherwise it returns "unknown" with reason
     "device-resource-error"."""
     dev = _device.resolve(device)
     t0 = time.monotonic()
@@ -309,14 +380,14 @@ def check_wgl_device(
                 wres = check_wgl_witness(
                     packed, pm, info_window=NARROW_INFO_WINDOW,
                     time_limit_s=remaining(), width_hint=width_hint,
-                    device=dev)
+                    checkpoint_dir=checkpoint_dir, device=dev)
                 if wres is None and not timed_out() and plan_drops(
                         packed, info_window=NARROW_INFO_WINDOW):
                     _pw.knob(info_window=WIDE_INFO_WINDOW)
                     wres = check_wgl_witness(
                         packed, pm, info_window=WIDE_INFO_WINDOW,
                         time_limit_s=remaining(), width_hint=width_hint,
-                        device=dev)
+                        checkpoint_dir=checkpoint_dir, device=dev)
             _pw.outcome = "hit" if wres is not None else "miss"
         if wres is not None:
             telemetry.count("wgl.witness.hit")
@@ -328,13 +399,15 @@ def check_wgl_device(
                              elapsed_s=time.monotonic() - t0)
 
     # The BFS pass record: the reference's shape features and knobs
-    # (no mesh here, and no packed member lanes).
+    # (no mesh here).
+    packed_on = packed_enabled(packed_lanes)
     with profile.capture("bfs", device=dev, ops=int(N),
                          ok=int(packed.n_ok)) as _pb:
         _pb.knob(beam=int(_bucket(beam, lo=256)), block=int(block),
                  max_beam=int(max_beam), max_window=int(MAX_WINDOW),
-                 mesh=False)
-        res = _bfs(packed, pm, beam, max_beam, block, t0, timed_out, dev)
+                 mesh=False, packed=packed_on)
+        res = _bfs(packed, pm, beam, max_beam, block, t0, timed_out, dev,
+                   packed_on)
         _pb.outcome = (f"unknown:{res.reason}" if res.valid == "unknown"
                        else res.valid)
         _pb.feature(explored=int(res.configs_explored))
@@ -351,14 +424,38 @@ def _device_gave_out(error, explored: int, t0: float) -> WGLResult:
                      elapsed_s=time.monotonic() - t0)
 
 
+def _block_tables(tab_np: dict, W: int, SW: int, packed_on: bool,
+                  dev: torch.device) -> dict:
+    """One block's device tables.  Packed: the ok-mask as words and the
+    hash multipliers as int64 (word streams 0, 1; state streams 2, 3);
+    wide: the ok-mask as bools and the float32 hash vectors."""
+    tables = {k: torch.from_numpy(v).to(dev) for k, v in tab_np.items()
+              if isinstance(v, np.ndarray)}
+    tables["fmin1"] = tab_np["fmin1"]
+    tables["f_has_ok"] = tab_np["f_has_ok"]
+    if packed_on:
+        Wp = packing.n_words(W)
+        tables["ok_w"] = packing.pack_bits(tables["ok_w"], Wp)
+        tables["hash"] = [
+            torch.from_numpy(packing.hash_consts(n, stream).astype(
+                np.int64)).to(dev)
+            for n, stream in ((Wp, 0), (Wp, 1), (SW, 2), (SW, 3))]
+    else:
+        tables["hash"] = [torch.from_numpy(v).to(dev)
+                          for v in _hash_vectors(W, SW)]
+    return tables
+
+
 def _bfs(packed: PackedOps, pm: PackedModel, beam: int, max_beam: int,
-         block: int, t0: float, timed_out, dev: torch.device) -> WGLResult:
+         block: int, t0: float, timed_out, dev: torch.device,
+         packed_on: bool) -> WGLResult:
     """The frontier BFS of `check_wgl_device`, block by block."""
     N = packed.n
     SW = pm.state_width
     n0 = 0
     B = _bucket(beam, lo=256)
     prev_active: Optional[np.ndarray] = None
+    # member: (B, W) bool, or (B, ceil(W/32)) int32 words when packed.
     member = states = alive = None
     explored_total = 0
     soft_incomplete = False  # gave up on exactness somewhere
@@ -371,15 +468,12 @@ def _bfs(packed: PackedOps, pm: PackedModel, beam: int, max_beam: int,
                              reason="window-overflow",
                              elapsed_s=time.monotonic() - t0)
         active, W, tab_np = win
-        tables = {k: torch.from_numpy(v).to(dev) for k, v in tab_np.items()
-                  if isinstance(v, np.ndarray)}
-        tables["fmin1"] = tab_np["fmin1"]
-        tables["f_has_ok"] = tab_np["f_has_ok"]
-        tables["hash"] = [torch.from_numpy(v).to(dev)
-                          for v in _hash_vectors(W, SW)]
+        tables = _block_tables(tab_np, W, SW, packed_on, dev)
 
         if prev_active is None:
-            member = torch.zeros((B, W), dtype=torch.bool, device=dev)
+            shape = (B, packing.n_words(W)) if packed_on else (B, W)
+            member = torch.zeros(shape, dtype=torch.int32 if packed_on
+                                 else torch.bool, device=dev)
             states = torch.tensor(pm.init_state, dtype=torch.int32,
                                   device=dev).repeat(B, 1)
             alive = torch.zeros(B, dtype=torch.bool, device=dev)
@@ -389,26 +483,46 @@ def _bfs(packed: PackedOps, pm: PackedModel, beam: int, max_beam: int,
             perm, present = window_regather(prev_active, active)
             perm_d = torch.from_numpy(perm).to(dev)
             present_d = torch.from_numpy(present).to(dev)
-            new_member = torch.zeros((member.shape[0], W), dtype=torch.bool,
+            old = (packing.unpack_bits(member, member.shape[1]
+                                       * packing.LANES)
+                   if packed_on else member)
+            new_member = torch.zeros((old.shape[0], W), dtype=torch.bool,
                                      device=dev)
-            new_member[:, : len(active)] = member[:, perm_d] & present_d[None, :]
-            member = new_member
+            new_member[:, : len(active)] = old[:, perm_d] & present_d[None, :]
+            member = (packing.pack_bits(new_member) if packed_on
+                      else new_member)
 
         iters = min(block, N - n0)
         snap = (member, states, alive)  # block start, for beam retries
         if telemetry.enabled():
             telemetry.gauge("wgl.bfs.beam", B)
             telemetry.gauge("wgl.bfs.window", W)
+            if packed_on:
+                telemetry.count("wgl.packed.blocks")
+                telemetry.gauge("wgl.packed.words", packing.n_words(W))
         while True:
             try:
                 degrade.maybe_fault("device")
                 with telemetry.span("wgl.bfs.block"):
                     (member, states, alive, accepted, incomplete, explored,
                      it_done) = _run_block(member, states, alive, iters,
-                                           tables, B, CAND_FACTOR * B, pm)
+                                           tables, B, CAND_FACTOR * B, pm,
+                                           packed_on)
             except Exception as e:  # noqa: BLE001 — only resource errors
                 if not degrade.is_resource_error(e):
                     raise
+                if packed_on:
+                    # First rung: shed the packed lanes and retry the
+                    # block wide at the same beam — packing is an
+                    # optimisation, not a budget, so it goes before any
+                    # beam width.
+                    packed_on = False
+                    degrade.record("device", "packed-fallback", e)
+                    telemetry.count("wgl.packed.fallbacks")
+                    tables = _block_tables(tab_np, W, SW, False, dev)
+                    snap = (packing.unpack_bits(snap[0], W),) + snap[1:]
+                    member, states, alive = snap
+                    continue
                 # The device, not the search, gave out: retry the block
                 # once at half the beam from its snapshot, when the
                 # frontier fits in half (rows are packed alive-first).

@@ -1,8 +1,11 @@
 """Batched per-key Wing–Gong–Lowe search: every key's frontier BFS at
 once, on one device.
 
-The port of `jepsen_tpu/ops/wgl_batched.py` (one card, bool member
-bitsets; the mesh sharding and the packed uint32 lanes are left out).
+The port of `jepsen_tpu/ops/wgl_batched.py` (one card; the mesh
+sharding is left out).  By default (`JEPSEN_WGL_PACKED`) the member
+bitsets ride as 32-bit lane words between levels, with the reference's
+word-OR children, packed cover test and uint32 dedup hashes
+(ops/packing.py, ops/wgl.py); `JEPSEN_WGL_PACKED=0` gives bool rows.
 K per-key histories are padded to one (K, N) table and each BFS level
 advances every key's frontier as one (keys x B) batch.  The JAX package
 runs one key's search (`_make_key_fn`) as a `while_loop` under `vmap`;
@@ -35,7 +38,8 @@ from .. import telemetry
 from ..history.packed import ST_OK, PackedOps
 from ..models.base import PackedModel
 from ..telemetry import profile, roofline
-from . import degrade
+from . import degrade, packing
+from .wgl import packed_enabled
 
 #: int32 "never" sentinel (padding ops, info returns), a Python int so
 #: torch ops against int32 tensors stay int32.
@@ -134,7 +138,7 @@ class _Tables:
     """One batch's device tables (the rows of the keys in it)."""
 
     def __init__(self, bp: BatchedPack, sel: np.ndarray, pm: PackedModel,
-                 dev: torch.device):
+                 dev: torch.device, packed_on: bool):
         def put(a):
             return torch.from_numpy(np.ascontiguousarray(a[sel])).to(dev)
 
@@ -143,17 +147,32 @@ class _Tables:
         self.n_ops = put(bp.n_ops)
         self.init = torch.tensor(pm.init_state, dtype=torch.int32,
                                  device=dev)
-        self.hash = tuple(torch.from_numpy(v).to(dev)
-                          for v in _hash_vectors(bp.N, pm.state_width))
+        self.packed = packed_on
+        if packed_on:
+            # The ok-mask as words; the hash multipliers as int64 (word
+            # streams 0, 1; state streams 2, 3).
+            Np = packing.n_words(bp.N)
+            self.ok_w = packing.pack_bits(self.okv, Np)
+            self.hash = tuple(
+                torch.from_numpy(packing.hash_consts(n, stream).astype(
+                    np.int64)).to(dev)
+                for n, stream in ((Np, 0), (Np, 1), (pm.state_width, 2),
+                                  (pm.state_width, 3)))
+        else:
+            self.hash = tuple(torch.from_numpy(v).to(dev)
+                              for v in _hash_vectors(bp.N, pm.state_width))
 
 
 def _level(carry, t: _Tables, B: int, Cmax: int, pm: PackedModel):
     """One BFS level of every key (the reference's `level_step` under
-    `vmap`).  member (Kt, B, N) bool, states (Kt, B, SW) i32, alive
-    (Kt, B) bool; accepted, incomplete (Kt,) bool; explored, it (Kt,)
-    i32."""
+    `vmap`).  member (Kt, B, N) bool — (Kt, B, ceil(N/32)) int32 words
+    when `t.packed` —, states (Kt, B, SW) i32, alive (Kt, B) bool;
+    accepted, incomplete (Kt,) bool; explored, it (Kt,) i32."""
     member, states, alive, accepted, incomplete, explored, it = carry
-    Kt, _, N = member.shape
+    Kt, N = t.ret.shape
+    member_w = member
+    if t.packed:
+        member = packing.unpack_bits(member_w, N)
     SW = states.shape[2]
     dev = member.device
     lanes = torch.arange(B, device=dev)
@@ -185,22 +204,37 @@ def _level(carry, t: _Tables, B: int, Cmax: int, pm: PackedModel):
         _take(t.a1, a).reshape(-1))
     new_states = new_states.reshape(Kt, Cmax, SW)
     live_c = valid_c & legal.reshape(Kt, Cmax)
-    child = _take(member, parent)
-    child.scatter_(2, a[:, :, None], True)
-
-    # Accept when some live child covers every :ok op.
-    cover = (child | ~t.okv[:, None, :]).all(dim=2)
-    accepted = accepted | (live_c & cover).any(dim=1)
-
-    # Dedup: float-hash sort (stable on (h1, h2), as lax.sort with
-    # num_keys=2) and exact adjacent compare.
     h1v, h2v, sh1v, sh2v = t.hash
-    cf = child.to(torch.float32)
-    sf = new_states.to(torch.float32)
-    big = torch.tensor(3.0e38, dtype=torch.float32, device=dev)
-    with _device.exact_float32():
-        h1 = torch.where(live_c, cf @ h1v + sf @ sh1v, big)
-        h2 = torch.where(live_c, cf @ h2v + sf @ sh2v, big)
+    if t.packed:
+        # Word-OR children, the packed cover test and the wrapping
+        # uint32 hashes (int64 values; a dead candidate 0xFFFFFFFF).
+        child = packing.set_bit(_take(member_w, parent), a)
+        cover = packing.covers(child, t.ok_w[:, None, :])
+        accepted = accepted | (live_c & cover).any(dim=1)
+        dead = packing.FULL_WORD.item()
+        h1 = torch.where(live_c, (packing.hash_words(child, h1v)
+                                  + packing.hash_words(new_states, sh1v))
+                         & dead, dead)
+        h2 = torch.where(live_c, (packing.hash_words(child, h2v)
+                                  + packing.hash_words(new_states, sh2v))
+                         & dead, dead)
+    else:
+        child = _take(member, parent)
+        child.scatter_(2, a[:, :, None], True)
+
+        # Accept when some live child covers every :ok op.
+        cover = (child | ~t.okv[:, None, :]).all(dim=2)
+        accepted = accepted | (live_c & cover).any(dim=1)
+
+        # Float32 dedup hashes.
+        cf = child.to(torch.float32)
+        sf = new_states.to(torch.float32)
+        big = torch.tensor(3.0e38, dtype=torch.float32, device=dev)
+        with _device.exact_float32():
+            h1 = torch.where(live_c, cf @ h1v + sf @ sh1v, big)
+            h2 = torch.where(live_c, cf @ h2v + sf @ sh2v, big)
+    # Dedup: hash sort (stable on (h1, h2), as lax.sort with num_keys=2)
+    # and exact adjacent compare.
     p2 = torch.sort(h2, dim=1, stable=True).indices
     p1 = torch.sort(torch.gather(h1, 1, p2), dim=1, stable=True).indices
     perm = torch.gather(p2, 1, p1)
@@ -227,8 +261,11 @@ def _search(t: _Tables, B: int, Cmax: int, pm: PackedModel):
     `vmap`) -> (accepted, alive_end, incomplete, explored) as numpy."""
     Kt, N = t.ret.shape
     dev = t.ret.device
+    member0 = (torch.zeros((Kt, B, packing.n_words(N)), dtype=torch.int32,
+                           device=dev) if t.packed
+               else torch.zeros((Kt, B, N), dtype=torch.bool, device=dev))
     carry = (
-        torch.zeros((Kt, B, N), dtype=torch.bool, device=dev),
+        member0,
         t.init.expand(Kt, B, -1).clone(),
         (torch.arange(B, device=dev) < 1).expand(Kt, B).clone(),
         ~t.okv.any(dim=1),
@@ -278,16 +315,19 @@ def check_wgl_batched(
     beam: int = 256,
     max_beam: int = 16384,
     time_limit_s: Optional[float] = None,
+    packed_lanes: Optional[bool] = None,
     device: Union[str, torch.device, None] = "cuda",
 ) -> BatchedWGLResult:
     """Runs the WGL search for every key at once on `device` (the card
     by default; raises when CUDA is asked for but missing).  Keys whose
     search overflowed the beam retry together at twice the beam; at
     `max_beam` they report "unknown".  The time limit is checked
-    between retry rounds.  A device resource error (the
-    `JEPSEN_WGL_FAULT` hook's "batched" tier included) retries once at
-    half the beam on the same device, then reports the unsettled keys
-    "unknown"; any other error raises."""
+    between retry rounds.  `packed_lanes` (None: `JEPSEN_WGL_PACKED`,
+    default on) carries the member bitsets as 32-bit lane words.  A
+    device resource error (the `JEPSEN_WGL_FAULT` hook's "batched" tier
+    included) first sheds the packed lanes at the same beam, then
+    retries once at half the beam on the same device, then reports the
+    unsettled keys "unknown"; any other error raises."""
     dev = _device.resolve(device)
     t0 = time.monotonic()
     K = len(packs)
@@ -297,15 +337,18 @@ def check_wgl_batched(
     explored = np.zeros(K, dtype=np.int64)
     todo = list(range(K))
     B = _bucket(beam, lo=32)
+    packed_on = packed_enabled(packed_lanes)
     batch_retried = False
     # One cost record per batched pass: the reference's features and
-    # knobs (no mesh here, and no packed member lanes).
+    # knobs (no mesh here).
     with profile.capture("batched", device=dev, keys=K,
                          ops=int(sum(p.n for p in packs))) as _pb:
         _pb.knob(beam=B, max_beam=int(max_beam), cand_factor=CAND_FACTOR,
-                 mesh=False)
+                 mesh=False, packed=packed_on)
         while todo:
-            t = _Tables(bp, np.asarray(todo), pm, dev)
+            t = _Tables(bp, np.asarray(todo), pm, dev, packed_on)
+            if packed_on and telemetry.enabled():
+                telemetry.count("wgl.packed.batched-rounds")
             try:
                 degrade.maybe_fault("batched")
                 with telemetry.span("wgl.batched.block", keys=len(todo),
@@ -315,6 +358,13 @@ def check_wgl_batched(
             except Exception as e:  # noqa: BLE001 — only resource errors
                 if not degrade.is_resource_error(e):
                     raise
+                if packed_on:
+                    # First rung: shed the packed lanes at the same beam
+                    # before any width (see ops/wgl.py).
+                    packed_on = False
+                    degrade.record("batched", "packed-fallback", e)
+                    telemetry.count("wgl.packed.fallbacks")
+                    continue
                 if batch_retried or B <= 32:
                     degrade.record("batched", "fall-through", e)
                     for k in todo:

@@ -41,6 +41,7 @@ from ..history.packed import NO_RET, ST_OK, PackedOps
 from ..models.base import PackedModel
 from ..telemetry import profile
 from . import degrade
+from .wgl import packed_enabled
 from .wgl_witness import INF, check_wgl_witness
 
 #: Synthetic f-code of the inter-key RESET barrier: far above any op
@@ -201,6 +202,7 @@ def check_wgl_witness_stream(
     time_limit_s: Optional[float] = None,
     max_restarts: Optional[int] = None,
     segment_keys: Optional[int] = None,
+    packed_lanes: Optional[bool] = None,
     device: Union[str, torch.device, None] = "cuda",
 ) -> list[Any]:
     """Per-key verdicts via the concatenated stream: True (proven
@@ -210,10 +212,12 @@ def check_wgl_witness_stream(
     resumes in segments of `segment_keys` keys (default max(8,
     ceil(K / 8))), so a dead key costs a re-plan of its segment, not of
     everything after it.  Past `max_restarts` restarts (default
-    max(8, K // 2)) the rest stay None.  A device resource error on a
-    pass (the `JEPSEN_WGL_FAULT` hook's "stream" tier included) leaves
-    the remaining keys None for the per-key tiers on the same device;
-    any other error, a kernel's included, raises.  Counts
+    max(8, K // 2)) the rest stay None.  `packed_lanes` goes to each
+    pass's witness search (None: `JEPSEN_WGL_PACKED`).  A device
+    resource error on a pass (the `JEPSEN_WGL_FAULT` hook's "stream"
+    tier included) leaves the remaining keys None for the per-key tiers
+    on the same device; any other error, a kernel's included, raises.
+    Counts
     "stream_passes", "stream_restarts" and "stream_keys_proven" in
     `device.counters`."""
     dev = _device.resolve(device)
@@ -239,7 +243,11 @@ def check_wgl_witness_stream(
     with profile.capture("stream", device=dev, keys=K,
                          ops=int(stream_timeline_len(packs))) as _pp, \
             telemetry.span("wgl.stream", keys=K):
-        _pp.knob(segment=seg, max_restarts=max_restarts)
+        stream_packed = packed_enabled(packed_lanes)
+        _pp.knob(segment=seg, max_restarts=max_restarts,
+                 packed=stream_packed)
+        if stream_packed and telemetry.enabled():
+            telemetry.count("wgl.packed.stream-passes")
         while start < K:
             remaining = None
             if time_limit_s is not None:
@@ -255,7 +263,7 @@ def check_wgl_witness_stream(
                 degrade.maybe_fault("stream")
                 r = check_wgl_witness(combined, spm, rank_override=override,
                                       out_info=info, time_limit_s=remaining,
-                                      device=dev)
+                                      packed_lanes=packed_lanes, device=dev)
             except Exception as e:  # noqa: BLE001 — only resource errors
                 if not degrade.is_resource_error(e):
                     raise

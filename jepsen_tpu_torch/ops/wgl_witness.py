@@ -23,8 +23,18 @@ barriers, their tables built on the host and uploaded `blocks_per_call`
 blocks at a time; inside a block, sweep -> read the death barrier ->
 chain search -> resume.  The loop takes and returns the search's carry
 between blocks (`WitnessCarry`), so the online frontier
-(streaming/frontier.py) continues it as the history grows.  Each read
+(streaming/frontier.py) continues it as the history grows.  By default
+(`JEPSEN_WGL_PACKED`) the carry's (W, B) member window rides between
+blocks as (W, ceil(B/32)) 32-bit words (ops/packing.py), re-gathered
+as words; each block unpacks it on entry and packs it on exit, so the
+sweep and the chain search see the bool window either way.  Each read
 of a device value is a host sync (`device.counters["host_syncs"]`).
+
+A one-shot search given a `checkpoint_dir` saves its carry there
+between chunks once it has run `CKPT_MIN_ELAPSED_S`, or when its
+budget runs out, and a later call on the same history resumes from
+the saved chunk instead of block zero (the reference's file format
+and key).
 
 Soundness: every transition is a legal linearization step, so a lane
 alive after the final barrier is a witness — `valid=True` is exact.
@@ -34,7 +44,9 @@ dead frontier proves nothing: it returns None and callers escalate.
 
 from __future__ import annotations
 
+import hashlib
 import logging
+import os
 import time
 from typing import Iterator, NamedTuple, Optional, Union
 
@@ -47,8 +59,8 @@ from ..checker.wgl_cpu import WGLResult
 from ..history.packed import ST_OK, PackedOps
 from ..models.base import PackedModel
 from ..telemetry import profile, roofline
-from . import degrade, kernels
-from .wgl import _bucket, nonzero_static, window_regather
+from . import degrade, kernels, packing
+from .wgl import _bucket, nonzero_static, packed_enabled, window_regather
 
 log = logging.getLogger(__name__)
 
@@ -79,6 +91,73 @@ CHAIN_DEPTH = 5
 
 #: Widest planned window the witness takes on; wider escalates.
 MAX_WINDOW = 32768
+
+#: Seconds a search must have run before a checkpoint is worth writing:
+#: short searches finish in milliseconds and would pay a carry read and
+#: a file write per chunk for a file deleted moments later.  A blown
+#: budget saves regardless: that is the run a resume recovers.
+CKPT_MIN_ELAPSED_S = 5.0
+
+
+def _ckpt_key(packed: PackedOps, pm: PackedModel, B: int, W: int,
+              SW: int, K: int, NB: int,
+              info_window: Optional[int]) -> str:
+    """Digest binding a checkpoint to one (history, model, search shape)
+    triple: the full packed arrays (a collision would resume the wrong
+    search), the model's name and initial state (the beam states only
+    mean anything under its transition function), and every shape
+    knob.  The packing is not in it: the file holds the bool member
+    window, whichever mode saved it."""
+    h = hashlib.sha256()
+    h.update(np.int64(
+        [packed.n, B, W, SW, K, NB, -1 if info_window is None
+         else info_window]
+    ).tobytes())
+    h.update(getattr(pm, "name", type(pm).__name__).encode())
+    h.update(np.ascontiguousarray(
+        np.asarray(pm.init_state, dtype=np.int64)).tobytes())
+    for name in ("inv", "ret", "process", "status", "f", "a0", "a1"):
+        h.update(np.ascontiguousarray(getattr(packed, name)).tobytes())
+    return h.hexdigest()
+
+
+def _ckpt_load(path: str, key: str):
+    """-> (next block, member (W, B) bool, states, alive) or None."""
+    import zipfile
+
+    try:
+        with np.load(path, allow_pickle=False) as z:
+            if str(z["key"]) != key:
+                return None
+            return (int(z["c0"]), z["member"], z["states"], z["alive"])
+    except (FileNotFoundError, OSError, KeyError, ValueError,
+            zipfile.BadZipFile):
+        # Missing, foreign, or torn (np.savez never fsyncs, so a hard
+        # kill mid-save can leave a partial zip): start from block zero.
+        return None
+
+
+def _ckpt_save(path: str, key: str, c0: int, member: np.ndarray,
+               states: np.ndarray, alive: np.ndarray) -> None:
+    # np.savez appends ".npz" to names that lack it: the temporary
+    # name must end in .npz or os.replace misses the real file.
+    tmp = path + ".tmp.npz"
+    try:
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        np.savez(tmp, key=key, c0=np.int64(c0), member=member,
+                 states=states, alive=alive)
+        os.replace(tmp, path)
+    except OSError:
+        pass  # best effort: a full disk must not cost the verdict
+
+
+def _ckpt_remove(path: Optional[str]) -> None:
+    if path is None:
+        return
+    try:
+        os.remove(path)
+    except OSError:
+        pass
 
 
 def _state_hash_vec(sw: int, seed: int = 0xA11CE) -> np.ndarray:
@@ -409,10 +488,11 @@ class _Block:
 
 
 class WitnessCarry(NamedTuple):
-    """The search's state between blocks: the (W, B) member window, the
-    (B, SW) beam states and (B,) alive mask on the device, and the
-    previous block's window rows (host; None before the first block),
-    which the next block's re-gather maps from."""
+    """The search's state between blocks: the member window — (W, B)
+    bool, or (W, ceil(B/32)) int32 words when packed —, the (B, SW)
+    beam states and (B,) alive mask on the device, and the previous
+    block's window rows (host; None before the first block), which the
+    next block's re-gather maps from."""
 
     member: torch.Tensor
     states: torch.Tensor
@@ -420,16 +500,26 @@ class WitnessCarry(NamedTuple):
     prev_active: Optional[np.ndarray]
 
 
-def initial_carry(pm: PackedModel, W: int, B: int,
-                  dev: torch.device) -> WitnessCarry:
-    """The carry before the first block: an empty window, every lane at
-    the initial state, lane 0 alone alive."""
-    member = torch.zeros((W, B), dtype=torch.bool, device=dev)
+def initial_carry(pm: PackedModel, W: int, B: int, dev: torch.device,
+                  packed_on: bool = False) -> WitnessCarry:
+    """The carry before the first block: an empty window (packed into
+    words when `packed_on`), every lane at the initial state, lane 0
+    alone alive."""
+    member = (torch.zeros((W, packing.n_words(B)), dtype=torch.int32,
+                          device=dev) if packed_on
+              else torch.zeros((W, B), dtype=torch.bool, device=dev))
     states = torch.tensor(pm.init_state, dtype=torch.int32,
                           device=dev).repeat(B, 1)
     alive = torch.zeros(B, dtype=torch.bool, device=dev)
     alive[0] = True
     return WitnessCarry(member, states, alive, None)
+
+
+def carry_window(carry: WitnessCarry) -> torch.Tensor:
+    """The carry's (W, B) bool member window, unpacked if packed."""
+    if carry.member.dtype == torch.bool:
+        return carry.member
+    return packing.unpack_bits(carry.member, carry.states.shape[0])
 
 
 def compact_width(W: int, info_window: Optional[int]) -> int:
@@ -439,67 +529,89 @@ def compact_width(W: int, info_window: Optional[int]) -> int:
                        else W // 8))
 
 
+def _chunk_tables(packed: PackedOps, plan, chunk: list,
+                  prev_active: Optional[np.ndarray], K: int, W: int):
+    """One chunk's tables, built on the host for one upload: bars
+    (nblk, 6, K) and tab (nblk, 5, W) int32, and the re-gather of each
+    block's window from the one before (perm (nblk, W) int64, present
+    (nblk, W) bool; the very first block keeps member all-False).
+    Returns them and the chunk's last window rows."""
+    _, bar_rank, inv32, ret32 = plan[:4]
+    nblk = len(chunk)
+    bars_np = np.zeros((nblk, 6, K), dtype=np.int32)
+    bars_np[:, 1, :] = INF
+    tab_np = np.zeros((nblk, 5, W), dtype=np.int32)
+    tab_np[:, 0, :] = INF
+    tab_np[:, 4, :] = NO_BAR
+    perm_np = np.zeros((nblk, W), dtype=np.int64)
+    present_np = np.zeros((nblk, W), dtype=bool)
+    for bi, (_, block_bars, active) in enumerate(chunk):
+        nw = len(active)
+        nb = len(block_bars)
+        bars_np[bi, 0, :nb] = np.searchsorted(active, block_bars)
+        bars_np[bi, 1, :nb] = ret32[block_bars]
+        bars_np[bi, 2, :nb] = 1
+        bars_np[bi, 3, :nb] = packed.f[block_bars]
+        bars_np[bi, 4, :nb] = packed.a0[block_bars]
+        bars_np[bi, 5, :nb] = packed.a1[block_bars]
+        tab_np[bi, 0, :nw] = inv32[active]
+        tab_np[bi, 1, :nw] = packed.f[active]
+        tab_np[bi, 2, :nw] = packed.a0[active]
+        tab_np[bi, 3, :nw] = packed.a1[active]
+        tab_np[bi, 4, :nw] = np.minimum(bar_rank[active], NO_BAR)
+        if prev_active is not None:
+            perm, present = window_regather(prev_active, active)
+            perm_np[bi, :nw] = perm
+            present_np[bi, :nw] = present
+        prev_active = active
+    return bars_np, tab_np, perm_np, present_np, prev_active
+
+
 def run_chunks(pm: PackedModel, packed: PackedOps, plan, blocks: list,
                carry: WitnessCarry, *, K: int, NB: int, D: int,
                compact: int, dev: torch.device
                ) -> Iterator[tuple[WitnessCarry, int, bool, int]]:
     """Runs `blocks` (entries of `_plan_blocks`'s block list, in order,
     the first one following `carry`) from `carry`, NB blocks per table
-    upload.  The beam width B and window width W are the carry's.
-    Yields after each chunk (carry, blocks in the chunk, failed,
-    died_rank): `failed` when a block's chain search could not
-    linearize a barrier (died_rank its global rank), after which it
-    stops.  The one-shot search (`check_wgl_witness`) and the online
-    frontier (streaming/frontier.py) both run their blocks here."""
-    _, bar_rank, inv32, ret32 = plan[:4]
+    upload.  The beam width B and window width W are the carry's, and
+    so is the layout: a packed carry's words are re-gathered as words
+    and unpacked for each block.  Yields after each chunk (carry,
+    blocks in the chunk, failed, died_rank): `failed` when a block's
+    chain search could not linearize a barrier (died_rank its global
+    rank), after which it stops.  The one-shot search
+    (`check_wgl_witness`) and the online frontier (streaming/frontier.py)
+    both run their blocks here."""
     member, states, alive, prev_active = carry
-    W, B = member.shape
+    W, B = member.shape[0], states.shape[0]
+    packed_on = member.dtype != torch.bool
     hv = torch.from_numpy(_state_hash_vec(pm.state_width)).to(dev)
     init = (torch.tensor(pm.init_state, dtype=torch.int32, device=dev)
             if pm.stream else None)
     for c0 in range(0, len(blocks), NB):
         chunk = blocks[c0 : c0 + NB]
         nblk = len(chunk)
-        # The chunk's tables, built on the host and uploaded together.
-        bars_np = np.zeros((nblk, 6, K), dtype=np.int32)
-        bars_np[:, 1, :] = INF
-        tab_np = np.zeros((nblk, 5, W), dtype=np.int32)
-        tab_np[:, 0, :] = INF
-        tab_np[:, 4, :] = NO_BAR
-        perm_np = np.zeros((nblk, W), dtype=np.int64)
-        present_np = np.zeros((nblk, W), dtype=bool)
-        for bi, (_, block_bars, active) in enumerate(chunk):
-            nw = len(active)
-            nb = len(block_bars)
-            bars_np[bi, 0, :nb] = np.searchsorted(active, block_bars)
-            bars_np[bi, 1, :nb] = ret32[block_bars]
-            bars_np[bi, 2, :nb] = 1
-            bars_np[bi, 3, :nb] = packed.f[block_bars]
-            bars_np[bi, 4, :nb] = packed.a0[block_bars]
-            bars_np[bi, 5, :nb] = packed.a1[block_bars]
-            tab_np[bi, 0, :nw] = inv32[active]
-            tab_np[bi, 1, :nw] = packed.f[active]
-            tab_np[bi, 2, :nw] = packed.a0[active]
-            tab_np[bi, 3, :nw] = packed.a1[active]
-            tab_np[bi, 4, :nw] = np.minimum(bar_rank[active], NO_BAR)
-            if prev_active is not None:
-                # The very first block keeps member all-False.
-                perm, present = window_regather(prev_active, active)
-                perm_np[bi, :nw] = perm
-                present_np[bi, :nw] = present
-            prev_active = active
+        bars_np, tab_np, perm_np, present_np, prev_active = _chunk_tables(
+            packed, plan, chunk, prev_active, K, W)
         bars_d = torch.from_numpy(bars_np).to(dev)
         tab_d = torch.from_numpy(tab_np).to(dev)
         perm_d = torch.from_numpy(perm_np).to(dev)
         present_d = torch.from_numpy(present_np).to(dev)
 
+        # Rows absent from the previous window are cleared: a bool AND,
+        # or a word AND with all-ones (present) or zero.
+        keep = present_d[:, :, None]
+        if packed_on:
+            keep = -keep.to(torch.int32)
+
         failed, died = False, NO_BAR
         for bi, (k0, _, _) in enumerate(chunk):
             # Re-lay the member window onto this block's rows.
-            member = member[perm_d[bi]] & present_d[bi][:, None]
+            member = member[perm_d[bi]] & keep[bi]
             blk = _Block(pm, tab_d[bi], B, compact, hv, init, D)
-            member, states, alive, failed, died = blk.run(
-                member, states, alive, bars_d[bi], bars_np[bi], k0)
+            window = packing.unpack_bits(member, B) if packed_on else member
+            window, states, alive, failed, died = blk.run(
+                window, states, alive, bars_d[bi], bars_np[bi], k0)
+            member = packing.pack_bits(window) if packed_on else window
             if failed:
                 break
         yield (WitnessCarry(member, states, alive, prev_active), nblk,
@@ -519,8 +631,10 @@ def check_wgl_witness(
     info_window: Optional[int] = NARROW_INFO_WINDOW,
     width_hint: int = 0,
     time_limit_s: Optional[float] = None,
+    checkpoint_dir: Optional[str] = None,
     rank_override: Optional[np.ndarray] = None,
     out_info: Optional[dict] = None,
+    packed_lanes: Optional[bool] = None,
     device: Union[str, torch.device, None] = "cuda",
     _degraded: bool = False,
 ) -> Optional[WGLResult]:
@@ -536,7 +650,9 @@ def check_wgl_witness(
     rounds per barrier are the reference's knobs; a block shape the
     caller leaves None comes from the cost model
     (`choose_witness_block_knobs`: the heuristic's 2,048 x 32 unless a
-    trained model covers the pass).  `width_hint` forces at least that
+    trained model covers the pass), and a history of fewer blocks than
+    `blocks_per_call` uploads them in one bucket of at least 4, as the
+    reference trims its call width.  `width_hint` forces at least that
     window width.  The chain rounds' compact candidate tile is
     `compact_width(W, info_window)` rows.  `rank_override` gives
     non-barrier rows a synthetic barrier rank (see `_plan_blocks`): the
@@ -544,12 +660,26 @@ def check_wgl_witness(
     ops at its RESET with it.  `out_info`, when given, receives
     "died_at_rank": the global rank of the first barrier the chain
     search could not linearize (None when the death was not localized).
+    `packed_lanes` (None: `JEPSEN_WGL_PACKED`, default on) carries the
+    member window between blocks as 32-bit words.
+
+    `checkpoint_dir`: when set, the carry between chunks (the member
+    window, unpacked, the beam states, the alive mask and the next
+    block) is saved there after every chunk once the search has run
+    `CKPT_MIN_ELAPSED_S`, or when its budget runs out, in
+    `wgl-witness-<key>.ckpt.npz`, keyed by a digest of the packed
+    history, the model and every shape knob.  A later call on the same
+    history resumes from the saved chunk instead of block zero, in
+    either packing mode.  The file is removed when the search concludes
+    (witness found or frontier died); only a budget expiry leaves it.
+    Disabled under `rank_override` (the key does not cover it).
 
     A device resource error in a chunk (an out-of-memory error, or the
-    `JEPSEN_WGL_FAULT` hook's "witness" tier) retries the search once
-    with half the block shape on the same device, then returns None for
-    the next tier (degradation steps "retry-halved", "fall-through");
-    any other error raises."""
+    `JEPSEN_WGL_FAULT` hook's "witness" tier) first sheds the packed
+    lanes (degradation step "packed-fallback"), then retries the search
+    once with half the block shape on the same device, then returns
+    None for the next tier ("retry-halved", "fall-through"); any other
+    error raises."""
     dev = _device.resolve(device)
     t0 = time.monotonic()
     n = packed.n
@@ -566,6 +696,8 @@ def check_wgl_witness(
     # The shape that ran, on the enclosing pass record.
     profile.annotate(bars_per_block=int(bars_per_block),
                      blocks_per_call=int(blocks_per_call))
+    if rank_override is not None:
+        checkpoint_dir = None  # the key does not cover the override
     try:
         with telemetry.span("wgl.witness.plan", n=n):
             plan = _plan_blocks(packed, bars_per_block, info_window,
@@ -579,12 +711,40 @@ def check_wgl_witness(
 
     W = _bucket(max(widest, width_hint, 1))
     B = _bucket(beam, lo=8)
+    packed_on = packed_enabled(packed_lanes)
+    if len(blocks) < blocks_per_call:
+        blocks_per_call = _bucket(len(blocks), lo=4)
     if telemetry.enabled():
         telemetry.gauge("wgl.witness.window", W)
         telemetry.gauge("wgl.witness.beam", B)
         telemetry.gauge("wgl.witness.blocks", len(blocks))
+        if packed_on:
+            telemetry.count("wgl.packed.witness-runs")
+
+    def again(**kw) -> Optional[WGLResult]:
+        """This search once more with `kw` changed, in the budget that
+        remains (None when none does)."""
+        remaining = None
+        if time_limit_s is not None:
+            remaining = time_limit_s - (time.monotonic() - t0)
+            if remaining <= 0:
+                return None
+        args = dict(beam=beam, bars_per_block=bars_per_block,
+                    blocks_per_call=blocks_per_call, depth=depth,
+                    info_window=info_window, width_hint=width_hint,
+                    checkpoint_dir=checkpoint_dir,
+                    rank_override=rank_override, out_info=out_info,
+                    packed_lanes=packed_on, _degraded=_degraded)
+        args.update(kw)
+        return check_wgl_witness(packed, pm, time_limit_s=remaining,
+                                 device=dev, **args)
 
     def retry_smaller(e: BaseException) -> Optional[WGLResult]:
+        if packed_on:
+            # Packing is an optimisation, not a budget: it goes first.
+            degrade.record("witness", "packed-fallback", e)
+            telemetry.count("wgl.packed.fallbacks")
+            return again(packed_lanes=False)
         if _degraded or bars_per_block <= 64:
             degrade.record("witness", "fall-through", e)
             log.warning("witness tier out of device resources after "
@@ -595,43 +755,82 @@ def check_wgl_witness(
         log.warning("witness chunk exhausted device resources; retrying "
                     "once at bars_per_block=%d", bars_per_block // 2,
                     exc_info=True)
-        remaining = None
-        if time_limit_s is not None:
-            remaining = time_limit_s - (time.monotonic() - t0)
-            if remaining <= 0:
-                return None
-        return check_wgl_witness(
-            packed, pm, beam=beam, bars_per_block=bars_per_block // 2,
-            blocks_per_call=max(blocks_per_call // 2, 1), depth=depth,
-            info_window=info_window, width_hint=width_hint,
-            time_limit_s=remaining, rank_override=rank_override,
-            out_info=out_info, device=dev, _degraded=True)
+        return again(bars_per_block=bars_per_block // 2,
+                     blocks_per_call=max(blocks_per_call // 2, 1),
+                     _degraded=True)
 
-    carry = initial_carry(pm, W, B, dev)
-    chunks = run_chunks(pm, packed, plan, blocks, carry, K=bars_per_block,
-                        NB=blocks_per_call, D=depth,
+    carry = initial_carry(pm, W, B, dev, packed_on)
+    c0 = 0
+    ckpt_path = ckpt_key = None
+    if checkpoint_dir is not None:
+        ckpt_key = _ckpt_key(packed, pm, B, W, pm.state_width,
+                             bars_per_block, blocks_per_call, info_window)
+        # The key prefix in the name keeps concurrent searches sharing
+        # one directory (per-key checks) apart.
+        ckpt_path = os.path.join(checkpoint_dir,
+                                 f"wgl-witness-{ckpt_key[:16]}.ckpt.npz")
+        carry, c0 = _resume(ckpt_path, ckpt_key, carry, blocks, packed_on,
+                            dev)
+
+    chunks = run_chunks(pm, packed, plan, blocks[c0:], carry,
+                        K=bars_per_block, NB=blocks_per_call, D=depth,
                         compact=compact_width(W, info_window), dev=dev)
-    for _ in range(-(-len(blocks) // blocks_per_call)):
+    for _ in range(-(-(len(blocks) - c0) // blocks_per_call)):
         try:
             degrade.maybe_fault("witness")
             with telemetry.span("wgl.witness.chunk"):
-                carry, _, failed, died = next(chunks)
+                carry, nblk, failed, died = next(chunks)
         except Exception as e:  # noqa: BLE001 — only resource errors
             if not degrade.is_resource_error(e):
                 raise
             return retry_smaller(e)
+        c0 += nblk
         if failed:
+            _ckpt_remove(ckpt_path)  # concluded: a resume cannot help
             if out_info is not None:
                 out_info["died_at_rank"] = (None if died == NO_BAR
                                             else int(died))
             return None
-        if (time_limit_s is not None
-                and time.monotonic() - t0 > time_limit_s):
-            return None  # budget blown: escalate
+        budget_blown = (time_limit_s is not None
+                        and time.monotonic() - t0 > time_limit_s)
+        if ckpt_path is not None and (
+                budget_blown or time.monotonic() - t0 > CKPT_MIN_ELAPSED_S):
+            if dev.type != "cpu":
+                _device.count("host_syncs")
+            _ckpt_save(ckpt_path, ckpt_key, c0,
+                       carry_window(carry).cpu().numpy(),
+                       carry.states.cpu().numpy(), carry.alive.cpu().numpy())
+        if budget_blown:
+            return None  # escalate; the checkpoint stays for a resume
 
+    _ckpt_remove(ckpt_path)
     if not _device.host(carry.alive.any()):
         if out_info is not None:
             out_info["died_at_rank"] = None  # not localized
         return None
     return WGLResult(valid=True, configs_explored=len(bars),
                      elapsed_s=time.monotonic() - t0)
+
+
+def _resume(path: str, key: str, carry: WitnessCarry, blocks: list,
+            packed_on: bool, dev: torch.device
+            ) -> tuple[WitnessCarry, int]:
+    """The carry and next block saved at `path` under `key`, or `carry`
+    and block 0 when there is none.  The blocks are planned again from
+    the history, so only the cursor and the carry were saved; a cursor
+    past the end clamps (the search then concludes from the carry)."""
+    saved = _ckpt_load(path, key)
+    if saved is None:
+        return carry, 0
+    c0, member, states, alive = saved
+    W, B = carry.member.shape[0], carry.states.shape[0]
+    if (member.shape != (W, B) or states.shape != tuple(carry.states.shape)
+            or alive.shape != (B,)):
+        return carry, 0
+    c0 = min(c0, len(blocks))
+    window = torch.from_numpy(member.astype(bool)).to(dev)
+    return WitnessCarry(
+        packing.pack_bits(window) if packed_on else window,
+        torch.from_numpy(states.astype(np.int32)).to(dev),
+        torch.from_numpy(alive.astype(bool)).to(dev),
+        blocks[c0 - 1][2] if c0 > 0 else None), c0

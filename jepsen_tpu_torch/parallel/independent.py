@@ -28,13 +28,18 @@ ladder to fall back to: a kernel that does not build or launch, or a
 failure of the plan layer, raises out of `check` (see checker/core.py
 `check_safe`).
 
-Left out: mesh sharding, the batched BFS's packed lanes, per-key
-artifacts.  The result adds "tiers": how many keys each tier settled.
+With a store directory (`opts["dir"]`) each key's verdict and
+subhistory go to `independent/<key>/` there, as the reference writes
+them.  Left out: mesh sharding.  The result adds "tiers": how many keys
+each tier settled.
 """
 
 from __future__ import annotations
 
 import hashlib
+import json
+import logging
+import os
 import threading
 from collections import Counter, OrderedDict
 from typing import Any, NamedTuple, Optional, Union
@@ -48,7 +53,10 @@ from ..checker.linearizable import CPU_ALGORITHMS, Linearizable
 from ..history.core import History, Op
 from ..history.packed import pack_history
 from ..ops import degrade
-from ..utils import bounded_pmap
+from ..utils import bounded_pmap, sanitize_path_part
+
+log = logging.getLogger(__name__)
+
 
 class KV(NamedTuple):
     """A `[key value]` op payload (independent.clj:18-35): a distinct
@@ -257,6 +265,7 @@ class IndependentChecker(Checker):
                 results = self._per_key(self.base, test, subs, keys, opts)
         valid = merge_valid(r.get("valid") for r in results.values())
         failures = [k for k, r in results.items() if r.get("valid") is False]
+        self._write_key_artifacts(opts, subs, results)
         out = {
             "valid": valid,
             "key-count": len(keys),
@@ -268,6 +277,63 @@ class IndependentChecker(Checker):
         if steps:
             out["degradations"] = steps
         return out
+
+    #: Per-key artifact budget: failed and undecided keys always write;
+    #: passing keys only up to this many (per-key workloads can carry
+    #: tens of thousands of keys).
+    MAX_OK_KEY_DIRS = 256
+
+    def _write_key_artifacts(self, opts: dict, subs: dict,
+                             results: dict) -> None:
+        """store/<test>/independent/<key>/{results.json,history.txt} per
+        key, as the reference writes them (independent.clj:355-364).
+        Failures never raise: a side output must not change the
+        verdict."""
+        directory = (opts or {}).get("dir")
+        if not directory:
+            return
+
+        def jsonable_keys(x):
+            # json.dump coerces dict values via default=, never keys.
+            if isinstance(x, dict):
+                return {k if isinstance(k, str) else repr(k):
+                        jsonable_keys(v) for k, v in x.items()}
+            if isinstance(x, (list, tuple)):
+                return [jsonable_keys(v) for v in x]
+            return x
+
+        ok_written = 0
+        used: set = set()
+        for k, res in results.items():
+            # Only passing keys count against the budget: False and
+            # "unknown" verdicts are the ones to inspect.
+            budgeted = res.get("valid") is True
+            if budgeted and ok_written >= self.MAX_OK_KEY_DIRS:
+                continue
+            safe = sanitize_path_part(k)[:80]
+            if safe in used:
+                # A truncation collision: a stable digest of the full
+                # key keeps the names apart and bounded.
+                digest = hashlib.sha1(repr(k).encode()).hexdigest()[:10]
+                safe = f"{safe[:69]}-{digest}"
+            used.add(safe)
+            # One key's write failure neither skips later keys nor
+            # replaces the computed verdict.
+            try:
+                d = os.path.join(directory, "independent", safe)
+                os.makedirs(d, exist_ok=True)
+                with open(os.path.join(d, "results.json"), "w") as f:
+                    json.dump(jsonable_keys(res), f, indent=2,
+                              default=repr)
+                with open(os.path.join(d, "history.txt"), "w",
+                          errors="replace") as f:
+                    for o in subs.get(k, ()):
+                        f.write(str(o) + "\n")
+                if budgeted:
+                    ok_written += 1
+            except Exception as e:  # noqa: BLE001 — side output only
+                log.warning("could not write artifacts for key %r: %r",
+                            k, e)
 
     def _check_linearizable(self, test: dict, subs: dict, opts: dict,
                             dev: torch.device, tiers: Counter) -> dict:

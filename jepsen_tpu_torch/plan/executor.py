@@ -437,7 +437,8 @@ def _run_device_ladder(ctx: ExecContext, node: PassNode, keys: list):
     """The whole single-history device-first ladder of
     `Linearizable._device_first` (screens, witness, frontier BFS, the
     halved retry, exact settling) as one exact pass."""
-    return {k: ctx.lin._device_first(ctx.packs[k], ctx.pm, ctx.device)
+    return {k: ctx.lin._device_first(ctx.packs[k], ctx.pm, ctx.device,
+                                     ctx.opts)
             for k in keys}, {}
 
 

@@ -61,7 +61,7 @@ from .. import telemetry
 from ..history.packed import ST_OK, PackedOps
 from ..models.base import PackedModel
 from ..ops import degrade
-from ..ops.wgl import _bucket
+from ..ops.wgl import _bucket, packed_enabled
 from ..ops.wgl_witness import (NARROW_INFO_WINDOW, _plan_blocks,
                                compact_width, initial_carry, run_chunks)
 
@@ -100,6 +100,8 @@ class FrontierCarry:
         self.D = depth
         self.info_window = info_window
         self.max_window = max_window
+        #: the carried window as 32-bit words (`JEPSEN_WGL_PACKED`)
+        self.packed = packed_enabled()
 
         self.dead = False
         self.dead_reason: Optional[str] = None
@@ -112,7 +114,8 @@ class FrontierCarry:
         self.plan_s = 0.0
 
         self._W = 0
-        self._member: Optional[torch.Tensor] = None   # (W, B) bool
+        # (W, B) bool, or (W, ceil(B/32)) int32 words when packed
+        self._member: Optional[torch.Tensor] = None
         self._states: Optional[torch.Tensor] = None   # (B, SW) int32
         self._alive: Optional[torch.Tensor] = None    # (B,) bool
         self._prev_active: Optional[np.ndarray] = None
@@ -131,12 +134,13 @@ class FrontierCarry:
 
     def _ensure_width(self, W: int) -> None:
         """Grows the window to W rows on the device, padding the carried
-        member matrix with False rows."""
+        member matrix with empty rows."""
         if W <= self._W:
             return
         if self._member is not None:
-            pad = torch.zeros((W - self._member.shape[0], self.B),
-                              dtype=torch.bool, device=self.dev)
+            m = self._member
+            pad = torch.zeros((W - m.shape[0], m.shape[1]), dtype=m.dtype,
+                              device=self.dev)
             self._member = torch.cat([self._member, pad])
         self._W = W
 
@@ -156,7 +160,7 @@ class FrontierCarry:
             self._ensure_width(W_need)
             if self._member is None:
                 self._member, self._states, self._alive, _ = initial_carry(
-                    self.pm, self._W, self.B, self.dev)
+                    self.pm, self._W, self.B, self.dev, self.packed)
             carry = (self._member, self._states, self._alive,
                      self._prev_active)
             chunks = run_chunks(

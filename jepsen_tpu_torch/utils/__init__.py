@@ -198,3 +198,16 @@ def with_retry(f: Callable[[], T], *, retries: int = 5,
 def fraction(num: float, denom: float) -> float:
     """num / denom, 0 where denom is 0."""
     return num / denom if denom else 0.0
+
+
+def sanitize_path_part(part: Any) -> str:
+    """One safe filesystem path component from an arbitrary value:
+    characters outside [A-Za-z0-9._-] become underscores, and names
+    that are empty or all dots (which would escape or collapse the
+    parent directory) are fully underscored."""
+    import re
+
+    s = re.sub(r"[^A-Za-z0-9._-]", "_", str(part))
+    if not s or set(s) <= {"."}:
+        return "_" * max(1, len(s))
+    return s

@@ -1,9 +1,10 @@
 """Port parity for the batched per-key WGL search (ops/wgl_batched.py):
 the port's host loop of per-level batches against the JAX package's
 `vmap` of a `while_loop`, on identical packed input (numpy arrays
-carried across), JAX side with bool member bitsets (no packed lanes)
-and no mesh.  The padded table, every key's verdict and its explored
-count must match exactly."""
+carried across), both with wide bool member bitsets
+(JEPSEN_WGL_PACKED=0) and at the default, packed lanes, JAX side with
+no mesh.  The padded table, every key's verdict and its explored count
+must match exactly."""
 
 import numpy as np
 import pytest
@@ -27,6 +28,16 @@ _REF_CAS = ref_models.cas_register().packed()
 _CAS = models.cas_register().packed()
 
 
+@pytest.fixture(autouse=True, params=["0", None], ids=["wide", "packed"])
+def packing(request, monkeypatch):
+    """Both packages with wide bool member bitsets
+    (JEPSEN_WGL_PACKED=0), then at the default: 32-bit packed lanes."""
+    if request.param is None:
+        monkeypatch.delenv("JEPSEN_WGL_PACKED", raising=False)
+    else:
+        monkeypatch.setenv("JEPSEN_WGL_PACKED", request.param)
+
+
 def _cas_packs(n_keys, n_ops, bad_keys, info=0.1, procs=4):
     ref = [ref_pack(ref_gen(n_ops, procs=procs, info_rate=info, seed=i,
                             bad=i in bad_keys), _REF_CAS.encode)
@@ -35,7 +46,7 @@ def _cas_packs(n_keys, n_ops, bad_keys, info=0.1, procs=4):
 
 
 def _both(ref, port, ref_pm, pm, **kw):
-    want = ref_batched(ref, ref_pm, packed_lanes=False, **kw)
+    want = ref_batched(ref, ref_pm, **kw)
     D.counters.clear()
     got = check_wgl_batched(port, pm, device="cpu", **kw)
     return got, want

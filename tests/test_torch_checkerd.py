@@ -72,12 +72,17 @@ from jepsen_tpu_torch.parallel.independent import KV, IndependentChecker
 WAIT_S = 60.0
 
 
-@pytest.fixture(autouse=True)
-def one_torch_thread(monkeypatch):
+@pytest.fixture(autouse=True, params=["0", None], ids=["wide", "packed"])
+def one_torch_thread(request, monkeypatch):
     """One torch thread (the suite runs several test processes at once),
-    no fault injection, and the reference on its own ladder."""
+    no fault injection, the reference on its own ladder, and both
+    packages with wide member bitsets (JEPSEN_WGL_PACKED=0), then at
+    the default, packed lanes."""
     monkeypatch.delenv(degrade.FAULT_ENV, raising=False)
-    monkeypatch.setenv("JEPSEN_WGL_PACKED", "0")
+    if request.param is None:
+        monkeypatch.delenv("JEPSEN_WGL_PACKED", raising=False)
+    else:
+        monkeypatch.setenv("JEPSEN_WGL_PACKED", request.param)
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     yield
@@ -351,6 +356,10 @@ def test_wrap_remote_shapes():
     assert wrap_remote(other, addr) is other
 
 
+# One packing mode: a second instance of this test would find the
+# process warm from the first, and its run 1 would time noise.
+@pytest.mark.parametrize("one_torch_thread", [None], ids=["packed"],
+                         indirect=True)
 def test_second_run_rides_the_warm_path(daemon):
     """Same workload twice: run 2 reuses the daemon's cached model and
     settle memo, so its server-side check time beats run 1's."""

@@ -36,17 +36,21 @@ FIELDS = ("valid", "algorithm", "configs-explored", "memo-hit",
           "device-verdict")
 
 
-@pytest.fixture(autouse=True)
-def _routes(monkeypatch):
-    """The reference on its hand-wired ladder with bool member bitsets,
-    the port on the route its users get (`JEPSEN_PLAN` unset), and both
-    settle memos empty.  The reference reads `jepsen_tpu.plan.enabled`
+@pytest.fixture(autouse=True, params=["0", None], ids=["wide", "packed"])
+def _routes(request, monkeypatch):
+    """The reference on its hand-wired ladder, the port on the route its
+    users get (`JEPSEN_PLAN` unset), both with wide member bitsets
+    (JEPSEN_WGL_PACKED=0) and then at the default, packed lanes, and
+    both settle memos empty.  The reference reads `jepsen_tpu.plan.enabled`
     at each check, so patching it steers the reference alone."""
     import jepsen_tpu.plan as ref_plan
 
     monkeypatch.delenv("JEPSEN_PLAN", raising=False)
     monkeypatch.setattr(ref_plan, "enabled", lambda: False)
-    monkeypatch.setenv("JEPSEN_WGL_PACKED", "0")
+    if request.param is None:
+        monkeypatch.delenv("JEPSEN_WGL_PACKED", raising=False)
+    else:
+        monkeypatch.setenv("JEPSEN_WGL_PACKED", request.param)
     clear_settle_memo()
     ref_ind.clear_settle_memo()
 

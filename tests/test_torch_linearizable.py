@@ -234,7 +234,8 @@ def test_import_guard_no_jax_no_reference_package():
             importlib.import_module(m.name)
             names.add(m.name)
         want = {"jepsen_tpu_torch." + n for n in (
-            "telemetry", "telemetry.profile", "store.format", "plan",
+            "ops.packing", "telemetry", "telemetry.profile", "store.format",
+            "plan",
             "plan.ir", "plan.costmodel", "plan.cache", "plan.executor",
             "plan.compiler", "telemetry.flight", "telemetry.slo",
             "telemetry.timeseries", "telemetry.roofline", "checkerd",

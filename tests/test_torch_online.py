@@ -23,6 +23,7 @@ from jepsen_tpu_torch.history.core import History, Op, history
 from jepsen_tpu_torch.history.packed import PackedBuilder, pack_history
 from jepsen_tpu_torch.models import cas_register
 from jepsen_tpu_torch.ops import degrade, wgl_witness
+from jepsen_tpu_torch.ops.packing import unpack_bits
 from jepsen_tpu_torch.ops.kernels import KernelLaunchError
 from jepsen_tpu_torch.ops.wgl_witness import (_plan_blocks,
                                               check_wgl_witness,
@@ -69,8 +70,11 @@ def _same_carry(fr, rf):
         assert fr._member is None
         return
     assert fr._W == rf._W
-    np.testing.assert_array_equal(fr._member.numpy(),
-                                  np.asarray(rf._member))
+    # The port carries the window packed into words by default
+    # (JEPSEN_WGL_PACKED); the reference's frontier carries it as bools.
+    np.testing.assert_array_equal(
+        unpack_bits(fr._member, fr.B).numpy() if fr.packed
+        else fr._member.numpy(), np.asarray(rf._member))
     np.testing.assert_array_equal(fr._states.numpy(),
                                   np.asarray(rf._states))
     np.testing.assert_array_equal(fr._alive.numpy(), np.asarray(rf._alive))

@@ -3,8 +3,8 @@
 With `JEPSEN_PLAN` on (unset: the default) the port's `Linearizable`
 and `IndependentChecker` compile and execute plans.  On the CPU
 corpora their per-key `valid`, `algorithm` and `failure-count` equal
-the JAX package's plan route (with `JEPSEN_WGL_PACKED=0`: the port has
-no packed member lanes), and their whole results and "tiers" equal the
+the JAX package's plan route (with `JEPSEN_WGL_PACKED=0` and at the
+default, packed lanes), and their whole results and "tiers" equal the
 port's own `JEPSEN_PLAN=0` runs, which execute the same plan without
 the cost model and the persistent memo (the port keeps no hand-wired
 ladder).  Also: the persistent memo on both packages (the reference's
@@ -52,13 +52,17 @@ def one_torch_thread():
     torch.set_num_threads(n)
 
 
-@pytest.fixture(autouse=True)
-def _plan_route(monkeypatch):
-    """Both packages on the plan route (the reference without packed
-    lanes), no cache directory, empty memos, telemetry counting."""
+@pytest.fixture(autouse=True, params=["0", None], ids=["wide", "packed"])
+def _plan_route(request, monkeypatch):
+    """Both packages on the plan route, with wide member bitsets
+    (JEPSEN_WGL_PACKED=0) and then at the default, packed lanes; no
+    cache directory, empty memos, telemetry counting."""
     monkeypatch.delenv("JEPSEN_PLAN", raising=False)
     monkeypatch.delenv("JEPSEN_PLAN_CACHE", raising=False)
-    monkeypatch.setenv("JEPSEN_WGL_PACKED", "0")
+    if request.param is None:
+        monkeypatch.delenv("JEPSEN_WGL_PACKED", raising=False)
+    else:
+        monkeypatch.setenv("JEPSEN_WGL_PACKED", request.param)
     prior = telemetry.enabled(), ref_telemetry.enabled()
     for t in (telemetry, ref_telemetry):
         t.enable(True)

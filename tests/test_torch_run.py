@@ -307,6 +307,71 @@ def test_north_star_workload_whole_stack(tmp_path, bad):
         tf.close()
 
 
+def _reference_keyed(d):
+    """The stored keyed history, read by the reference, with the values
+    the run held in memory: KV(key, KV(key, payload)), a cas payload a
+    tuple."""
+    tf = rstore.load(d)
+    try:
+        h = tf.history()
+    finally:
+        tf.close()
+
+    def payload(f, v):
+        if isinstance(v, list) and len(v) == 2:
+            inner = v[1]
+            if f == "cas" and isinstance(inner, list):
+                inner = tuple(inner)
+            return rpar.KV(v[0], inner)
+        return v
+
+    return h.map(lambda o: o.replace(value=rpar.KV(
+        o.value[0], payload(o.f, o.value[1])))
+        if isinstance(o.value, list) else o)
+
+
+def test_keyed_run_writes_the_references_key_artifacts(tmp_path,
+                                                       monkeypatch):
+    """A keyed run stores independent/<key>/{results.json,history.txt}
+    for every key, as the reference's IndependentChecker does for the
+    same history: the history files byte for byte, the results equal
+    but for "elapsed-s" (a wall clock) and "counterexample-file" (the
+    reference's SVG rendering, which the port does not draw)."""
+    import json
+
+    monkeypatch.delenv("JEPSEN_WGL_PACKED", raising=False)
+    parser = cli.single_test_cmd(_lr_suite(StaleRead()),
+                                 extra_opts=workloads._extra_opts)
+    argv = [*LR_ARGS, "--store-dir", str(tmp_path / "store")]
+    assert cli.run(parser, ["test", *argv]) == cli.EXIT_INVALID
+    d = store.latest(str(tmp_path / "store"))
+    ref_dir = tmp_path / "ref"
+    ref = rpar.independent_checker(rchk.linearizable(model=r_cas())).check(
+        {}, _reference_keyed(d), {"dir": str(ref_dir)})
+    assert ref["valid"] is False
+    ours = os.path.join(d, "independent")
+    keys = sorted(os.listdir(ours))
+    assert keys == sorted(os.listdir(ref_dir / "independent")) == [
+        str(k) for k in range(6)]
+
+    def read(root, k, name, mode="r"):
+        with open(os.path.join(root, k, name), mode) as f:
+            return f.read()
+
+    def results(root, k):
+        r = json.loads(read(root, k, "results.json"))
+        r.pop("elapsed-s", None)
+        r.pop("counterexample-file", None)
+        return r
+
+    for k in keys:
+        assert read(ours, k, "history.txt", "rb") == read(
+            ref_dir / "independent", k, "history.txt", "rb")
+        assert results(ours, k) == results(ref_dir / "independent", k)
+    assert [k for k in keys if results(ours, k)["valid"] is False] == [
+        "0", "1"]
+
+
 def test_north_star_workload_online(tmp_path):
     """--streaming: the online session checks keys while the run
     generates them, and the per-key verdicts are its own."""

@@ -1,9 +1,10 @@
 """Port parity for the many-key stream witness (ops/wgl_stream.py) and
 the witness's `rank_override`: the port against the JAX package on the
 cases of tests/test_wgl_stream.py, with identical packed input carried
-across as numpy arrays.  The JAX side is pinned to the port's knobs
-(2,048 barriers per block, 32 blocks per call, no packed lanes, the
-XLA scan sweep).  `concat_packs` arrays, per-key True/None lists and
+across as numpy arrays, both with wide member windows
+(JEPSEN_WGL_PACKED=0) and at the default, packed lanes.  The JAX side
+is pinned to the port's knobs (2,048 barriers per block, 32 blocks per
+call, the XLA scan sweep).  `concat_packs` arrays, per-key True/None lists and
 `died_at_rank` must match exactly."""
 
 import numpy as np
@@ -35,13 +36,23 @@ from jepsen_tpu_torch.ops.wgl_witness import _plan_blocks, check_wgl_witness
 from chip_smoke import multi_register_ops, mutex_ops, queue_ops
 
 #: The JAX side's witness knobs, the port's fixed ones.
-PINNED = dict(bars_per_block=2048, blocks_per_call=32, packed_lanes=False,
+PINNED = dict(bars_per_block=2048, blocks_per_call=32,
               pallas="off")
 
 #: One model pair per kind for the file (the JAX package compiles per
 #: step function).
 _REF_CAS = ref_models.cas_register().packed()
 _CAS = models.cas_register().packed()
+
+
+@pytest.fixture(autouse=True, params=["0", None], ids=["wide", "packed"])
+def packing(request, monkeypatch):
+    """Both packages with wide bool member bitsets
+    (JEPSEN_WGL_PACKED=0), then at the default: 32-bit packed lanes."""
+    if request.param is None:
+        monkeypatch.delenv("JEPSEN_WGL_PACKED", raising=False)
+    else:
+        monkeypatch.setenv("JEPSEN_WGL_PACKED", request.param)
 
 
 def _cas_packs(n_keys, n_ops=100, bad_keys=(), info=0.05, procs=4):

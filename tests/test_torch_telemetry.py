@@ -11,13 +11,14 @@
   Excluded from that comparison: `timing` (wall clocks), `device` (the
   port names its torch device, the reference its JAX device), `cost`
   and `roofline` (the port counts its device calls' costs itself,
-  telemetry/roofline.py; the reference reads XLA's), the "packed" knob (the reference's packed member
-  lanes, not ported: ROADMAP B9) and the "mesh" knob (the JAX side runs
-  on the tests' 8-device virtual CPU mesh; the port has none).
+  telemetry/roofline.py; the reference reads XLA's) and the "mesh" knob
+  (the JAX side runs on the tests' 8-device virtual CPU mesh; the port
+  has none).  The "packed" knob is compared, with the packed member
+  lanes off and at their default.
 * The fault hook: the counterparts of tests/test_robustness.py's
-  degradation cases.  A witness fault retries at half the block shape
-  and then falls through (the reference sheds its packed lanes first;
-  the port has none); a device fault gives "unknown" with reason
+  degradation cases.  A witness fault sheds the packed lanes, retries at
+  half the block shape and then falls through; a device fault sheds the
+  packed lanes, halves the beam and gives "unknown" with reason
   "device-resource-error".  Where the reference settles on its CPU
   engine once every tier failed (`JEPSEN_WGL_FAULT=all`), the port
   retries the device search once at half size and then raises,
@@ -378,18 +379,23 @@ def _records(mod):
     out = []
     for r in mod.read(mod.store_path()):
         plan = {k: v for k, v in r["plan"].items()
-                if k not in ("packed", "mesh")}
+                if k != "mesh"}
         out.append(json.dumps([r["pass"], r["features"], plan],
                               sort_keys=True))
     return sorted(out)
 
 
-@pytest.fixture
-def both_stores(tmp_path, monkeypatch):
-    """Profile stores for both packages, both on the plan route."""
+@pytest.fixture(params=["0", None], ids=["wide", "packed"])
+def both_stores(request, tmp_path, monkeypatch):
+    """Profile stores for both packages, both on the plan route, with
+    wide member bitsets (JEPSEN_WGL_PACKED=0) and then at the default,
+    packed lanes."""
     monkeypatch.delenv("JEPSEN_PLAN", raising=False)
     monkeypatch.delenv("JEPSEN_PLAN_CACHE", raising=False)
-    monkeypatch.setenv("JEPSEN_WGL_PACKED", "0")
+    if request.param is None:
+        monkeypatch.delenv("JEPSEN_WGL_PACKED", raising=False)
+    else:
+        monkeypatch.setenv("JEPSEN_WGL_PACKED", request.param)
     ref_prior = ref_telemetry.enabled()
     ref_telemetry.enable(True)
     ref_telemetry.reset()
@@ -511,13 +517,14 @@ def test_witness_fault_retries_then_falls_through(monkeypatch):
         res = check_wgl_witness(packed, pm, device="cpu")
     assert res is None  # fall-through means "escalate", never a verdict
     assert [s["action"] for s in steps if s["tier"] == "witness"] == [
-        "retry-halved", "fall-through"]
+        "packed-fallback", "retry-halved", "fall-through"]
 
 
 def test_witness_out_of_memory_retries_at_half_the_block_shape(
         monkeypatch):
     """An out-of-memory error inside a sweep is the witness tier's own:
-    one retry at half the block shape, which here succeeds."""
+    the packed lanes go first, at the same block shape; a second one
+    takes the retry at half the block shape, which here succeeds."""
     from jepsen_tpu_torch.ops.wgl_witness import check_wgl_witness
 
     packed, pm = _small_packed(600)
@@ -526,7 +533,7 @@ def test_witness_out_of_memory_retries_at_half_the_block_shape(
 
     def oom_once(pm_, start_k, bars, *a, **k):
         shapes.append(bars.shape[1])
-        if len(shapes) == 1:
+        if len(shapes) <= 2:
             raise torch.cuda.OutOfMemoryError("CUDA out of memory")
         return real(pm_, start_k, bars, *a, **k)
 
@@ -535,8 +542,8 @@ def test_witness_out_of_memory_retries_at_half_the_block_shape(
         res = check_wgl_witness(packed, pm, device="cpu")
     assert res is not None and res.valid is True
     assert [(s["tier"], s["action"]) for s in steps] == [
-        ("witness", "retry-halved")]
-    assert shapes[0] == 2048 and set(shapes[1:]) == {1024}
+        ("witness", "packed-fallback"), ("witness", "retry-halved")]
+    assert shapes[:2] == [2048, 2048] and set(shapes[2:]) == {1024}
 
 
 def test_device_fault_degrades_to_unknown(monkeypatch):
@@ -549,7 +556,8 @@ def test_device_fault_degrades_to_unknown(monkeypatch):
     assert res.valid == "unknown"
     assert res.reason == "device-resource-error"
     assert [(s["tier"], s["action"]) for s in steps] == [
-        ("device", "retry-halved"), ("device", "fall-through")]
+        ("device", "packed-fallback"), ("device", "retry-halved"),
+        ("device", "fall-through")]
 
 
 def _wide_refutation():
@@ -563,14 +571,18 @@ def _wide_refutation():
 
 def _fault_once(monkeypatch, when):
     """Makes the BFS's first block whose (start width, beam) satisfies
-    `when` raise an out-of-memory error, once; later blocks run."""
+    `when` raise an out-of-memory error, once with each member layout
+    (packed words, then the bool rows it falls back to); later blocks
+    run."""
     from jepsen_tpu_torch.ops import wgl
 
     real = wgl._run_block
     fired = []
+    layouts = set()
 
     def block(member, states, alive, iters, tables, B, *a, **k):
-        if not fired and when(int(alive.sum()), B):
+        if member.dtype not in layouts and when(int(alive.sum()), B):
+            layouts.add(member.dtype)
             fired.append((int(alive.sum()), B))
             raise torch.cuda.OutOfMemoryError("CUDA out of memory")
         return real(member, states, alive, iters, tables, B, *a, **k)
@@ -591,10 +603,10 @@ def test_device_fault_on_a_wide_frontier_gives_out_whole(monkeypatch):
     with degrade.capture() as steps:
         res = check_wgl_device(packed, pm, beam=256, max_beam=512, block=8,
                                witness=False, device="cpu")
-    assert fired == [(277, 512)]
+    assert fired == [(277, 512)] * 2
     assert (res.valid, res.reason) == ("unknown", "device-resource-error")
     assert [(s["tier"], s["action"]) for s in steps] == [
-        ("device", "fall-through")]
+        ("device", "packed-fallback"), ("device", "fall-through")]
 
 
 def test_device_halved_beam_is_not_doubled_back(monkeypatch):
@@ -609,10 +621,11 @@ def test_device_halved_beam_is_not_doubled_back(monkeypatch):
     with degrade.capture() as steps:
         res = check_wgl_device(packed, pm, beam=256, max_beam=512, block=8,
                                witness=False, device="cpu")
-    assert fired == [(23, 256)]
+    assert fired == [(23, 256)] * 2
     assert (res.valid, res.reason) == ("unknown", "device-resource-error")
     assert [(s["tier"], s["action"]) for s in steps] == [
-        ("device", "retry-halved"), ("device", "fall-through")]
+        ("device", "packed-fallback"), ("device", "retry-halved"),
+        ("device", "fall-through")]
     assert "after the halved retry" in steps[-1]["error"]
 
 
@@ -636,11 +649,12 @@ def test_device_fault_on_a_wide_frontier_raises_not_settles(monkeypatch):
         with pytest.raises(degrade.CardExhausted) as ei:
             Linearizable(cas_register(), beam=256, max_beam=512, block=8,
                          device="cpu").check({}, _wide_refutation(), {})
-    assert fired == [(277, 512)]
+    assert fired == [(277, 512)] * 2
     assert "overflowed its halved beam" in str(ei.value)
     assert [(s["tier"], s["action"]) for s in steps
             if s["tier"] != "witness"] == [
-        ("device", "fall-through"), ("dispatch", "retry-halved")]
+        ("device", "packed-fallback"), ("device", "fall-through"),
+        ("dispatch", "retry-halved")]
 
 
 def test_witness_fault_leaves_the_verdict_to_the_bfs(monkeypatch):
@@ -650,7 +664,7 @@ def test_witness_fault_leaves_the_verdict_to_the_bfs(monkeypatch):
     out = Linearizable(cas_register(), device="cpu").check({}, h, {})
     assert (out["valid"], out["algorithm"]) == (True, "wgl-tpu")
     assert [s["action"] for s in out["degradations"]] == [
-        "retry-halved", "fall-through"]
+        "packed-fallback", "retry-halved", "fall-through"]
 
 
 def test_stream_and_batched_faults_fall_through(monkeypatch):
@@ -664,8 +678,10 @@ def test_stream_and_batched_faults_fall_through(monkeypatch):
                              device="cpu").check({}, h, {})
     assert out["valid"] is False and out["failures"] == ["k1"]
     steps = [(s["tier"], s["action"]) for s in out["degradations"]]
-    # The batched BFS starts at its narrowest beam (32): no halving.
+    # The batched BFS sheds its packed lanes, then, at its narrowest
+    # beam (32), takes no halving.
     assert steps == [("stream", "fall-through"),
+                     ("batched", "packed-fallback"),
                      ("batched", "fall-through")]
     # The batched BFS left its keys "unknown": the exact CPU settle
     # decides them, on the ladder's last tier as in the reference.
@@ -684,12 +700,11 @@ def test_all_faults_raise_after_the_halved_retry(monkeypatch):
                          device="cpu").check({}, h, {})
     assert ei.value.probe["detail"].startswith("not probed")
     assert "card probe" in str(ei.value)
-    assert [(s["tier"], s["action"]) for s in steps] == [
-        ("witness", "retry-halved"), ("witness", "fall-through"),
-        ("device", "retry-halved"), ("device", "fall-through"),
-        ("dispatch", "retry-halved"),
-        ("witness", "retry-halved"), ("witness", "fall-through"),
-        ("device", "retry-halved"), ("device", "fall-through")]
+    once = [("witness", "packed-fallback"), ("witness", "retry-halved"),
+            ("witness", "fall-through"), ("device", "packed-fallback"),
+            ("device", "retry-halved"), ("device", "fall-through")]
+    assert [(s["tier"], s["action"]) for s in steps] == (
+        once + [("dispatch", "retry-halved")] + once)
     assert telemetry.counter_value("wgl.plan.execute") == 1
 
 

@@ -4,9 +4,11 @@
 imports of `jepsen_tpu` at `jepsen_tpu_torch`, and executes it as a new
 module, so every scenario it defines builds its inputs from the port
 and asserts the same expectations the reference's run meets.  While a
-case runs, the port's `Linearizable` defaults to device="cpu" (the
-port's checkers run on the card unless asked otherwise; these tests
-run on the CPU).
+case runs, the port's `Linearizable` and its search entry points
+(`check_wgl_device`, `check_wgl_batched`, `check_wgl_witness`,
+`check_wgl_witness_stream`) default to device="cpu" (the port's
+checkers run on the card unless asked otherwise; these tests run on
+the CPU).
 
 `cases(mod)` lists its tests ("test_x" or "TestClass.test_y", with one
 entry per parametrized case), `run(mod, case, request)` runs one, with
@@ -85,6 +87,16 @@ def cases(mod: types.ModuleType, exclude=()) -> list:
     return out
 
 
+#: The port's search entry points whose `device` default a case runs
+#: with set to "cpu".
+_ENTRY_POINTS = (
+    ("jepsen_tpu_torch.ops.wgl", "check_wgl_device"),
+    ("jepsen_tpu_torch.ops.wgl_batched", "check_wgl_batched"),
+    ("jepsen_tpu_torch.ops.wgl_witness", "check_wgl_witness"),
+    ("jepsen_tpu_torch.ops.wgl_stream", "check_wgl_witness_stream"),
+)
+
+
 def run(mod: types.ModuleType, case: str, request) -> None:
     qual, _, idx = case.partition("[")
     owner, _, meth = qual.partition(".")
@@ -104,6 +116,10 @@ def run(mod: types.ModuleType, case: str, request) -> None:
     mp.setattr(plin.Linearizable, "__init__",
                lambda self, *a, **kw: init(self, *a, **{"device": "cpu",
                                                         **kw}))
+    for mod_name, fn_name in _ENTRY_POINTS:
+        entry = getattr(importlib.import_module(mod_name), fn_name)
+        mp.setattr(entry, "__kwdefaults__",
+                   {**entry.__kwdefaults__, "device": "cpu"})
     params = _param_sets(base)[int(idx[:-1]) if idx else 0][1]
     kwargs = dict(params)
     for p in inspect.signature(fn).parameters:
