@@ -6,8 +6,8 @@
 Needs one CUDA card and the CUDA toolkit (nvcc): the witness sweep
 kernel is built from jepsen_tpu_torch/csrc/ into build/jepsen_tpu_torch/
 at first use.  Exits non-zero, printing no result, when torch sees no
-CUDA device or the package is missing.  Thirteen phases, each raising on
-failure, run in the order 1, 2, 5, 6, 7, 8, 9, 10, 11, 1b, 12, 3, 4
+CUDA device or the package is missing.  Fourteen phases, each raising on
+failure, run in the order 1, 2, 5, 6, 7, 8, 9, 10, 11, 1b, 12, 13, 3, 4
 (every host-clock and CUDA-event timing before the profiler first
 runs).  The searches run with the packed member lanes at their default
 (`JEPSEN_WGL_PACKED`, on), as users run them.  The
@@ -181,9 +181,35 @@ it; phase 9 reads its own parts (JEPSEN_PLAN=0, memo, faults, records):
    one fresh check, then one whose budget expires mid-search with a
    checkpoint directory, then a resume from the file: valid, fewer
    sweeps than the fresh run, the file gone; all three walls printed.
+13. The stock workloads through the port's CLI on the card
+   (`phase_workloads`): (13a) kafka at suites/logd.py's settings (4
+   keys, transactions of up to 4 micro-ops, 1,024 writes a key, 16
+   final polls, seed 45100, one worker), 1,000 ops: valid, its
+   dependency graph of 600-1,000 vertices screened on the card (B7);
+   (13b) the same with lose-acked and duplicate faults at rate 0.02:
+   invalid with lost-write and duplicate, and the stored history's
+   analysis on the CPU equal to the run's, element for element; (13c)
+   200 G1c/G0 pairs of tests/test_kafka.py's cycle (400 vertices), rw
+   edges off and on: the cycles extracted on the card (B8), the
+   anomaly types of the host search of the same graph; (13d) kafka at
+   20,000 ops: past the screen's 1,024 vertices, so the host search,
+   as in the JAX package (vertices, route, run and analyze seconds);
+   (13e) bank, long-fork, set, rw-register (800 transactions, screened
+   on the card), adya-g2, causal, causal-reverse and total-queue with
+   their in-memory clients for 5 s each: valid; adya-g2 with its racy
+   client: invalid; the generic cycle checker asked for the card (its
+   default is the host search) over rw-register's history and 13c's
+   rw graph, screened there, its verdicts the host search's.  Each
+   prints ops, run and analyze seconds, the graph's vertices and edges,
+   the route and the screen's launches; the screen and extraction
+   times are CUDA events.
 
-The last lines are the device-program JSON line (the closure screen and
-the extraction, plain PyTorch: time, launches per check, bound), the
+The last lines are the phase-13 JSON line (per sub-phase: verdicts,
+vertices, routes, launches and seconds, and the card), the
+device-program JSON line (the closure screen, the extraction and
+phase 4's packed BFS level, plain PyTorch: time, launches per check,
+bound; the packed level's bound counted from its live rows in one more
+untimed run of phase 4's check with telemetry on), the
 kernels JSON line (one entry per timed instantiation), the card's name
 and power limit from nvidia-smi, and {"ok": true, "device": {...}}.
 """
@@ -817,8 +843,63 @@ def phase_invalid(torch) -> dict:
         "sweep_launches": kernels.launches["witness_sweep"],
         "host_syncs": D.counters.get("host_syncs", 0),
     }
+    r["b9"] = packed_bfs_bound(torch, packed, pm, dev="cuda")
     log("phase4: " + json.dumps(r))
     return r
+
+
+def packed_bfs_entry(bad: dict) -> dict:
+    """The device-program entry of B9 (the packed BFS level, plain
+    PyTorch) for the JSON line before the kernels line: phase 4's levels
+    and check wall, and the bound its live rows need."""
+    import inspect
+
+    from jepsen_tpu_torch.ops import wgl
+
+    b9 = bad["b9"]
+    return {"name": "packed_bfs_level", "route": "torch",
+            "source": "jepsen_tpu_torch/ops/wgl.py:"
+                      f"{inspect.getsourcelines(wgl._expand_level_packed)[1]}",
+            "replaces": "jepsen_tpu/ops/wgl.py:145",
+            "launches": bad["bfs_levels"], "check_wall_ms": bad["wall_s"] * 1e3,
+            "bytes": b9["bytes"], "operations": b9["operations"],
+            "bound_ms": b9["bound_ms"], "bound_by": b9["bound_by"],
+            "bound_ms_per_level": b9["bound_ms"] / b9["levels"],
+            "library_ms": None}
+
+
+def packed_bfs_bound(torch, packed, pm, dev) -> dict:
+    """B9's bound: the same check once more on `dev`, untimed, with
+    telemetry on, so each packed BFS level counts the bytes and operations its
+    live rows need (roofline.packed_level_cost); the bound is the
+    larger of the bytes at the H100's memory rate and the operations at
+    its peak rate."""
+    from jepsen_tpu_torch import device as D
+    from jepsen_tpu_torch import telemetry
+    from jepsen_tpu_torch.ops import wgl
+    from jepsen_tpu_torch.telemetry import roofline
+
+    names = ("wgl.bfs.packed_bytes", "wgl.bfs.packed_ops")
+    was = telemetry.enabled()
+    before = [telemetry.counter_value(n) for n in names]
+    D.counters.clear()
+    telemetry.enable(True)
+    try:
+        res = wgl.check_wgl_device(packed, pm, time_limit_s=300,
+                                   device=dev, packed_lanes=True)
+        if torch.device(dev).type == "cuda":
+            torch.cuda.synchronize()
+    finally:
+        telemetry.enable(was)
+    n_bytes, n_ops = (telemetry.counter_value(n) - b
+                      for n, b in zip(names, before))
+    levels = D.counters.get("bfs_levels", 0)
+    if res.valid is not False or levels <= 0 or n_bytes <= 0:
+        raise AssertionError(f"B9 bound run: {res.valid}, {levels} levels, "
+                             f"{n_bytes} bytes")
+    ms, by = roofline.bound(n_ops, n_bytes)
+    return {"levels": levels, "bytes": n_bytes, "operations": n_ops,
+            "bound_ms": ms, "bound_by": by}
 
 
 # ---------------------------------------------------------------------------
@@ -3642,6 +3723,338 @@ def phase_packing(torch, history, recorder, dev=None,
     return out
 
 
+# ---------------------------------------------------------------------------
+# The stock workloads (phase 13).
+
+#: suites/logd.py's kafka settings (its one node: one worker).
+KAFKA_ARGS = ["--key-count", "4", "--max-txn-length", "4",
+              "--max-writes-per-key", "1024", "--final-polls", "16",
+              "--seed", str(BENCH_SEED), "--node", "n1", "--concurrency",
+              "1"]
+#: 13a's and 13b's ops: a dependency graph of 600-1,000 vertices, under
+#: the screen's 1,024.
+KAFKA_OPS = 1000
+KAFKA_VERTICES = (600, 1000)
+#: 13d's ops: the size users run, past the screen's 1,024 vertices;
+#: its time limit is far past the ~5 s the ops take, so the op count,
+#: not the host's speed, ends the run.
+KAFKA_BIG_OPS = 20_000
+KAFKA_BIG_SECONDS = 60
+#: 13c's G1c/G0 pairs: 400 vertices, past the 256 of the device
+#: extraction.
+KAFKA_CYCLE_PAIRS = 200
+#: 13e: seconds per workload; rw-register's transactions, so that its
+#: graph stays under the screen's 1,024 vertices.
+WORKLOAD_SECONDS = 5
+WR_TXNS = 800
+#: 13e's workloads, with the CLI options past the common ones.
+OTHER_WORKLOADS = {
+    "bank": [], "long-fork": [], "set": [], "rw-register": [],
+    "adya-g2": [], "causal": [], "causal-reverse": [],
+    "total-queue": [],
+}
+
+
+def kafka_cycle_ops(pairs: int) -> list:
+    """Op dicts of `pairs` copies of tests/test_kafka.py's
+    test_wr_ww_cycle_detected, each on its own keys: T1 sends x and
+    polls y, T2 sends x after it and sends the y T1 polled (ww T1 -> T2,
+    wr T2 -> T1: a G1c); every third pair sends x and y in opposite
+    orders instead (ww both ways: a G0)."""
+    out = []
+    for i in range(pairs):
+        x, y = f"x{i}", f"y{i}"
+        if i % 3 == 2:
+            t1 = [["send", x, [0, "a"]], ["send", y, [1, "q"]]]
+            t2 = [["send", y, [0, "p"]], ["send", x, [1, "b"]]]
+        else:
+            t1 = [["send", x, [0, "a"]], ["poll", {y: [[0, "p"]]}]]
+            t2 = [["send", x, [1, "b"]], ["send", y, [0, "p"]]]
+        out += [{"type": "ok", "f": "txn", "value": t1, "process": 0},
+                {"type": "ok", "f": "txn", "value": t2, "process": 1}]
+    return out
+
+
+class GraphSpy:
+    """Inside `with`, records the graphs ops/scc.check_cycles_device is
+    given (the Kafka and Elle analyses look it up at call time) and the
+    seconds each call takes."""
+
+    def __enter__(self):
+        from jepsen_tpu_torch.ops import scc
+
+        self.scc, self.real = scc, scc.check_cycles_device
+        self.graphs, self.seconds = [], []
+
+        def spy(graphs, **kw):
+            t0 = time.perf_counter()
+            try:
+                return self.real(graphs, **kw)
+            finally:
+                self.seconds.append(time.perf_counter() - t0)
+                self.graphs.extend(graphs)
+
+        scc.check_cycles_device = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.scc.check_cycles_device = self.real
+
+
+def _workload_cli(torch, dev, argv, suite, what: str) -> dict:
+    """`cli.run` of `argv` over `suite` with the counts set to 0 just
+    before and read just after, the analysis timed apart, and the
+    graphs the cycle screen was given -> the readings, with the stored
+    run's results and history."""
+    from jepsen_tpu_torch import cli, core, store
+    from jepsen_tpu_torch.workloads import _extra_opts
+
+    real = core.analyze
+    spent = []
+
+    def timed(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return real(*a, **kw)
+        finally:
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            spent.append(time.perf_counter() - t0)
+
+    parser = cli.single_test_cmd(suite, extra_opts=_extra_opts)
+    core.analyze = timed
+    try:
+        with GraphSpy() as spy:
+            t0 = time.perf_counter()
+            code, _, counts = counted(torch, dev,
+                                      lambda: cli.run(parser, argv))
+            wall = time.perf_counter() - t0
+    finally:
+        core.analyze = real
+    tf = store.load(store.latest(argv[argv.index("--store-dir") + 1]))
+    try:
+        results, h = tf.results, tf.history()
+    finally:
+        tf.close()
+    g = spy.graphs[0] if spy.graphs else None
+    r = {"exit": code, "valid": results.get("valid"),
+         "anomaly_types": results.get("anomaly-types"),
+         "ops": sum(1 for o in h if o.type == "invoke"), "wall_s": wall,
+         "run_s": wall - sum(spent), "analyze_s": sum(spent),
+         "vertices": len(g.vertices) if g is not None else None,
+         "edges": g.n_edges() if g is not None else None,
+         "cycle_search_s": sum(spy.seconds),
+         "screens": counts.get("scc_screens", 0),
+         "extractions": counts.get("scc_extractions", 0),
+         "route": None if g is None else (
+             "device screen" if counts.get("scc_screens", 0) else "host")}
+    log(f"phase13{what}: " + json.dumps(r))
+    r.update(results=results, history=h, graph=g)
+    return r
+
+
+def _screen_ms(torch, dev, g) -> float:
+    """CUDA-event milliseconds of one closure screen (B7) of `g`."""
+    from jepsen_tpu_torch.ops import scc
+
+    adj = torch.from_numpy(scc.pack_adjacency([g])[0]).to(dev)
+    return cuda_ms(lambda: scc.has_cycle(adj, torch.bfloat16), reps=20)
+
+
+def _extract_ms(torch, dev, g) -> float:
+    """CUDA-event milliseconds of one batched extraction (B8) of `g`'s
+    layers."""
+    from jepsen_tpu_torch.ops import scc
+
+    layers = scc.layer_entries(g)
+    a_all, a_req, _ = scc.pack_required([x[0] for x in layers],
+                                        [x[1] for x in layers])
+    A, R = (torch.from_numpy(x).to(dev) for x in (a_all, a_req))
+    return cuda_ms(lambda: scc.extract_batch(A, R, torch.bfloat16), reps=5)
+
+
+def phase_workloads(torch, dev=None, kafka_ops: int = KAFKA_OPS,
+                    big_ops: int = KAFKA_BIG_OPS,
+                    seconds: float = WORKLOAD_SECONDS) -> dict:
+    """Phase 13: the stock workloads through the port's CLI on `dev`
+    (the card by default).  (13a) kafka at suites/logd.py's settings,
+    `kafka_ops` ops: EXIT_VALID, a graph of 600-1,000 vertices screened
+    on the card (B7); (13b) the same with lose-acked and duplicate
+    faults at rate 0.02: EXIT_INVALID with lost-write and duplicate, and
+    the stored history's analysis on the CPU equal to the run's; (13c)
+    a fixture of G1c and G0 pairs (400 vertices), rw edges off and on:
+    the cycles extracted on the card (B8), the anomaly types of the
+    host search of the same graph; (13d) kafka at `big_ops` ops: past
+    1,024 vertices, so the host search, as in the JAX package; (13e)
+    bank, long-fork, set, rw-register, adya-g2, causal, causal-reverse
+    and total-queue for `seconds` each (rw-register at WR_TXNS
+    transactions, screened on the card): EXIT_VALID; adya-g2 with its
+    racy client: EXIT_INVALID; the cycle checker on `dev` over
+    rw-register's history (realtime and process analyzers: valid) and
+    13c's rw graph (cyclic), screened there and equal to the host
+    search."""
+    import tempfile
+    import threading
+
+    from jepsen_tpu_torch import cli, store
+    from jepsen_tpu_torch import generator as gen
+    from jepsen_tpu_torch.checker.elle.graph import check_cycles
+    from jepsen_tpu_torch.history.core import Op, history
+    from jepsen_tpu_torch.workloads import adya, cycle, kafka, test_fn
+
+    dev = torch.device("cuda") if dev is None else torch.device(dev)
+    cuda = dev.type == "cuda"
+    smi = (subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip()
+           if cuda else "cpu")
+    out: dict = {"card": smi}
+    t_phase = time.perf_counter()
+
+    def limited(n: int):
+        def suite(opts):
+            t = test_fn(opts)
+            return {**t, "generator": gen.limit(n, t["generator"])}
+        return suite
+
+    with tempfile.TemporaryDirectory(prefix="phase13-") as tmp:
+        def argv(name, sub, *more, limit=seconds):
+            return ["test", "--workload", name, "--dummy-ssh", "--device",
+                    str(dev.type), "--time-limit", str(limit), *more,
+                    "--store-dir", os.path.join(tmp, sub)]
+
+        a = _workload_cli(torch, dev, argv("kafka", "a", *KAFKA_ARGS),
+                          limited(kafka_ops), "a")
+        lo, hi = KAFKA_VERTICES
+        if (a["exit"] != cli.EXIT_VALID or not lo <= a["vertices"] <= hi
+                or a["route"] != "device screen"):
+            raise AssertionError(f"phase13a: exit {a['exit']}, "
+                                 f"{a['vertices']} vertices, route "
+                                 f"{a['route']}")
+        need_launches("phase13a", dev, {"scc_screens": a["screens"]},
+                      "scc_screens")
+        if cuda:
+            a["screen_ms"] = _screen_ms(torch, dev, a["graph"])
+
+        b = _workload_cli(
+            torch, dev, argv("kafka", "b", *KAFKA_ARGS, "--faults",
+                             "lose-acked,duplicate", "--fault-rate", "0.02"),
+            limited(kafka_ops), "b")
+        ran = dict(b["results"])
+        ran.pop("resilience", None)
+        again = json.loads(store.format._encode(kafka.analyze(
+            kafka.revive_polls(b["history"]).client_ops(), device="cpu")))
+        if (b["exit"] != cli.EXIT_INVALID
+                or not {"lost-write", "duplicate"} <= set(b["anomaly_types"])
+                or again != ran):
+            raise AssertionError(f"phase13b: exit {b['exit']}, types "
+                                 f"{b['anomaly_types']}, the CPU analysis "
+                                 f"equal: {again == ran}")
+
+        h = history([Op(**d) for d in kafka_cycle_ops(KAFKA_CYCLE_PAIRS)])
+        c = {}
+        for rw in (False, True):
+            with GraphSpy() as spy:
+                t0 = time.perf_counter()
+                res, _, counts = counted(torch, dev, lambda: kafka.analyze(
+                    h, rw_edges=rw, device=dev))
+                wall = time.perf_counter() - t0
+            g = spy.graphs[0]
+            host = sorted({x["type"] for x in check_cycles(g)})
+            r = {"rw_edges": rw, "vertices": len(g.vertices),
+                 "edges": g.n_edges(), "analyze_s": wall,
+                 "anomaly_types": res["anomaly-types"], "host_types": host,
+                 "screens": counts.get("scc_screens", 0),
+                 "extractions": counts.get("scc_extractions", 0),
+                 "bfs_levels": counts.get("scc_bfs_levels", 0)}
+            if res["valid"] is not False or res["anomaly-types"] != host:
+                raise AssertionError(f"phase13c: {r}")
+            need_launches("phase13c", dev,
+                          {"scc_extractions": r["extractions"]},
+                          "scc_extractions")
+            if cuda:
+                r["screen_ms"] = _screen_ms(torch, dev, g)
+                r["extract_ms"] = _extract_ms(torch, dev, g)
+            log("phase13c: " + json.dumps(r))
+            c["rw" if rw else "plain"] = r
+
+        d = _workload_cli(torch, dev, argv("kafka", "d", *KAFKA_ARGS,
+                                           limit=KAFKA_BIG_SECONDS),
+                          limited(big_ops), "d")
+        if d["vertices"] is None or d["vertices"] <= 1024 \
+                or d["route"] != "host" or d["screens"]:
+            raise AssertionError(f"phase13d: {d['vertices']} vertices, "
+                                 f"route {d['route']}")
+
+        e = {}
+        for name, more in OTHER_WORKLOADS.items():
+            suite = limited(WR_TXNS) if name == "rw-register" else test_fn
+            r = _workload_cli(torch, dev, argv(name, f"e-{name}",
+                                               "--concurrency", "10", *more),
+                              suite, f"e {name}")
+            if r["exit"] != cli.EXIT_VALID:
+                raise AssertionError(f"phase13e {name}: exit {r['exit']}: "
+                                     f"{str(r['results'])[:400]}")
+            if name == "rw-register":
+                need_launches("phase13e rw-register", dev,
+                              {"scc_screens": r["screens"]}, "scc_screens")
+            e[name] = r
+
+        def racy(opts):
+            t = test_fn(opts)
+            t["client"] = adya.InMemoryG2Client(
+                racy=True, barrier=threading.Barrier(2))
+            return {**t, "generator": gen.limit(40, t["generator"])}
+
+        r = _workload_cli(torch, dev, argv("adya-g2", "e-racy",
+                                           "--concurrency", "2"),
+                          racy, "e adya-g2 racy")
+        if r["exit"] != cli.EXIT_INVALID:
+            raise AssertionError(f"phase13e racy adya: exit {r['exit']}")
+        e["adya-g2 racy"] = r
+
+        # The generic cycle checker asked for the card (its default is
+        # "off", the host search, as in the JAX package): rw-register's
+        # history through the realtime and process analyzers, screened
+        # on the card, and 13c's rw graph, extracted there; each held
+        # against the host search of the same graph.
+        cyc = {}
+        for what, analyzers, hist in (
+                ("realtime+process", (cycle.realtime_graph,
+                                      cycle.process_graph),
+                 e["rw-register"]["history"]),
+                ("13c graph", (lambda _h, g=g: g,), h)):
+            res, _, counts = counted(torch, dev, lambda: cycle.checker(
+                *analyzers, device=dev).check({}, hist, {}))
+            host = cycle.checker(*analyzers).check({}, hist, {})
+            r = {"vertices": res["vertices"], "edges": res["edges"],
+                 "valid": res["valid"], "anomaly_types": res["anomaly-types"],
+                 "host_types": host["anomaly-types"],
+                 "screens": counts.get("scc_screens", 0),
+                 "extractions": counts.get("scc_extractions", 0)}
+            if (res["valid"] != host["valid"]
+                    or r["anomaly_types"] != r["host_types"]
+                    or res["valid"] is not (what == "realtime+process")):
+                raise AssertionError(f"phase13e cycle {what}: {r}")
+            need_launches(f"phase13e cycle {what}", dev,
+                          {"scc_screens": r["screens"]}, "scc_screens")
+            log(f"phase13e cycle {what}: " + json.dumps(r))
+            cyc[what] = r
+        keep = ("exit", "valid", "anomaly_types", "ops", "run_s",
+                "analyze_s", "vertices", "edges", "route", "screens",
+                "extractions", "cycle_search_s", "screen_ms")
+        for k, r in (("a", a), ("b", b), ("d", d)):
+            out[k] = {x: r[x] for x in keep if x in r}
+        out["b"]["cpu_equal"] = True
+        out["c"] = c
+        out["e"] = {k: {x: r[x] for x in keep if x in r}
+                    for k, r in e.items()}
+        out["e"]["cycle"] = cyc
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"phase13: done in {out['wall_s']:.3f} s")
+    return out
+
+
 def elle_programs(torch, elle: dict) -> list:
     """The device-program entries (B7 and B8) of phase 8 for the JSON
     line before the kernels line: CUDA-event times from phase 8, device
@@ -3874,6 +4287,7 @@ def main() -> int:
     groups, groups_r = phase_groups(torch, packed)
     batched = phase_batched(torch, recorder)
     packing_r = phase_packing(torch, history, recorder)
+    workloads_r = phase_workloads(torch)
     ptxas = ptxas_report(kernels.build_log)
     for key, n in sass_instructions(kernels.sweep_lib()._name).items():
         ptxas.setdefault(key, {})["sass_instructions"] = n
@@ -3929,6 +4343,7 @@ def main() -> int:
     main_r["breakdown"] = breakdown(torch, history)
     log("profile: main path breakdown " + json.dumps(main_r["breakdown"]))
     bad_r = phase_invalid(torch)
+    programs.append(packed_bfs_entry(bad_r))
 
     log(f"phase4 done; main path {main_r['ops_per_s']:.1f} ops/s, "
         f"invalid path {bad_r['wall_s']:.3f} s; many-key mixed "
@@ -3949,7 +4364,11 @@ def main() -> int:
         f"analyze {run_r['a']['analyze_s']:.3f} s); packing phase 12 "
         f"{packing_r['wall_s']:.3f} s (resume "
         f"{packing_r['resume']['resumed']['wall_s']:.3f} s of fresh "
-        f"{packing_r['resume']['fresh']['wall_s']:.3f} s)")
+        f"{packing_r['resume']['fresh']['wall_s']:.3f} s); workloads "
+        f"phase 13 {workloads_r['wall_s']:.3f} s (13d "
+        f"{workloads_r['d']['vertices']} vertices, route "
+        f"{workloads_r['d']['route']})")
+    print(json.dumps({"workloads": workloads_r}))
     print(json.dumps({"device_programs": programs}))
     print(json.dumps({"kernels": [entry] + more}))
     print(smi)

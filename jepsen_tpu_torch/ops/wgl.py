@@ -294,18 +294,30 @@ def _run_block(member, states, alive, iters: int, tables, B: int,
     dev = member.device
     expand = _expand_level_packed if packed_on else _expand_level
     W = tables["ret_w"].shape[0]
+    # With telemetry on, the packed levels also count what this data
+    # needs (roofline.packed_level_cost): two more sums in the level's
+    # one host read.
+    count_rows = packed_on and telemetry.enabled()
     while it < iters:
         child, new_states, live_c, h1, h2, acc, overflow = expand(
             member, states, alive, tables, Cmax, pm)
         child_s, states_s, uniq, n_uniq = _dedup_sort(
             child, new_states, live_c, h1, h2)
         n_keep = torch.clamp(n_uniq, max=B)
+        flags = [acc, overflow | (n_uniq > B), n_keep]
+        if count_rows:
+            flags += [alive.sum(), live_c.sum()]
         sel = nonzero_static(uniq, B, 0)
         member = child_s[sel]
         states = states_s[sel]
         alive = torch.arange(B, device=dev) < n_keep
-        acc_h, inc_h, n_keep_h = _device.host(
-            torch.stack([acc, overflow | (n_uniq > B), n_keep]))
+        read = _device.host(torch.stack(flags))
+        acc_h, inc_h, n_keep_h = read[:3]
+        if count_rows:
+            cost = roofline.packed_level_cost(W, states.shape[1], read[3],
+                                              read[4], n_keep_h)
+            telemetry.count("wgl.bfs.packed_bytes", cost["bytes_accessed"])
+            telemetry.count("wgl.bfs.packed_ops", cost["flops"])
         _device.count("bfs_levels")
         if profile.cost_hooked():
             profile.note_cost(roofline.bfs_level_cost(

@@ -24,6 +24,8 @@ count as operations; a matrix product 2 per multiply-add).
                           instrumented chunk, wgl_witness.py:872/947);
   * `chain_round_cost`  — one chain round of `_Block.heavy`;
   * `bfs_level_cost`    — one frontier-BFS level (wgl.py:297);
+  * `packed_level_cost` — one packed frontier-BFS level, counted from
+                          its live rows (wgl.py:145);
   * `batched_level_cost`— one batched-BFS level over K keys
                           (wgl_batched.py:297);
   * `closure_cost`      — the Elle closure screen (scc.py:102-110);
@@ -159,6 +161,22 @@ def bfs_level_cost(W: int, B: int, SW: int, n_slots: int) -> dict:
     children = B * n_slots
     nbytes = 2 * (W * B + 4 * B * SW + B) + 20 * W
     return _cost(children * (SW + 1) + children * 2 * 2 * (W + SW), nbytes)
+
+
+def packed_level_cost(W: int, SW: int, rows_in: int, children: int,
+                      rows_out: int) -> dict:
+    """One packed frontier-BFS level (`ops.wgl._expand_level_packed`
+    and its dedup) as this level's data needs it: reads the `rows_in`
+    live configurations and writes the `rows_out` kept ones (each
+    ceil(W / 32) int32 member words, SW int32 state words and an alive
+    byte), and reads the window's ops (5 x 4 W bytes).  Operations: each
+    of the `children` live children's model step (a legality test and
+    SW selects) and its two uint32 hashes over its member and state
+    words (a multiply-add each)."""
+    words = -(-W // 32)
+    row = 4 * words + 4 * SW + 1
+    return _cost(children * (SW + 1 + 2 * 2 * (words + SW)),
+                 (rows_in + rows_out) * row + 20 * W)
 
 
 def batched_level_cost(K: int, W: int, B: int, SW: int,

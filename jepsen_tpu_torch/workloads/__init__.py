@@ -1,13 +1,14 @@
 """Stock workloads: {generator, checker, model, client} maps, each with
 an in-memory reference client so it runs whole-stack with no cluster.
 
-The port's copy of `jepsen_tpu/workloads/__init__.py`, trimmed to the
-north-star per-key register (`linearizable_register`) and list-append
-(`append`); the other workloads wait for later slices.  `main` runs
-either through the CLI:
+The port's copy of `jepsen_tpu/workloads/__init__.py`: the same eleven
+modules, and `queue`, which that file does not import.  `cycle` is a
+checker factory with no workload of its own; every other module's
+workload is in `WORKLOADS` under its test-map name, and `main` runs any of them through the CLI, its checkers on
+--device (cuda by default, or cpu):
 
-    python -m jepsen_tpu_torch.workloads test --workload linearizable-register \
-        --dummy-ssh --device cpu --key-count 8 --time-limit 10
+    python -m jepsen_tpu_torch.workloads test --workload kafka \
+        --dummy-ssh --device cuda --time-limit 10
 """
 
 from __future__ import annotations
@@ -16,14 +17,49 @@ import argparse
 import sys
 from typing import Optional, Sequence
 
-from . import append, linearizable_register
+from . import (
+    adya,
+    append,
+    bank,
+    causal,
+    causal_reverse,
+    cycle,
+    kafka,
+    linearizable_register,
+    long_fork,
+    queue,
+    register_set,
+    wr,
+)
 
-__all__ = ["WORKLOADS", "append", "linearizable_register", "main",
-           "test_fn"]
+__all__ = [
+    "WORKLOADS",
+    "adya",
+    "append",
+    "bank",
+    "causal",
+    "causal_reverse",
+    "cycle",
+    "kafka",
+    "linearizable_register",
+    "long_fork",
+    "main",
+    "queue",
+    "register_set",
+    "test_fn",
+    "wr",
+]
 
-#: Workload name -> module.
-WORKLOADS = {"linearizable-register": linearizable_register,
-             "list-append": append}
+#: Workload name (its test map's "name") -> module.
+WORKLOADS = {"adya-g2": adya, "bank": bank, "causal": causal,
+             "causal-reverse": causal_reverse, "kafka": kafka,
+             "linearizable-register": linearizable_register,
+             "list-append": append, "long-fork": long_fork,
+             "rw-register": wr, "set": register_set, "total-queue": queue}
+
+
+def _names(s: str) -> set:
+    return {x for x in s.split(",") if x}
 
 
 def _extra_opts(p: argparse.ArgumentParser) -> None:
@@ -36,6 +72,16 @@ def _extra_opts(p: argparse.ArgumentParser) -> None:
                    help="linearizability algorithm (default wgl-tpu)")
     p.add_argument("--consistency-model", default=None)
     p.add_argument("--max-txn-length", type=int, default=None)
+    p.add_argument("--max-writes-per-key", type=int, default=None)
+    p.add_argument("--faults", type=_names, default=None,
+                   help="kafka: comma-separated log faults (lose-acked, "
+                   "duplicate, skip-offset, unseen)")
+    p.add_argument("--fault-rate", type=float, default=None)
+    p.add_argument("--final-polls", type=int, default=None)
+    p.add_argument("--rate", type=float, default=None,
+                   help="total-queue: ops per second")
+    p.add_argument("--drain-ops", type=int, default=None,
+                   help="total-queue: dequeues in the final drain")
 
 
 def test_fn(opts: dict) -> dict:

@@ -226,6 +226,19 @@ QUEUE_CASES = [
 _CHECKED = {}
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One torch thread: the suite runs several test processes at once,
+    and torch's intra-op threads then spin against each other on the
+    CPU until a 40-op device search outlives its 60 s budget and ends
+    "unknown" (engine label "wgl-tpu+cpu-fallback" in place of the
+    reference's "wgl-tpu+cpu-report")."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _both(name, rows, algo, **kw):
     if name not in _CHECKED:
         mk, ref_mk = MODELS[name]

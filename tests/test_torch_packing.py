@@ -31,14 +31,16 @@ from jepsen_tpu_torch import convert
 from jepsen_tpu_torch import models
 from jepsen_tpu_torch import telemetry
 from jepsen_tpu_torch.checker import Linearizable
-from jepsen_tpu_torch.ops import degrade, packing
+from jepsen_tpu_torch.ops import degrade, packing, wgl
 from jepsen_tpu_torch.ops.wgl import PACKED_ENV, check_wgl_device
 from jepsen_tpu_torch.ops.wgl_batched import check_wgl_batched
 from jepsen_tpu_torch.ops.wgl_stream import check_wgl_witness_stream
 from jepsen_tpu_torch.ops.wgl_witness import check_wgl_witness
+from jepsen_tpu_torch.telemetry import roofline
 from jepsen_tpu_torch.utils.histgen import random_register_history
 
 import torch_ported
+from chip_smoke import packed_bfs_bound
 
 PORTED = torch_ported.load("test_wgl_packed")
 APPEND_MANY = ("test_append_many_byte_parity_fuzz",
@@ -164,6 +166,39 @@ def test_device_route_equals_the_reference():
         got = check_wgl_device(p, _CAS, device="cpu")
         assert (got.valid, got.configs_explored) == (
             want.valid, want.configs_explored)
+
+
+@pytest.mark.parametrize("seed", [1, 3])
+def test_packed_bfs_counts_its_live_rows(seed, monkeypatch):
+    """With telemetry on, each packed BFS level counts the bytes and
+    operations its live rows need (`roofline.packed_level_cost`), which
+    `chip_smoke.packed_bfs_bound` reads for B9's bound: the totals are
+    the per-level costs of the rows the expansion was given, the live
+    children it made and the rows the dedup kept."""
+    _, port = _register_packs(140, [seed], bad=(seed,))
+    levels = []
+    expand, dedup = wgl._expand_level_packed, wgl._dedup_sort
+
+    def counted_expand(member, states, alive, tables, n_slots, pm):
+        out = expand(member, states, alive, tables, n_slots, pm)
+        levels.append([tables["ret_w"].shape[0], states.shape[1],
+                       int(alive.sum()), int(out[2].sum())])
+        return out
+
+    def counted_dedup(*a):
+        out = dedup(*a)
+        levels[-1].append(min(int(out[3]), 1024))  # the default beam
+        return out
+
+    monkeypatch.setattr(wgl, "_expand_level_packed", counted_expand)
+    monkeypatch.setattr(wgl, "_dedup_sort", counted_dedup)
+    got = packed_bfs_bound(torch, port[0], _CAS, dev="cpu")
+    costs = [roofline.packed_level_cost(*lv) for lv in levels]
+    assert got["levels"] == len(levels) > 0
+    assert got["bytes"] == sum(c["bytes_accessed"] for c in costs)
+    assert got["operations"] == sum(c["flops"] for c in costs)
+    assert (got["bound_ms"], got["bound_by"]) == roofline.bound(
+        got["operations"], got["bytes"])
 
 
 def test_batched_equals_the_reference():

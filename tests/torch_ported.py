@@ -4,11 +4,10 @@
 imports of `jepsen_tpu` at `jepsen_tpu_torch`, and executes it as a new
 module, so every scenario it defines builds its inputs from the port
 and asserts the same expectations the reference's run meets.  While a
-case runs, the port's `Linearizable` and its search entry points
-(`check_wgl_device`, `check_wgl_batched`, `check_wgl_witness`,
-`check_wgl_witness_stream`) default to device="cpu" (the port's
-checkers run on the card unless asked otherwise; these tests run on
-the CPU).
+case runs, `device.resolve` takes "cuda" for the CPU: every entry point
+of the port resolves its `device` there, so its checkers, searches and
+a test map's "device", "cuda" by default, run on the CPU (the port runs
+on the card unless asked otherwise; these tests run on the CPU).
 
 `cases(mod)` lists its tests ("test_x" or "TestClass.test_y", with one
 entry per parametrized case), `run(mod, case, request)` runs one, with
@@ -87,16 +86,6 @@ def cases(mod: types.ModuleType, exclude=()) -> list:
     return out
 
 
-#: The port's search entry points whose `device` default a case runs
-#: with set to "cpu".
-_ENTRY_POINTS = (
-    ("jepsen_tpu_torch.ops.wgl", "check_wgl_device"),
-    ("jepsen_tpu_torch.ops.wgl_batched", "check_wgl_batched"),
-    ("jepsen_tpu_torch.ops.wgl_witness", "check_wgl_witness"),
-    ("jepsen_tpu_torch.ops.wgl_stream", "check_wgl_witness_stream"),
-)
-
-
 def run(mod: types.ModuleType, case: str, request) -> None:
     qual, _, idx = case.partition("[")
     owner, _, meth = qual.partition(".")
@@ -105,21 +94,14 @@ def run(mod: types.ModuleType, case: str, request) -> None:
         base = getattr(getattr(mod, owner), meth)
     else:
         fn = base = getattr(mod, owner)
-    # A linearizable checker built inside the test (a function-level
-    # import) takes device="cpu" too.
     import importlib
 
-    plin = importlib.import_module("jepsen_tpu_torch.checker.linearizable")
-
-    mp = request.getfixturevalue("monkeypatch")
-    init = plin.Linearizable.__init__
-    mp.setattr(plin.Linearizable, "__init__",
-               lambda self, *a, **kw: init(self, *a, **{"device": "cpu",
-                                                        **kw}))
-    for mod_name, fn_name in _ENTRY_POINTS:
-        entry = getattr(importlib.import_module(mod_name), fn_name)
-        mp.setattr(entry, "__kwdefaults__",
-                   {**entry.__kwdefaults__, "device": "cpu"})
+    dev = importlib.import_module("jepsen_tpu_torch.device")
+    resolve = dev.resolve
+    request.getfixturevalue("monkeypatch").setattr(
+        dev, "resolve", lambda device="cuda": resolve(
+            "cpu" if device is None or str(device).startswith("cuda")
+            else device))
     params = _param_sets(base)[int(idx[:-1]) if idx else 0][1]
     kwargs = dict(params)
     for p in inspect.signature(fn).parameters:
