@@ -6,8 +6,8 @@
 Needs one CUDA card and the CUDA toolkit (nvcc): the witness sweep
 kernel is built from jepsen_tpu_torch/csrc/ into build/jepsen_tpu_torch/
 at first use.  Exits non-zero, printing no result, when torch sees no
-CUDA device or the package is missing.  Fourteen phases, each raising on
-failure, run in the order 1, 2, 5, 6, 7, 8, 9, 10, 11, 1b, 12, 13, 3, 4
+CUDA device or the package is missing.  Fifteen phases, each raising on
+failure, run in the order 1, 2, 5, 6, 7, 8, 9, 10, 11, 1b, 12, 13, 14, 3, 4
 (every host-clock and CUDA-event timing before the profiler first
 runs).  The searches run with the packed member lanes at their default
 (`JEPSEN_WGL_PACKED`, on), as users run them.  The
@@ -203,8 +203,29 @@ it; phase 9 reads its own parts (JEPSEN_PLAN=0, memo, faults, records):
    prints ops, run and analyze seconds, the graph's vertices and edges,
    the route and the screen's launches; the screen and extraction
    times are CUDA events.
+14. The five demo suites against their real C++ servers
+   (`phase_suites`): each suite's CLI (`main` of
+   jepsen_tpu_torch.suites.*) with `--device cuda`, its server compiled
+   with g++ from the checkout and run as daemons on this machine, each
+   run on its own store directory and ports.  (14a) kvdb register with
+   `--algorithm wgl-tpu` and kill faults: valid, killed at least once,
+   the witness sweep (B1) launched, `cli analyze` on the CPU with the
+   exact engine the same verdict; (14b) logd kafka without faults,
+   1,000 ops: valid, its graph screened on the card (B7); (14c) logd
+   kafka with kills and a 400 ms write-behind: the verdict and anomaly
+   types of the stored run's CPU analysis; (14d) txnd rw-register under
+   snapshot isolation (its elle-wr result the stored run's CPU
+   analysis) and serializable (valid, screened on the card); (14e)
+   repkv safe reads under partitions: valid, B1 launched; (14f) electd
+   quorum under partitions: linearizable, partitioned; electd unsafe
+   under partitions: the verdict of the stored run's CPU re-analysis.
+   Each prints exit code, ops, verdict, route and the launches of B1,
+   B7 and B8, and the phase the control process's uid and sudo; no
+   server outlives its run.  Raises without g++.
 
-The last lines are the phase-13 JSON line (per sub-phase: verdicts,
+The last lines are the phase-14 JSON line (per run: exit, ops, verdict,
+route, B1 sweeps, B7 screens and B8 extractions, seconds; the card and
+the host's privilege), the phase-13 JSON line (per sub-phase: verdicts,
 vertices, routes, launches and seconds, and the card), the
 device-program JSON line (the closure screen, the extraction and
 phase 4's packed BFS level, plain PyTorch: time, launches per check,
@@ -3801,13 +3822,12 @@ class GraphSpy:
         self.scc.check_cycles_device = self.real
 
 
-def _workload_cli(torch, dev, argv, suite, what: str) -> dict:
-    """`cli.run` of `argv` over `suite` with the counts set to 0 just
-    before and read just after, the analysis timed apart, and the
-    graphs the cycle screen was given -> the readings, with the stored
-    run's results and history."""
-    from jepsen_tpu_torch import cli, core, store
-    from jepsen_tpu_torch.workloads import _extra_opts
+def _cli_readings(torch, dev, call, store_dir: str, label: str) -> dict:
+    """`call()`, a CLI entry point's run that stores under `store_dir`,
+    with the counts set to 0 just before and read just after, the
+    analysis timed apart, and the graphs the cycle screen was given ->
+    the readings, with the stored run's results and history."""
+    from jepsen_tpu_torch import core, store
 
     real = core.analyze
     spent = []
@@ -3821,17 +3841,15 @@ def _workload_cli(torch, dev, argv, suite, what: str) -> dict:
                 torch.cuda.synchronize()
             spent.append(time.perf_counter() - t0)
 
-    parser = cli.single_test_cmd(suite, extra_opts=_extra_opts)
     core.analyze = timed
     try:
         with GraphSpy() as spy:
             t0 = time.perf_counter()
-            code, _, counts = counted(torch, dev,
-                                      lambda: cli.run(parser, argv))
+            code, launches, counts = counted(torch, dev, call)
             wall = time.perf_counter() - t0
     finally:
         core.analyze = real
-    tf = store.load(store.latest(argv[argv.index("--store-dir") + 1]))
+    tf = store.load(store.latest(store_dir))
     try:
         results, h = tf.results, tf.history()
     finally:
@@ -3844,13 +3862,25 @@ def _workload_cli(torch, dev, argv, suite, what: str) -> dict:
          "vertices": len(g.vertices) if g is not None else None,
          "edges": g.n_edges() if g is not None else None,
          "cycle_search_s": sum(spy.seconds),
+         "sweeps": launches.get("witness_sweep", 0),
          "screens": counts.get("scc_screens", 0),
          "extractions": counts.get("scc_extractions", 0),
          "route": None if g is None else (
              "device screen" if counts.get("scc_screens", 0) else "host")}
-    log(f"phase13{what}: " + json.dumps(r))
+    log(f"{label}: " + json.dumps(r))
     r.update(results=results, history=h, graph=g)
     return r
+
+
+def _workload_cli(torch, dev, argv, suite, what: str) -> dict:
+    """`cli.run` of `argv` over `suite` (phase 13) -> `_cli_readings`."""
+    from jepsen_tpu_torch import cli
+    from jepsen_tpu_torch.workloads import _extra_opts
+
+    parser = cli.single_test_cmd(suite, extra_opts=_extra_opts)
+    return _cli_readings(torch, dev, lambda: cli.run(parser, argv),
+                         argv[argv.index("--store-dir") + 1],
+                         f"phase13{what}")
 
 
 def _screen_ms(torch, dev, g) -> float:
@@ -4052,6 +4082,279 @@ def phase_workloads(torch, dev=None, kafka_ops: int = KAFKA_OPS,
         out["e"]["cycle"] = cyc
     out["wall_s"] = time.perf_counter() - t_phase
     log(f"phase13: done in {out['wall_s']:.3f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The demo suites against their real C++ servers (phase 14).
+
+#: Seconds of each phase-14 run (the reference's suite tests' settings,
+#: tests/test_{kvdb,logd,txnd,repkv,electd}_suite.py, cut to these).
+SUITE_SECONDS = {"a": 5, "b": 5, "c": 8, "d": 6, "e": 6, "f": 8}
+#: 14b's op limit: its Kafka graph stays under the screen's 1,024
+#: vertices (1,000 ops made 795 in phase 13a).
+SUITE_KAFKA_OPS = 1000
+#: The replicated suites' nodes (their tests' three).
+SUITE_NODES = ["--node", "n1", "--node", "n2", "--node", "n3"]
+#: Result keys that are wall-clock readings, which no two analyses
+#: share.
+TIMINGS = ("elapsed-s",)
+
+
+def untimed(x):
+    """A stored result with its wall-clock readings dropped."""
+    if isinstance(x, dict):
+        return {k: untimed(v) for k, v in x.items() if k not in TIMINGS}
+    if isinstance(x, list):
+        return [untimed(v) for v in x]
+    return x
+
+
+def host_privilege() -> dict:
+    """The control process's uid and whether `sudo -n true` works: the
+    suites' `grepkill` runs under `sudo` (control/util.py), and without
+    a working sudo it kills nothing, so a leaked server then lives on
+    (phase 14's sweep catches it)."""
+    import shutil
+
+    sudo = shutil.which("sudo")
+    ok = sudo is not None and subprocess.run(
+        [sudo, "-n", "true"], capture_output=True).returncode == 0
+    return {"uid": os.getuid(), "sudo": sudo, "sudo_n": ok}
+
+
+def _servers(tmp: str) -> list:
+    """Processes whose command line names `tmp`: the servers a phase-14
+    run started from its store directory (their binaries and data live
+    there)."""
+    out = []
+    for pid in os.listdir("/proc"):
+        if not pid.isdigit() or int(pid) == os.getpid():
+            continue
+        try:
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode(errors="replace")
+        except OSError:
+            continue
+        if tmp in cmd:
+            out.append(f"{pid}: {cmd.strip()}")
+    return out
+
+
+def _kill_servers(tmp: str) -> list:
+    """SIGKILLs every process `_servers(tmp)` names -> their lines."""
+    import signal
+
+    left = _servers(tmp)
+    for line in left:
+        try:
+            os.kill(int(line.split(":", 1)[0]), signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+    return left
+
+
+def phase_suites(torch, dev=None) -> dict:
+    """Phase 14: the five demo suites through the port's suite CLIs
+    (`main` of jepsen_tpu_torch.suites.*) with `--device` `dev` (the
+    card by default), each against its C++ server compiled with g++
+    from the checkout and run as daemons on this machine (LocalRemote).
+    (14a) kvdb register, `--algorithm wgl-tpu`, kill faults: EXIT_VALID,
+    a kill in the history, the witness sweep (B1) launched, and `cli
+    analyze --device cpu --algorithm cpu` of the stored run the same
+    verdict; (14b) logd kafka, no faults, SUITE_KAFKA_OPS ops at rate
+    150: EXIT_VALID, the graph screened on the card (B7); (14c) logd
+    kafka with kill faults and a 400 ms write-behind at rate 200: the
+    verdict and anomaly types those of `cli analyze --device cpu` of
+    the stored run (the conviction printed, not gated); (14d) txnd wr
+    under snapshot isolation, then `--serializable`: serializable
+    EXIT_VALID and screened on the card (B7); SI's elle-wr result that
+    of the stored run's CPU analysis, G2 / G-single printed when
+    convicted; (14e) repkv safe reads under partitions: EXIT_VALID, B1
+    launched; (14f) electd `--quorum` under partitions at rate 40: the
+    linearizability verdict valid, a partition in the history; electd
+    unsafe under partitions: the verdict that of the stored run's CPU
+    re-analysis (`--device cpu --algorithm cpu`).  Each run takes its
+    own store directory (and so its own ports), and no server may
+    outlive its run's teardown: the phase raises if one does, and
+    SIGKILLs every server it started on any way out.  Raises when g++
+    is missing."""
+    import shutil
+    import tempfile
+
+    from jepsen_tpu_torch import cli, store
+    from jepsen_tpu_torch import generator as gen
+    from jepsen_tpu_torch.suites import electd, kvdb, logd, repkv, txnd
+
+    if shutil.which("g++") is None:
+        raise RuntimeError("phase14: no g++: the suites compile their "
+                           "servers with it")
+    dev = torch.device("cuda") if dev is None else torch.device(dev)
+    cuda = dev.type == "cuda"
+    smi = (subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip()
+           if cuda else "cpu")
+    out: dict = {"card": smi, "host": host_privilege()}
+    log("phase14: host " + json.dumps(out["host"]))
+    t_phase = time.perf_counter()
+    keep = ("exit", "valid", "anomaly_types", "ops", "run_s", "analyze_s",
+            "vertices", "route", "sweeps", "screens", "extractions")
+
+    tmp = tempfile.mkdtemp(prefix="phase14-")
+    try:
+        def run(mod, what, *args, main=None):
+            """`mod.main(["test", ...])` (or `main`) on its own store
+            directory -> the readings, with the linearizability
+            checker's algorithm as the route of a register run and no
+            server of the run left."""
+            store_dir = os.path.join(tmp, what)
+            argv = ["test", "--device", dev.type, "--time-limit",
+                    str(SUITE_SECONDS[what[0]]), *args, "--store-dir", store_dir]
+            r = _cli_readings(torch, dev, lambda: (main or mod.main)(argv),
+                              store_dir, f"phase14{what}")
+            left = _servers(store_dir)
+            if left:
+                raise AssertionError(f"phase14{what}: servers outlived the "
+                                     f"run's teardown: {left}")
+            lin = r["results"].get("linear")
+            if r["route"] is None and isinstance(lin, dict):
+                r["route"] = lin.get("algorithm")
+            r["dir"] = store.latest(store_dir)
+            r["store_dir"] = store_dir
+            return r
+
+        def reanalyze(mod, r, *args) -> dict:
+            """`mod.main(["analyze", "--device", "cpu", ...])` of r's
+            stored run -> its exit code and the results it stored."""
+            code = mod.main(["analyze", "--device", "cpu", *args,
+                             "--store-dir", r["store_dir"], r["dir"]])
+            tf = store.load(r["dir"])
+            try:
+                res = json.loads(store.format._encode(tf.results))
+            finally:
+                tf.close()
+            return {"exit": code, "results": untimed(res)}
+
+        def stored(r) -> dict:
+            return untimed(json.loads(store.format._encode(r["results"])))
+
+        a = run(kvdb, "a", "--algorithm", "wgl-tpu", "--interval", "1.5",
+                "--concurrency", "4", "--seed", "11")
+        kills = sum(1 for o in a["history"]
+                    if o.process == "nemesis" and o.f == "kill")
+        cpu = reanalyze(kvdb, a, "--algorithm", "cpu")
+        a["kills"], a["cpu_valid"] = kills, cpu["results"]["valid"]
+        if (a["exit"] != cli.EXIT_VALID or not kills
+                or cpu["exit"] != a["exit"] or a["cpu_valid"] != a["valid"]):
+            raise AssertionError(f"phase14a: exit {a['exit']}, {kills} "
+                                 f"kills, CPU re-analysis {cpu['exit']} "
+                                 f"{a['cpu_valid']}")
+        need_launches("phase14a", dev, {"witness_sweep": a["sweeps"]})
+
+        def quiet_kafka(opts):
+            t = cli.localize_test(logd.logd_test({**opts, "faults": []}))
+            return {**t, "generator": gen.limit(SUITE_KAFKA_OPS,
+                                                t["generator"])}
+
+        parser = cli.single_test_cmd(quiet_kafka, name="logd",
+                                     extra_opts=logd._extra_opts)
+        b = run(logd, "b", "--rate", "150", "--seed", "11",
+                main=lambda argv: cli.run(parser, argv))
+        if (b["exit"] != cli.EXIT_VALID or b["route"] != "device screen"
+                or b["vertices"] > 1024):
+            raise AssertionError(f"phase14b: exit {b['exit']}, "
+                                 f"{b['vertices']} vertices, route "
+                                 f"{b['route']}")
+        need_launches("phase14b", dev, {"scc_screens": b["screens"]},
+                      "scc_screens")
+
+        c = run(logd, "c", "--faults", "kill", "--flush-ms", "400",
+                "--rate", "200", "--interval", "1.2", "--concurrency", "6",
+                "--seed", "1")
+        cpu = reanalyze(logd, c, "--flush-ms", "400")
+        ran = stored(c)
+        c["cpu_equal"] = (cpu["results"]["valid"] == ran["valid"]
+                          and cpu["results"].get("anomaly-types")
+                          == ran.get("anomaly-types"))
+        c["kills"] = sum(1 for o in c["history"]
+                         if o.process == "nemesis" and o.f == "kill")
+        if not c["cpu_equal"] or cpu["exit"] != c["exit"]:
+            raise AssertionError(f"phase14c: the card's verdict "
+                                 f"{ran['valid']} {ran.get('anomaly-types')}"
+                                 f", the CPU analysis "
+                                 f"{cpu['results']['valid']} "
+                                 f"{cpu['results'].get('anomaly-types')}")
+        log(f"phase14c: {c['kills']} kills; convicted: "
+            f"{c['valid'] is False}, anomaly types {c['anomaly_types']}")
+
+        txnd_args = ("--concurrency", "8", "--rate", "150", "--key-count",
+                     "4", "--seed", "0")
+        d_si = run(txnd, "d-si", *txnd_args)
+        cpu = reanalyze(txnd, d_si)
+        elle = stored(d_si)["elle-wr"]
+        d_si["cpu_equal"] = cpu["results"]["elle-wr"] == elle
+        d_si["elle_types"] = elle.get("anomaly-types")
+        if not d_si["cpu_equal"]:
+            raise AssertionError(f"phase14d SI: elle-wr {elle}, the CPU "
+                                 f"analysis {cpu['results']['elle-wr']}")
+        if elle["valid"] is False:
+            log(f"phase14d SI: convicted, {d_si['elle_types']} (G2 / "
+                f"G-single: "
+                f"{sorted(set(d_si['elle_types']) & {'G2', 'G2-item', 'G-single'})})")
+        d_ser = run(txnd, "d-ser", *txnd_args, "--serializable")
+        if d_ser["exit"] != cli.EXIT_VALID or d_ser["route"] != "device screen":
+            raise AssertionError(f"phase14d serializable: exit "
+                                 f"{d_ser['exit']}, route {d_ser['route']}: "
+                                 f"{str(d_ser['results'])[:400]}")
+        need_launches("phase14d serializable", dev,
+                      {"scc_screens": d_ser["screens"]}, "scc_screens")
+
+        e = run(repkv, "e", *SUITE_NODES, "--safe-reads", "--faults",
+                "partition", "--concurrency", "6", "--rate", "120",
+                "--interval", "1.5")
+        if e["exit"] != cli.EXIT_VALID:
+            raise AssertionError(f"phase14e: exit {e['exit']}: "
+                                 f"{str(e['results'])[:400]}")
+        need_launches("phase14e", dev, {"witness_sweep": e["sweeps"]})
+
+        f_q = run(electd, "f-quorum", *SUITE_NODES, "--quorum", "--faults",
+                  "partition", "--concurrency", "6", "--rate", "40",
+                  "--interval", "1.0")
+        f_q["partitions"] = sum(1 for o in f_q["history"]
+                                if o.process == "nemesis"
+                                and o.f == "start-partition")
+        f_q["linear_valid"] = f_q["results"]["linear"]["valid"]
+        if f_q["linear_valid"] is not True or not f_q["partitions"]:
+            raise AssertionError(f"phase14f quorum: linear "
+                                 f"{f_q['results']['linear']}, "
+                                 f"{f_q['partitions']} partitions")
+        f_u = run(electd, "f-unsafe", *SUITE_NODES, "--faults", "partition",
+                  "--concurrency", "6", "--rate", "120", "--interval", "1.0",
+                  "--seed", "0")
+        cpu = reanalyze(electd, f_u, "--algorithm", "cpu")
+        f_u["linear_valid"] = f_u["results"]["linear"]["valid"]
+        f_u["cpu_linear_valid"] = cpu["results"]["linear"]["valid"]
+        if (f_u["cpu_linear_valid"] != f_u["linear_valid"]
+                or cpu["results"]["valid"] != f_u["valid"]):
+            raise AssertionError(f"phase14f unsafe: linear "
+                                 f"{f_u['linear_valid']}, the CPU "
+                                 f"re-analysis {f_u['cpu_linear_valid']}")
+        for k, r, more in (("a", a, ("kills", "cpu_valid")),
+                           ("b", b, ()), ("c", c, ("kills", "cpu_equal")),
+                           ("d_si", d_si, ("cpu_equal", "elle_types")),
+                           ("d_serializable", d_ser, ()), ("e", e, ()),
+                           ("f_quorum", f_q, ("partitions", "linear_valid")),
+                           ("f_unsafe", f_u, ("linear_valid",
+                                              "cpu_linear_valid"))):
+            out[k] = {x: r[x] for x in keep + more}
+    finally:
+        left = _kill_servers(tmp)
+        shutil.rmtree(tmp, ignore_errors=True)
+    if left:
+        raise AssertionError(f"phase14: servers left running: {left}")
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"phase14: done in {out['wall_s']:.3f} s")
     return out
 
 
@@ -4288,6 +4591,7 @@ def main() -> int:
     batched = phase_batched(torch, recorder)
     packing_r = phase_packing(torch, history, recorder)
     workloads_r = phase_workloads(torch)
+    suites_r = phase_suites(torch)
     ptxas = ptxas_report(kernels.build_log)
     for key, n in sass_instructions(kernels.sweep_lib()._name).items():
         ptxas.setdefault(key, {})["sass_instructions"] = n
@@ -4367,7 +4671,9 @@ def main() -> int:
         f"{packing_r['resume']['fresh']['wall_s']:.3f} s); workloads "
         f"phase 13 {workloads_r['wall_s']:.3f} s (13d "
         f"{workloads_r['d']['vertices']} vertices, route "
-        f"{workloads_r['d']['route']})")
+        f"{workloads_r['d']['route']}); suites phase 14 "
+        f"{suites_r['wall_s']:.3f} s")
+    print(json.dumps({"suites": suites_r}))
     print(json.dumps({"workloads": workloads_r}))
     print(json.dumps({"device_programs": programs}))
     print(json.dumps({"kernels": [entry] + more}))

@@ -13,8 +13,10 @@ on.  It is resolved when the test is built, before the first op: a run
 that asks for the card where there is none exits 254 with no history
 written.  A device fault during analysis (a kernel that failed to
 build or launch, a CUDA error, a card that ran out) exits 254 too,
-never 2 or 0.  `serve`, `monitor`, `fleet`, `checkerd-router`, `search`
-and `lint` are not ported.
+never 2 or 0.  `search`, `serve`, `checkerd`, `checkerd-router`,
+`monitor`, `fleet` and `lint` are not ported: `run` answers each with
+the usage exit and the ROADMAP item that brings it
+(`NOT_PORTED_COMMANDS`).
 
 Usage from a test suite:
 
@@ -174,13 +176,29 @@ def validity_exit(results: Optional[dict]) -> int:
     return EXIT_UNKNOWN
 
 
-def validity_exit(results: Optional[dict]) -> int:
-    v = (results or {}).get("valid")
-    if v is True:
-        return EXIT_VALID
-    if v is False:
-        return EXIT_INVALID
-    return EXIT_UNKNOWN
+def localize_test(t: dict) -> dict:
+    """Defaults a suite's test map to the local topology: every node is
+    a port and a data directory on this machine, reached through
+    LocalRemote (the suite CLIs' shared default).  A test["remote"] of
+    the caller's, or --dummy-ssh (which wins in default_remote),
+    overrides it."""
+    from .control import LocalRemote
+
+    t.setdefault("remote", LocalRemote())
+    return t
+
+
+#: The reference's subcommands the port does not have yet, by the
+#: ROADMAP.md Queue A item that brings them.
+NOT_PORTED_COMMANDS = {
+    "search": 3,
+    "serve": 7,
+    "checkerd": 7,
+    "checkerd-router": 7,
+    "monitor": 7,
+    "fleet": 7,
+    "lint": 8,
+}
 
 
 def single_test_cmd(
@@ -383,8 +401,14 @@ def run(parser: argparse.ArgumentParser,
         format="%(asctime)s %(levelname)s [%(threadName)s] %(name)s: "
                "%(message)s",
     )
+    args = list(sys.argv[1:] if argv is None else argv)
+    if args and args[0] in NOT_PORTED_COMMANDS:
+        print(f"{parser.prog}: `{args[0]}` is not ported yet (ROADMAP.md "
+              f"Queue A item {NOT_PORTED_COMMANDS[args[0]]})",
+              file=sys.stderr)
+        return EXIT_USAGE
     try:
-        opts = parser.parse_args(argv)
+        opts = parser.parse_args(args)
     except SystemExit as e:
         return EXIT_USAGE if e.code not in (0, None) else 0
     try:

@@ -1,7 +1,7 @@
 """Control plane: sessions, the exec DSL, and node fan-out.
 
-The port's copy of `jepsen_tpu/control/__init__.py`, with the dummy
-remote only (control/remotes.py).  Equivalent of jepsen/control.clj, with one
+The port's copy of `jepsen_tpu/control/__init__.py`, with the dummy,
+local and retrying remotes (control/remotes.py).  Equivalent of jepsen/control.clj, with one
 deliberate design change (SURVEY.md §7): the reference scopes host/
 session/sudo state in dynamic vars (`control.clj:44-57`); here a
 `Session` is an explicit object bound to one node, carrying its sudo/
@@ -34,7 +34,7 @@ from .core import (
     throw_on_nonzero_exit,
     wrap_action,
 )
-from .remotes import DummyRemote, default_remote
+from .remotes import DummyRemote, LocalRemote, RetryRemote, default_remote
 
 # Imported after Session's dependencies: health only needs telemetry at
 # import time (it reaches back for Session lazily inside its probe).
@@ -45,11 +45,13 @@ log = logging.getLogger(__name__)
 __all__ = [
     "ConnSpec",
     "DummyRemote",
+    "LocalRemote",
     "Lit",
     "NonzeroExit",
     "Remote",
     "RemoteDisconnected",
     "RemoteError",
+    "RetryRemote",
     "Session",
     "default_remote",
     "escape",

@@ -1,17 +1,17 @@
 """DB protocol: installing, starting, and breaking the system under test.
 
-The port's copy of `jepsen_tpu/db.py`, trimmed to the `DB` protocol with
-its optional capabilities, the noop DB, and the run's `setup`,
-`teardown`, `cycle` (teardown then setup, up to three tries) and
-`snarf_logs`.  `Tcpdump` and `ComposedDB` wait for the suites that use
-them.
+The port's copy of `jepsen_tpu/db.py`.
+
+Equivalent of jepsen/src/jepsen/db.clj: the `DB`
+protocol (:12-14), optional `Kill` (:16-19), `Pause` (:30-33),
+`Primary` (:35-42), and `LogFiles` (:44-48) capabilities, and `cycle`
+— teardown-then-setup across all nodes with ≤3 retries (:158-199).
 """
 
 from __future__ import annotations
 
 import logging
-import os
-from typing import Optional, Sequence
+from typing import Any, Optional, Sequence
 
 from .control import Session, health, on_nodes
 
@@ -76,6 +76,147 @@ class NoopDB(DB):
 noop = NoopDB()
 
 
+class Tcpdump(DB):
+    """A DB that captures packets from setup to teardown and yields the
+    pcap as a log file (db.clj:88-156).  Compose it next to your real
+    DB.  Options:
+
+      ports         ports to capture (filter `port a or port b ...`)
+      clients_only  only traffic involving the control node's IP
+      filter        extra pcap filter string, AND-ed in
+    """
+
+    DIR = "/tmp/jepsen-tpu/tcpdump"
+
+    def __init__(self, *, ports: Sequence[int] = (),
+                 clients_only: bool = False,
+                 filter: Optional[str] = None):
+        self.ports = list(ports)
+        self.clients_only = clients_only
+        self.filter = filter
+        self.log_file = f"{self.DIR}/log"
+        self.cap_file = f"{self.DIR}/tcpdump.pcap"
+        self.pid_file = f"{self.DIR}/pid"
+
+    def _filter_str(self, test: dict) -> str:
+        # Each clause parenthesized: pcap's `and` binds tighter than
+        # `or`, so a bare `port a or port b and host x` would capture
+        # ALL of port a's traffic (the reference db.clj:111-117 has
+        # this flaw; fixed here).
+        parts = []
+        if self.ports:
+            parts.append(
+                "(" + " or ".join(f"port {p}" for p in self.ports) + ")"
+            )
+        if self.clients_only:
+            from .control.util import control_ip
+
+            parts.append(f"host {control_ip(test)}")
+        if self.filter:
+            parts.append(f"({self.filter})")
+        return " and ".join(p for p in parts if p)
+
+    def setup(self, test: dict, sess: Session, node: str) -> None:
+        from .control.util import start_daemon
+
+        with sess.su():
+            sess.exec("mkdir", "-p", self.DIR)
+            # -U: unbuffered — SIGINT is supposed to flush the capture
+            # but loses the tail in practice (db.clj:128-134).
+            args: list = ["-w", self.cap_file, "-s", "65535",
+                          "-B", "16384", "-U"]
+            f = self._filter_str(test)
+            if f:
+                args.append(f)
+            start_daemon(
+                sess, "tcpdump", *args,
+                pidfile=self.pid_file, logfile=self.log_file,
+                chdir=self.DIR,
+            )
+
+    def teardown(self, test: dict, sess: Session, node: str) -> None:
+        from .control.util import stop_daemon
+
+        with sess.su():
+            # Clean INT first so tcpdump flushes, then the hard stop.
+            sess.exec_star(
+                "bash", "-c",
+                f"test -e {self.pid_file} && "
+                f"kill -INT $(cat {self.pid_file}) && sleep 0.2; true",
+            )
+            stop_daemon(sess, self.pid_file)
+            sess.exec_star("rm", "-rf", self.DIR)
+
+    def log_files(self, test: dict, sess: Session, node: str):
+        return [self.log_file, self.cap_file]
+
+
+class ComposedDB(DB):
+    """Runs several DBs as one: setup in order, teardown in reverse,
+    log files merged; Kill/Pause/Primary route to the first DB that
+    implements them (the reference composes DBs ad hoc; this is the
+    common shape, e.g. Tcpdump + real DB)."""
+
+    def __init__(self, dbs: Sequence[DB]):
+        self.dbs = list(dbs)
+
+    def setup(self, test, sess, node):
+        for db in self.dbs:
+            db.setup(test, sess, node)
+
+    def teardown(self, test, sess, node):
+        for db in reversed(self.dbs):
+            db.teardown(test, sess, node)
+
+    def _first_with(self, name: str):
+        for db in self.dbs:
+            if db.supports(name):
+                return db
+        return None
+
+    def supports(self, capability: str) -> bool:
+        # A wrapper "supports" a capability only if something inside
+        # does — the inherited check would see our routing methods and
+        # claim everything.
+        return self._first_with(capability) is not None
+
+    def kill(self, test, sess, node):
+        db = self._first_with("kill")
+        if db is None:
+            raise NotImplementedError
+        return db.kill(test, sess, node)
+
+    def start(self, test, sess, node):
+        db = self._first_with("start")
+        if db is None:
+            raise NotImplementedError
+        return db.start(test, sess, node)
+
+    def pause(self, test, sess, node):
+        db = self._first_with("pause")
+        if db is None:
+            raise NotImplementedError
+        return db.pause(test, sess, node)
+
+    def resume(self, test, sess, node):
+        db = self._first_with("resume")
+        if db is None:
+            raise NotImplementedError
+        return db.resume(test, sess, node)
+
+    def primaries(self, test):
+        db = self._first_with("primaries")
+        if db is None:
+            raise NotImplementedError
+        return db.primaries(test)
+
+    def log_files(self, test, sess, node):
+        out: list = []
+        for db in self.dbs:
+            out.extend(db.log_files(test, sess, node) or [])
+        return out
+
+
 def setup(test: dict, db: Optional[DB] = None) -> None:
     """Sets up the DB on all surviving nodes in parallel (per-node
     failures go through the node-loss policy), then primary setup on
@@ -124,6 +265,8 @@ def cycle(test: dict, db: Optional[DB] = None) -> None:
 def snarf_logs(test: dict, dest_dir: str, db: Optional[DB] = None) -> None:
     """Downloads every node's log files into dest_dir/<node>/
     (core.clj:101-128)."""
+    import os
+
     db = db or test.get("db") or noop
 
     def snarf(sess: Session, node: str) -> None:

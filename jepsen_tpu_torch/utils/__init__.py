@@ -1,18 +1,22 @@
 """Host utilities: synthetic histories (`histgen`), the parallel maps
 (`real_pmap`, `bounded_pmap`), time bookkeeping (`with_relative_time`,
-`relative_time_nanos`, `Deadline`), `timeout`, `with_retry` and
-`fraction` — copies of the reference's
-`jepsen_tpu/utils/__init__.py`, trimmed to what the port calls."""
+`relative_time_nanos`, the ms/ns conversions, `Deadline`), `timeout`,
+`with_retry`, `await_fn`, the nemesis helpers (`majority`,
+`rand_exp`, `nemesis_intervals`) and small formatting helpers — copies
+of the reference's `jepsen_tpu/utils/__init__.py`, trimmed to what the
+port calls."""
 
 from __future__ import annotations
 
 import contextlib
+import math
 import os
 import random
 import threading
 import time as _time
 from concurrent.futures import ThreadPoolExecutor
-from typing import Any, Callable, Iterable, Iterator, Optional, TypeVar
+from typing import (Any, Callable, Iterable, Iterator, Optional, Sequence,
+                    TypeVar)
 
 T = TypeVar("T")
 U = TypeVar("U")
@@ -124,6 +128,31 @@ def relative_time_nanos() -> int:
     return _time.monotonic_ns() - origin
 
 
+#: Conversions (the reference's util.clj:380-407 mirror).
+NANOS_PER_MS = 1_000_000
+NANOS_PER_SECOND = 1_000_000_000
+
+
+def ms_to_nanos(ms: float) -> int:
+    return int(ms * NANOS_PER_MS)
+
+
+def nanos_to_ms(ns: float) -> float:
+    return ns / NANOS_PER_MS
+
+
+def nanos_to_secs(ns: float) -> float:
+    return ns / NANOS_PER_SECOND
+
+
+def sleep_ms(ms: float) -> None:
+    _time.sleep(ms / 1000.0)
+
+
+class RetryExhausted(Exception):
+    pass
+
+
 class Deadline:
     """A wall-clock budget handed down a call tree.  `Deadline(None)` is
     unbounded: remaining() is inf and it never expires."""
@@ -195,6 +224,143 @@ def with_retry(f: Callable[[], T], *, retries: int = 5,
             _time.sleep(pause / 1000.0)
 
 
+def await_fn(f: Callable[[], T], *, retry_interval_ms: float = 1000.0,
+             timeout_ms: float = 60_000.0,
+             log_interval_ms: Optional[float] = 10_000.0,
+             log_message: Optional[str] = None,
+             log: Optional[Callable[[str], None]] = None) -> T:
+    """Calls f until it returns without raising; raises JepsenTimeout
+    once `timeout_ms` has passed, logging progress every
+    `log_interval_ms` (the reference's utils/__init__.py:269)."""
+    if log is None:
+        import logging
+
+        log = logging.getLogger("jepsen_tpu_torch").info
+    deadline = _time.monotonic() + timeout_ms / 1000.0
+    last_log = _time.monotonic()
+    while True:
+        try:
+            return f()
+        except Exception as e:
+            now = _time.monotonic()
+            if now > deadline:
+                raise JepsenTimeout(
+                    log_message or f"await_fn timed out after {timeout_ms} ms"
+                ) from e
+            if log_interval_ms and (now - last_log) * 1000 >= log_interval_ms:
+                last_log = now
+                log(log_message
+                    or f"waiting for {getattr(f, '__name__', 'fn')}")
+            _time.sleep(retry_interval_ms / 1000.0)
+
+
+def majority(n: int) -> int:
+    """Smallest integer strictly greater than half of n; majority(0) ==
+    1."""
+    return max(1, n // 2 + 1)
+
+
+def chunks(xs: Sequence[T], size: int) -> Iterator[Sequence[T]]:
+    for i in range(0, len(xs), size):
+        yield xs[i:i + size]
+
+
+def integer_interval_set_str(xs: Iterable[int]) -> str:
+    """A set of integers in compact interval notation, e.g.
+    #{1..3 5 7..9}."""
+    xs = sorted(set(xs))
+    parts: list[str] = []
+    i = 0
+    while i < len(xs):
+        j = i
+        while j + 1 < len(xs) and xs[j + 1] == xs[j] + 1:
+            j += 1
+        parts.append(str(xs[i]) if j == i else f"{xs[i]}..{xs[j]}")
+        i = j + 1
+    return "#{" + " ".join(parts) + "}"
+
+
+def rand_exp(rate: float, rng: Optional[random.Random] = None) -> float:
+    """An exponentially distributed random value of the given rate."""
+    r = (rng or random).random()
+    return -math.log(1.0 - r) / rate
+
+
+def nemesis_intervals(history: Iterable[Any], start_fs=("start",),
+                      stop_fs=("stop",)) -> list[tuple[Any, Any]]:
+    """[start-op, stop-op] pairs of the nemesis's activity windows (the
+    reference's utils/__init__.py:343).  Nemesis ops pair up as
+    (invoke, completion), pairs of mismatched f dropped; every open
+    start pair is closed by the next stop pair, and an unclosed one
+    pairs with None.  Ops without a `process` are paired as they are
+    when no op is the nemesis's."""
+    history = list(history)
+    ops = [o for o in history if getattr(o, "process", None) == "nemesis"]
+    if not ops:
+        ops = [o for o in history
+               if getattr(o, "process", None) is None and hasattr(o, "f")]
+    pairs = [(ops[i], ops[i + 1]) for i in range(0, len(ops) - 1, 2)
+             if getattr(ops[i], "f", None) == getattr(ops[i + 1], "f", None)]
+    intervals: list[tuple[Any, Any]] = []
+    open_starts: list[tuple[Any, Any]] = []
+    for a, b in pairs:
+        f = getattr(a, "f", None)
+        if f in start_fs:
+            open_starts.append((a, b))
+        elif f in stop_fs:
+            for s1, s2 in open_starts:
+                intervals.append((s1, a))
+                intervals.append((s2, b))
+            open_starts = []
+    for s1, s2 in open_starts:
+        intervals.append((s1, None))
+        intervals.append((s2, None))
+    return intervals
+
+
+@contextlib.contextmanager
+def name_thread(name: str) -> Iterator[None]:
+    """Renames the current thread for the block."""
+    t = threading.current_thread()
+    old = t.name
+    t.name = name
+    try:
+        yield
+    finally:
+        t.name = old
+
+
+def coll_str(x: Any, limit: int = 8) -> str:
+    """A long collection abbreviated for a log line."""
+    try:
+        xs = list(x)
+    except TypeError:
+        return repr(x)
+    if len(xs) <= limit:
+        return repr(xs)
+    return f"[{', '.join(map(repr, xs[:limit]))}, ... ({len(xs)} total)]"
+
+
+class Forgettable:
+    """A reference that can forget its value, so the head of a long
+    generator chain can be collected during a run."""
+
+    __slots__ = ("_value", "_forgotten")
+
+    def __init__(self, value: Any):
+        self._value = value
+        self._forgotten = False
+
+    def deref(self) -> Any:
+        if self._forgotten:
+            raise ValueError("value has been forgotten")
+        return self._value
+
+    def forget(self) -> None:
+        self._value = None
+        self._forgotten = True
+
+
 def fraction(num: float, denom: float) -> float:
     """num / denom, 0 where denom is 0."""
     return num / denom if denom else 0.0
@@ -211,3 +377,17 @@ def sanitize_path_part(part: Any) -> str:
     if not s or set(s) <= {"."}:
         return "_" * max(1, len(s))
     return s
+
+
+def summarize_times(times: Sequence[float]) -> dict:
+    """Median, best and spread of measured repetition times: keys
+    best_s, median_s, spread_s ([min, max]) and reps."""
+    ts = sorted(times)
+    if not ts:
+        raise ValueError("no measurements")
+    return {
+        "best_s": round(ts[0], 3),
+        "median_s": round(ts[len(ts) // 2], 3),
+        "spread_s": [round(ts[0], 3), round(ts[-1], 3)],
+        "reps": len(ts),
+    }

@@ -39,15 +39,7 @@ def one_torch_thread():
 #: Cases of the JAX test files that test modules the port does not have
 #: yet, by the ROADMAP.md Queue A item that will port them.
 NOT_PORTED = {
-    # net.py's ipfilter net: item 11.
-    "test_ipfilter_drop_renders_ipf_rule",
-    "test_ipfilter_drop_all_bulk_rules",
-    "test_ipfilter_heal_flushes_all_nodes",
-    "test_ipfilter_inherits_tc_shaping",
-    # db.py's Tcpdump and ComposedDB: item 9.
-    "test_tcpdump_db_commands",
-    "test_composed_db_routes_capabilities",
-    # control's K8sRemote: item 12.
+    # control's K8sRemote: item 5.
     "test_k8s_remote_requires_kubectl",
 }
 
@@ -80,8 +72,8 @@ def test_every_excluded_case_exists():
     """NOT_PORTED names real cases: nothing else is left out."""
     names = set(torch_ported.cases(CYCLE)) | set(torch_ported.cases(PROBE))
     assert NOT_PORTED <= names
-    assert len(set(torch_ported.cases(CYCLE)) - NOT_PORTED) == 9
-    assert len(set(torch_ported.cases(PROBE)) - NOT_PORTED) == 9
+    assert len(set(torch_ported.cases(CYCLE)) - NOT_PORTED) == 13
+    assert len(set(torch_ported.cases(PROBE)) - NOT_PORTED) == 11
 
 
 # -- seeded simulations through both packages -----------------------------

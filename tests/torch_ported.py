@@ -10,8 +10,9 @@ a test map's "device", "cuda" by default, run on the CPU (the port runs
 on the card unless asked otherwise; these tests run on the CPU).
 
 `cases(mod)` lists its tests ("test_x" or "TestClass.test_y", with one
-entry per parametrized case), `run(mod, case, request)` runs one, with
-pytest fixtures (tmp_path, monkeypatch, ...) from `request`.
+entry per parametrized case; `cases(mod, slow=True)` its `slow`-marked
+ones), `run(mod, case, request)` runs one, with pytest fixtures
+(tmp_path, monkeypatch, ...) from `request`.
 """
 
 from __future__ import annotations
@@ -67,7 +68,9 @@ def _param_sets(fn) -> list:
     return out or [("", {})]
 
 
-def cases(mod: types.ModuleType, exclude=()) -> list:
+def cases(mod: types.ModuleType, exclude=(), slow: bool = False) -> list:
+    """The module's runnable cases: those with no `slow`, `skip` or
+    `cuda` mark, or with `slow=True` its `slow`-marked cases alone."""
     out = []
     for name, obj in mod.__dict__.items():
         if name.startswith("test_") and callable(obj):
@@ -78,8 +81,9 @@ def cases(mod: types.ModuleType, exclude=()) -> list:
         else:
             continue
         for qual, fn in fns:
-            if qual in exclude or any(m.name in ("slow", "skip", "cuda")
-                                      for m in getattr(fn, "pytestmark", [])):
+            marks = {m.name for m in getattr(fn, "pytestmark", [])}
+            if (qual in exclude or marks & {"skip", "cuda"}
+                    or ("slow" in marks) != slow):
                 continue
             for i, (label, _) in enumerate(_param_sets(fn)):
                 out.append(f"{qual}[{i}]" if label else qual)
@@ -104,7 +108,7 @@ def run(mod: types.ModuleType, case: str, request) -> None:
             else device))
     params = _param_sets(base)[int(idx[:-1]) if idx else 0][1]
     kwargs = dict(params)
-    for p in inspect.signature(fn).parameters:
-        if p not in kwargs:
+    for p, param in inspect.signature(fn).parameters.items():
+        if p not in kwargs and param.default is inspect.Parameter.empty:
             kwargs[p] = request.getfixturevalue(p)
     fn(**kwargs)
