@@ -6,10 +6,11 @@
 Needs one CUDA card and the CUDA toolkit (nvcc): the witness sweep
 kernel is built from jepsen_tpu_torch/csrc/ into build/jepsen_tpu_torch/
 at first use.  Exits non-zero, printing no result, when torch sees no
-CUDA device or the package is missing.  Fifteen phases, each raising on
-failure, run in the order 1, 2, 5, 6, 7, 8, 9, 10, 11, 1b, 12, 13, 14, 3, 4
-(every host-clock and CUDA-event timing before the profiler first
-runs).  The searches run with the packed member lanes at their default
+CUDA device or the package is missing.  Sixteen phases, each raising on
+failure, run in the order 1, 2, 5, 6, 7, 8, 9, 10, 11, 1b, 12, 13, 14, 3,
+4, 15 (every CUDA-event timing before the profiler first runs; phase 15,
+host-clock walls only, after it, since torch.profiler drops device
+operations from its windows in a process that has run a search).  The searches run with the packed member lanes at their default
 (`JEPSEN_WGL_PACKED`, on), as users run them.  The
 checkers' only route is the compiled plan, so phases 1-8, 10 and 11 run
 it; phase 9 reads its own parts (JEPSEN_PLAN=0, memo, faults, records):
@@ -33,7 +34,9 @@ it; phase 9 reads its own parts (JEPSEN_PLAN=0, memo, faults, records):
    warmed up first; median of 3 wall times, with the kernel's launch
    count, chain-search rounds and host syncs of those runs.
 3. Under torch.profiler: the kernel's device time (`device_ms`) and
-   the device operations of one `sweep()` call (must be 2), then the
+   the device operations of one `sweep()` call (the kernel and the
+   death copy, each launch proven by the wrapper's count and its
+   death; the profiler may record fewer, never more or others), then the
    back-to-back timing of phase 1 again; then one profiled device
    search of the main path: the card's busy time and idle share, its
    kernel launches and copies, and the sweep kernel's device time.
@@ -125,7 +128,7 @@ it; phase 9 reads its own parts (JEPSEN_PLAN=0, memo, faults, records):
    the plan): equal verdicts, labels, sweep launches, chain rounds and
    host syncs, every check through the plan executor, both medians
    printed; (9b) phase 5's history (three each) and the 2,000-key
-   all-valid one (two each) through IndependentChecker, on and off:
+   all-valid one (once each) through IndependentChecker, on and off:
    equal per-key
    verdicts and labels, failure count, tiers, stream passes, restarts
    and sweep launches, the wgl.settle.* counters printed; (9c) the
@@ -196,7 +199,7 @@ it; phase 9 reads its own parts (JEPSEN_PLAN=0, memo, faults, records):
    as in the JAX package (vertices, route, run and analyze seconds);
    (13e) bank, long-fork, set, rw-register (800 transactions, screened
    on the card), adya-g2, causal, causal-reverse and total-queue with
-   their in-memory clients for 5 s each: valid; adya-g2 with its racy
+   their in-memory clients for 3 s each: valid; adya-g2 with its racy
    client: invalid; the generic cycle checker asked for the card (its
    default is the host search) over rw-register's history and 13c's
    rw graph, screened there, its verdicts the host search's.  Each
@@ -221,9 +224,35 @@ it; phase 9 reads its own parts (JEPSEN_PLAN=0, memo, faults, records):
    under partitions: the verdict of the stored run's CPU re-analysis.
    Each prints exit code, ops, verdict, route and the launches of B1,
    B7 and B8, and the phase the control process's uid and sudo; no
-   server outlives its run.  Raises without g++.
+   server outlives its run.  Raises without g++.  Phases 11 and 14
+   print `forensics_s` beside each run's analyze seconds: the
+   `forensics.assemble` span of the dossiers `core.analyze` attaches to
+   a bad verdict (forensics.py), read with telemetry on for the
+   analysis alone (`AnalysisClock`).
+15. Anomaly forensics and `jepsen search` (`phase_search`), the checks
+   on the card: (15a) the JAX package's planted-bug search smoke on the
+   port: `run_search` (seed 3, partition and kill, 8 shrink runs, a 60 s
+   budget) over a register that loses acknowledged writes only when a
+   kill lands inside a partition, each iteration checked by
+   `linearizable(cas_register(), "wgl-tpu")` beside the lost-write
+   checker: coverage grows over the seed round, the anomaly is found and
+   shrunk to at most three events composing both families, every corpus
+   entry replays with its stable features, nothing is left for `jepsen
+   repair`, every iteration's verdict is the exact CPU engine's on its
+   stored history, B1 launched, and every convicting iteration's
+   counterexample.json is refuted by the exact engine from the file;
+   (15b) phase 11b's shape: 30 anomalies, 16 dossiers with
+   counterexample.json, death.json, linear.svg and timeline.html, 14
+   skipped, each minimal history shorter than its key's and refuted
+   from its JSON, and `cli analyze --device cpu` of the stored run
+   writing byte-identical counterexample.json files; (15c) `repkv
+   search` against the real servers (three iterations, partition and
+   kill): exit 0, each iteration's verdict its stored history's CPU
+   re-analysis, no server left.
 
-The last lines are the phase-14 JSON line (per run: exit, ops, verdict,
+The last lines are the phase-15 JSON line (per sub-phase: iterations,
+coverage, cells, convictions and dossiers, B1 sweeps and seconds), the
+phase-14 JSON line (per run: exit, ops, verdict,
 route, B1 sweeps, B7 screens and B8 extractions, seconds; the card and
 the host's privilege), the phase-13 JSON line (per sub-phase: verdicts,
 vertices, routes, launches and seconds, and the card), the
@@ -460,14 +489,16 @@ def chain_step_ns(torch) -> float:
 def profile_device(torch, fn, reps: int) -> dict:
     """{name: (count, microseconds)} of the kernels and copies that
     torch.profiler saw on the card over `reps` calls of `fn` (after a
-    warm-up call)."""
+    warm-up call).  It records the card's activity alone: nothing here
+    reads the host's operators, and recording them made the windows of
+    many launches (the batched BFS's ~200,000) about three times
+    slower."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
@@ -651,7 +682,7 @@ def phase_kernel(torch, packed, pm, W, seed: int) -> tuple:
                                   states, alive)
 
         def call():
-            sweep(pm, start_k, bars, member, states, alive)
+            return sweep(pm, start_k, bars, member, states, alive)[2]
 
         ms = cuda_ms(kernel, reps=200)
         ms_host = wall_ms(kernel, reps=200)
@@ -670,8 +701,9 @@ def phase_kernel(torch, packed, pm, W, seed: int) -> tuple:
             f"{plain:.3f} ms, bound {bound:.9f} ms ({nbytes} B at "
             f"{roofline.H100_BYTES_PER_S:.3g} B/s), step floor "
             f"{floor:.6f} ms")
-        return dict(name=name, swept=swept, ms=ms, ms_host=ms_host,
-                    call_ms=call_ms, call_ms_events=call_ms_events,
+        return dict(name=name, swept=swept, death=death, ms=ms,
+                    ms_host=ms_host, call_ms=call_ms,
+                    call_ms_events=call_ms_events,
                     plain=plain, bound=bound, floor=floor, kernel=kernel,
                     call=call)
 
@@ -717,20 +749,59 @@ def phase_profile(torch, entry: dict, timings: list) -> None:
             f"{t['device_ms']:.6f} ms ({t['device_ms'] * 1e6 / t['swept']:.4f}"
             f" ns/barrier; {t['device_ms'] / t['floor']:.3f}x the step "
             f"floor)")
-    t = timings[0]
-    seen = profile_device(torch, t["call"], reps=20)
-    ops_per_call = sum(n for n, _ in seen.values()) / 20
-    log(f"profile: sweep() call: {ops_per_call:g} device operations per "
-        f"call ({sorted(seen)})")
-    if ops_per_call != 2:
+    # One sweep() call makes two device operations: the kernel and the
+    # death copy.  torch.profiler can drop a record from its window
+    # (PERF.md §7), so what the call made is proven apart from what the
+    # profiler saw: the wrapper counts each launch, and the calls
+    # alternate between two cases whose deaths differ, so a call whose
+    # kernel did not run would read the other case's death from a
+    # reused buffer.  Each kind may then show fewer records than calls
+    # (logged, and counted in the entry), never more, and no other
+    # operation may show at all.
+    reps = 20
+    pair = timings[:2]
+    if pair[0]["death"] == pair[1]["death"]:
+        raise AssertionError(f"the timed cases share death "
+                             f"{pair[0]['death']}")
+    deaths = []
+
+    def call():
+        t = pair[len(deaths) % 2]
+        deaths.append((t["call"](), t["death"]))
+
+    from jepsen_tpu_torch.ops import kernels
+
+    before = kernels.launches["witness_sweep"]
+    seen = profile_device(torch, call, reps=reps)
+    launched = kernels.launches["witness_sweep"] - before
+    wrong = [(got, want) for got, want in deaths if got != want]
+    if launched != reps + 1 or len(deaths) != reps + 1 or wrong:
         raise AssertionError(
-            f"sweep() made {ops_per_call} device operations per call, "
-            f"not 2 (the kernel and the death copy): {sorted(seen)}")
+            f"{len(deaths)} sweep() calls (one a warm-up) launched the "
+            f"kernel {launched} times; wrong deaths {wrong}")
+    kinds = {"kernel": [n for k, (n, _) in seen.items()
+                        if "witness_sweep" in k],
+             "copy": [n for k, (n, _) in seen.items()
+                      if "Memcpy DtoH" in k]}
+    other = [k for k in seen
+             if "witness_sweep" not in k and "Memcpy DtoH" not in k]
+    recorded = {kind: sum(ns) for kind, ns in kinds.items()}
+    if other or any(n > reps for n in recorded.values()):
+        raise AssertionError(
+            f"sweep() made device operations past the kernel and the "
+            f"death copy in {reps} calls: {seen}")
+    lost = 2 * reps - sum(recorded.values())
+    ops_per_call = sum(recorded.values()) / reps
+    log(f"profile: sweep() call: {ops_per_call:g} device operations per "
+        f"call recorded ({sorted(seen)}); the wrapper counted {launched} "
+        f"launches of {len(deaths)} calls, every death right; "
+        f"{lost} records lost by the profiler")
+    t = timings[0]
     again = cuda_ms(t["kernel"], reps=200)
     log(f"profile: {t['name']}: kernel back to back {again:.6f} ms (CUDA "
         f"events) after torch.profiler ran; {t['ms']:.6f} ms before")
     entry.update(device_ms=t["device_ms"], device_ops_per_call=ops_per_call,
-                 ms_after_profiler=again)
+                 profiler_lost_ops=lost, ms_after_profiler=again)
 
 
 def phase_main(torch, history, n_packed: int) -> dict:
@@ -3318,39 +3389,66 @@ def stale_read_client():
     return StaleRead()
 
 
-def _run_cli(torch, argv, suite, what: str, smi: str) -> dict:
+class AnalysisClock:
+    """While entered, each `core.analyze` call is timed (`seconds`, once
+    the card's queue has drained) and its `forensics.assemble`
+    telemetry span read (`forensics`), one entry a call.  The span
+    records only with telemetry on; on for a whole run, telemetry would
+    also span every op the interpreter journals, so the clock turns it
+    on for the analysis alone."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.seconds, self.forensics = [], []
+
+    def __enter__(self):
+        from jepsen_tpu_torch import core, telemetry
+
+        self.core, self.real = core, core.analyze
+
+        def span_s():
+            return telemetry.phases("forensics").get("assemble", 0.0)
+
+        def timed(*a, **kw):
+            was = telemetry.enabled()
+            telemetry.enable(True)
+            f0, t0 = span_s(), time.perf_counter()
+            try:
+                return self.real(*a, **kw)
+            finally:
+                if self.torch.cuda.is_available():
+                    self.torch.cuda.synchronize()
+                self.seconds.append(time.perf_counter() - t0)
+                self.forensics.append(span_s() - f0)
+                telemetry.enable(was)
+
+        core.analyze = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.core.analyze = self.real
+
+
+def _run_cli(torch, argv, suite, what: str, smi: str,
+             phase: str = "11") -> dict:
     """`cli.run` of `argv` over `suite`, the counts set to 0 just before
-    and read just after, the analysis timed apart (core.analyze) ->
+    and read just after, the analysis timed apart (`AnalysisClock`) ->
     the readings, with the stored run's directory, results and
     history."""
-    from jepsen_tpu_torch import cli, core, store
+    from jepsen_tpu_torch import cli, store
     from jepsen_tpu_torch import device as D
     from jepsen_tpu_torch.ops import kernels
     from jepsen_tpu_torch.parallel import clear_settle_memo
     from jepsen_tpu_torch.workloads import _extra_opts
 
-    real = core.analyze
-    spent = []
-
-    def timed(*a, **kw):
-        t0 = time.perf_counter()
-        try:
-            return real(*a, **kw)
-        finally:
-            torch.cuda.synchronize()
-            spent.append(time.perf_counter() - t0)
-
     parser = cli.single_test_cmd(suite, extra_opts=_extra_opts)
     clear_settle_memo()
     kernels.launches.clear()
     D.counters.clear()
-    core.analyze = timed
-    try:
+    with AnalysisClock(torch) as clock:
         t0 = time.perf_counter()
         code = cli.run(parser, argv)
         wall = time.perf_counter() - t0
-    finally:
-        core.analyze = real
     launches = {k: v for k, v in kernels.launches.items()
                 if k.startswith("witness_sweep")}
     counts = dict(D.counters)
@@ -3361,14 +3459,15 @@ def _run_cli(torch, argv, suite, what: str, smi: str) -> dict:
         results, h = tf.results, tf.history()
     finally:
         tf.close()
-    analyze_s = sum(spent)
+    analyze_s = sum(clock.seconds)
     r = {"exit": code, "ops": len(h) // 2, "wall_s": wall,
          "run_s": wall - analyze_s, "analyze_s": analyze_s,
          "ops_per_s": len(h) / 2 / wall, "sweeps": launches.get(
              "witness_sweep", 0), "launches": launches,
          "host_syncs": counts.get("host_syncs", 0),
-         "stream_passes": counts.get("stream_passes", 0), "card": smi}
-    log(f"phase11{what}: " + json.dumps(r))
+         "stream_passes": counts.get("stream_passes", 0),
+         "forensics_s": sum(clock.forensics), "card": smi}
+    log(f"phase{phase}{what}: " + json.dumps(r))
     r.update(dir=d, results=results, history=h)
     return r
 
@@ -3827,28 +3926,12 @@ def _cli_readings(torch, dev, call, store_dir: str, label: str) -> dict:
     with the counts set to 0 just before and read just after, the
     analysis timed apart, and the graphs the cycle screen was given ->
     the readings, with the stored run's results and history."""
-    from jepsen_tpu_torch import core, store
+    from jepsen_tpu_torch import store
 
-    real = core.analyze
-    spent = []
-
-    def timed(*a, **kw):
+    with GraphSpy() as spy, AnalysisClock(torch) as clock:
         t0 = time.perf_counter()
-        try:
-            return real(*a, **kw)
-        finally:
-            if dev.type == "cuda":
-                torch.cuda.synchronize()
-            spent.append(time.perf_counter() - t0)
-
-    core.analyze = timed
-    try:
-        with GraphSpy() as spy:
-            t0 = time.perf_counter()
-            code, launches, counts = counted(torch, dev, call)
-            wall = time.perf_counter() - t0
-    finally:
-        core.analyze = real
+        code, launches, counts = counted(torch, dev, call)
+        wall = time.perf_counter() - t0
     tf = store.load(store.latest(store_dir))
     try:
         results, h = tf.results, tf.history()
@@ -3858,7 +3941,8 @@ def _cli_readings(torch, dev, call, store_dir: str, label: str) -> dict:
     r = {"exit": code, "valid": results.get("valid"),
          "anomaly_types": results.get("anomaly-types"),
          "ops": sum(1 for o in h if o.type == "invoke"), "wall_s": wall,
-         "run_s": wall - sum(spent), "analyze_s": sum(spent),
+         "run_s": wall - sum(clock.seconds), "analyze_s": sum(clock.seconds),
+         "forensics_s": sum(clock.forensics),
          "vertices": len(g.vertices) if g is not None else None,
          "edges": g.n_edges() if g is not None else None,
          "cycle_search_s": sum(spy.seconds),
@@ -4199,7 +4283,8 @@ def phase_suites(torch, dev=None) -> dict:
     log("phase14: host " + json.dumps(out["host"]))
     t_phase = time.perf_counter()
     keep = ("exit", "valid", "anomaly_types", "ops", "run_s", "analyze_s",
-            "vertices", "route", "sweeps", "screens", "extractions")
+            "forensics_s", "vertices", "route", "sweeps", "screens",
+            "extractions")
 
     tmp = tempfile.mkdtemp(prefix="phase14-")
     try:
@@ -4355,6 +4440,578 @@ def phase_suites(torch, dev=None) -> dict:
         raise AssertionError(f"phase14: servers left running: {left}")
     out["wall_s"] = time.perf_counter() - t_phase
     log(f"phase14: done in {out['wall_s']:.3f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Anomaly forensics and the fault-schedule search (phase 15).
+
+#: 15a: the planted-bug search (the JAX package's
+#: tools/nemesis_search_smoke.py): three in-memory nodes, the two
+#: families whose composition is the bug, its seed and shrink budget.
+SEARCH_NODES = ["n1", "n2", "n3"]
+SEARCH_FAMILIES = ("partition", "kill")
+SEARCH_SEED = 3
+SEARCH_BUDGET_S = 60.0
+SEARCH_SHRINK = 8
+#: 15b: phase 11b's shape has 30 bad keys; forensics documents
+#: MAX_DOSSIERS (16) of them and counts the rest as skipped.
+FORENSICS_FILES = ("counterexample.json", "death.json", "linear.svg",
+                   "timeline.html")
+#: 15c: `repkv search` against the real servers.
+SEARCH_REPKV_ITERATIONS = 3
+SEARCH_REPKV_SHRINK = 2
+
+
+def amnesia_cluster(dev: str):
+    """The planted multi-fault bug of the JAX package's search smoke
+    (tools/nemesis_search_smoke.py, with tools/fault_matrix.py's
+    `_AtomRegister`, `_MortalRegister` and `_KillableDB`), on the port:
+    a register that loses its acknowledged writes only when a process
+    kill lands while a partition is open.  Returns the factory of a
+    fresh test map per iteration: the amnesia DB, the recording net,
+    three dummy nodes, `node-loss-policy` tolerate:1, and a composed
+    checker of stats, lost-write and `linearizable(cas_register(),
+    "wgl-tpu")` on `dev`, so every iteration checks its register
+    history where the run does.
+
+    Three changes to the smoke's fixture.  The cas-register model takes
+    a read of None as an unknown return (it constrains nothing), so the
+    amnesia rolls the register back to 0, a value the client's first op
+    writes, where the smoke's rolls it back to None: linearizability
+    then sees the lost writes.  Once stale, the register acknowledges
+    writes and keeps none, where the smoke's refuses them: every
+    forgetting run then loses a write acknowledged after the wipe, so
+    whether it convicts does not hang on a write acknowledged before
+    it, which made the smoke's replays race the client threads.  And
+    the bug fires whenever the two faults' windows overlap: a
+    partition opened while a node is down forgets too, where the
+    smoke's needs the kill to come second.  Three client processes, as
+    in the smoke."""
+    import itertools
+    import threading
+
+    from jepsen_tpu_torch import checker as chk
+    from jepsen_tpu_torch import client as jc
+    from jepsen_tpu_torch import db as jdb
+    from jepsen_tpu_torch import generator as gen
+    from jepsen_tpu_torch import net as jnet
+    from jepsen_tpu_torch.history import FAIL, OK
+    from jepsen_tpu_torch.models import cas_register
+
+    class AtomRegister(jc.Client):
+        """In-memory linearizable register (shared-state client)."""
+
+        def __init__(self, state=None, lock=None):
+            self.state = state if state is not None else {"v": None}
+            self.lock = lock or threading.Lock()
+
+        def open(self, test, node):
+            return AtomRegister(self.state, self.lock)
+
+        def invoke(self, test, op):
+            with self.lock:
+                if op.f == "write":
+                    self.state["v"] = op.value
+                    return op.complete(OK)
+                if op.f == "read":
+                    return op.complete(OK, value=self.state["v"])
+                old, new = op.value
+                if self.state["v"] == old:
+                    self.state["v"] = new
+                    return op.complete(OK)
+                return op.complete(FAIL)
+
+    class MortalRegister(AtomRegister):
+        """A register whose node can die: once `dead[node]` is set,
+        opens are refused and in-flight invokes drop the connection."""
+
+        def __init__(self, state=None, lock=None, dead=None, node=None):
+            super().__init__(state, lock)
+            self.dead = dead if dead is not None else {}
+            self.node = node
+
+        def open(self, test, node):
+            if self.dead.get(node):
+                raise ConnectionRefusedError(f"{node} is dead")
+            return MortalRegister(self.state, self.lock, self.dead, node)
+
+        def invoke(self, test, op):
+            if self.dead.get(self.node):
+                raise ConnectionResetError(f"{self.node} died mid-op")
+            return super().invoke(test, op)
+
+    class AmnesiaRegister(MortalRegister):
+        """Writes carry strictly increasing values and the register
+        refuses any write at or below its value; once the amnesia wipe
+        hit it acknowledges every write and keeps none, so the lost
+        state stays lost."""
+
+        def open(self, test, node):
+            if self.dead.get(node):
+                raise ConnectionRefusedError(f"{node} is dead")
+            return AmnesiaRegister(self.state, self.lock, self.dead, node)
+
+        def invoke(self, test, op):
+            if op.f == "write":
+                if self.dead.get(self.node):
+                    raise ConnectionResetError(f"{self.node} died mid-op")
+                with self.lock:
+                    v = self.state["v"]
+                    if self.state.get("stale"):
+                        return op.complete(OK)
+                    if v is not None and op.value <= v:
+                        return op.complete(FAIL)
+                    self.state["v"] = op.value
+                    return op.complete(OK)
+            return super().invoke(test, op)
+
+    class KillableDB:
+        """kill/start (and pause/resume) toggle the `dead` map the
+        register reads."""
+
+        def __init__(self, dead):
+            self._base = jdb.NoopDB()
+            self.dead = dead
+
+        def __getattr__(self, name):
+            return getattr(self._base, name)
+
+        def kill(self, test, sess, node):
+            self.dead[node] = True
+
+        def start(self, test, sess, node):
+            self.dead[node] = False
+
+        def pause(self, test, sess, node):
+            self.dead[node] = True
+
+        def resume(self, test, sess, node):
+            self.dead[node] = False
+
+    class AmnesiaDB(KillableDB):
+        """The planted bug: a kill inside an open partition, or a
+        partition opened while a node is down, rolls the register back
+        to its first write and leaves the store stale."""
+
+        def __init__(self, dead, cut, state):
+            super().__init__(dead)
+            self.cut = cut
+            self.state = state
+
+        def forget(self):
+            self.state["v"] = 0
+            self.state["stale"] = True
+
+        def kill(self, test, sess, node):
+            if self.cut.get("active"):
+                self.forget()
+            super().kill(test, sess, node)
+
+    class RecordingNet(jnet.IptablesNet):
+        """The iptables net (its commands no-ops on dummy remotes) that
+        keeps the partition-open flag the amnesia DB reads, and opens a
+        partition on a down node into the amnesia."""
+
+        def __init__(self, cut, db):
+            super().__init__()
+            self.cut = cut
+            self.db = db
+
+        def drop_all(self, test, grudge):
+            self.cut["active"] = True
+            if any(self.db.dead.values()):
+                self.db.forget()
+            super().drop_all(test, grudge)
+
+        def heal(self, test):
+            self.cut["active"] = False
+            super().heal(test)
+
+    class LostWriteChecker(chk.Checker):
+        """A read below the highest write acknowledged before it began
+        is a lost acknowledged write (writes only increase)."""
+
+        def check(self, test, history, opts):
+            acked_max, floor, lost = None, {}, []
+            for i, op in enumerate(history):
+                if not op.is_client_op:
+                    continue
+                if op.f == "write":
+                    if op.type == "ok" and (acked_max is None
+                                            or op.value > acked_max):
+                        acked_max = op.value
+                elif op.f == "read":
+                    if op.is_invoke:
+                        floor[op.process] = acked_max
+                    else:
+                        fl = floor.pop(op.process, None)
+                        if (op.type == "ok" and fl is not None
+                                and (op.value is None or op.value < fl)):
+                            lost.append(i)
+            if lost:
+                return {"valid": False, "anomaly-types": ["lost-write"],
+                        "lost-reads": lost[:8], "count": len(lost)}
+            return {"valid": True, "count": 0}
+
+    def make() -> dict:
+        state, lock, dead = {"v": None}, threading.Lock(), {}
+        cut = {"active": False}
+        counter = itertools.count(1)
+        db = AmnesiaDB(dead, cut, state)
+        return {
+            "name": "search-smoke",
+            "nodes": list(SEARCH_NODES),
+            "concurrency": 3,
+            "ssh": {"dummy?": True},
+            "device": dev,
+            "net": RecordingNet(cut, db),
+            "db": db,
+            "client": AmnesiaRegister(state, lock, dead=dead),
+            "generator": gen.stagger(0.02, [
+                {"f": "write", "value": 0},
+                gen.mix([
+                    gen.FnGen(lambda: {"f": "read"}),
+                    gen.FnGen(lambda: {"f": "write",
+                                       "value": next(counter)}),
+                ])]),
+            "checker": chk.compose({
+                "stats": chk.Stats(),
+                "lost-write": LostWriteChecker(),
+                "linear": chk.linearizable(cas_register(), "wgl-tpu",
+                                           device=dev),
+            }),
+            "node-loss-policy": "tolerate:1",
+        }
+
+    return make
+
+
+def _stable(sig) -> frozenset:
+    """A coverage signature without the timing-bucketed `c:` counters
+    (the JAX smoke's `_stable`) and without the dossiers' `x:`
+    fingerprints: what a replay reproduces exactly.  The smoke's
+    checker has no linearizability and so no dossier; here each
+    convicting run's dossier fingerprints the counterexample its
+    shrink ends on, and with three clients that can hang on how their
+    ops interleaved in that run."""
+    return frozenset(f for f in sig if not f.startswith(("c:", "x:")))
+
+
+def _dossier_features(sig) -> frozenset:
+    """The `x:` features `_stable` leaves out (15a counts the replays
+    whose set changed)."""
+    return frozenset(f for f in sig if f.startswith("x:"))
+
+
+def _exact_linear(history):
+    """The exact CPU engine's linearizability verdict on a cas-register
+    history (checker/wgl_cpu.py or wgl_event.py)."""
+    from jepsen_tpu_torch.checker import Linearizable
+    from jepsen_tpu_torch.models import cas_register
+
+    return Linearizable(cas_register(), "cpu", time_limit_s=120,
+                        device="cpu").check({}, history, {})["valid"]
+
+
+def _refuted_from_json(path: str) -> bool:
+    """True when the exact CPU engine refutes the ops of a dossier's
+    counterexample.json, read back from the file alone."""
+    from jepsen_tpu_torch.history import History, Op
+
+    with open(path) as f:
+        ce = json.load(f)
+    h = History([Op.from_dict(o) for o in ce["ops"]], reindex=False)
+    return _exact_linear(h) is False
+
+
+def _stored_runs(root: str) -> list:
+    """The run directories (<name>/<timestamp>) under a search's runs/."""
+    out = []
+    for name in sorted(os.listdir(root)):
+        if os.path.islink(os.path.join(root, name)):
+            continue  # "current", the store's link to the latest run
+        for ts in sorted(os.listdir(os.path.join(root, name))):
+            d = os.path.join(root, name, ts)
+            if ts != "latest" and os.path.isdir(d) and not os.path.islink(d):
+                out.append(d)
+    return out
+
+
+def search_planted(torch, dev, tmp: str) -> dict:
+    """15a: `run_search` over the amnesia cluster, every iteration
+    checked on `dev` (see `phase_search`)."""
+    from jepsen_tpu_torch import store, telemetry
+    from jepsen_tpu_torch.nemesis import search
+
+    search_dir = os.path.join(tmp, "a")
+    runner = search.CoreRunner(amnesia_cluster(dev.type), search_dir,
+                               {"iteration-deadline": 30.0})
+    was = telemetry.enabled()
+    telemetry.enable(True)
+    try:
+        with AnalysisClock(torch) as clock:
+            t0 = time.perf_counter()
+            out, launches, _ = counted(torch, dev, lambda: search.run_search(
+                runner, search_dir=search_dir, n_nodes=len(SEARCH_NODES),
+                budget_s=SEARCH_BUDGET_S, seed=SEARCH_SEED,
+                families=SEARCH_FAMILIES, min_nodes=2,
+                shrink_attempts=SEARCH_SHRINK))
+            search_s = time.perf_counter() - t0
+            hist = out["history"]
+            seed_round = hist[:len(SEARCH_FAMILIES)]
+            covs = [h["coverage"] for h in seed_round]
+            if (len(hist) < len(SEARCH_FAMILIES)
+                    or any(h["new_features"] <= 0 for h in seed_round)
+                    or covs != sorted(set(covs))):
+                raise AssertionError(f"phase15a: coverage did not grow over "
+                                     f"the seed round: {seed_round}")
+            cells = [c for c in out["cells"] if c["reason"] == "anomaly"]
+            if not cells:
+                raise AssertionError(f"phase15a: no anomaly reproducer in "
+                                     f"{len(hist)} iterations; cells "
+                                     f"{[c['name'] for c in out['cells']]}")
+            cell = search.Schedule.from_json(cells[0]["schedule"])
+            if not {"kill", "partition"} <= cell.families or len(
+                    cell.events) > 3:
+                raise AssertionError(f"phase15a: reproducer "
+                                     f"{cells[0]['schedule']}")
+            corpus = search.Corpus(os.path.join(search_dir, "corpus"))
+            if not corpus.entries:
+                raise AssertionError("phase15a: the corpus is empty")
+            t0 = time.perf_counter()
+            x_changed = 0
+            for entry in corpus.entries:
+                got = search.replay(entry, runner)
+                want = _stable(frozenset(entry["signature"]))
+                sig = _stable(search.signature(got))
+                x_changed += _dossier_features(search.signature(got)) != (
+                    _dossier_features(entry["signature"]))
+                if sig != want or search.reasons(got) != list(
+                        entry["interesting"]):
+                    raise AssertionError(
+                        f"phase15a: corpus {entry['id']} replay diverged: "
+                        f"missing {sorted(want - sig)}, extra "
+                        f"{sorted(sig - want)}")
+            replay_s = time.perf_counter() - t0
+    finally:
+        telemetry.enable(was)
+    if search.heal_crashed_iterations(search_dir) != {}:
+        raise AssertionError("phase15a: outstanding ledger entries left")
+    checked = convicted = dossiers = 0
+    for d in _stored_runs(os.path.join(search_dir, "runs")):
+        tf = store.load(d)
+        try:
+            res, h = tf.results, tf.history()
+        finally:
+            tf.close()
+        if not isinstance(res, dict) or "linear" not in res:
+            continue
+        checked += 1
+        exact = _exact_linear(h)
+        if res["linear"]["valid"] != exact:
+            raise AssertionError(f"phase15a: {d}: the run's linear verdict "
+                                 f"{res['linear']['valid']}, the exact CPU "
+                                 f"engine's {exact}")
+        if exact is False:
+            convicted += 1
+            fs = (res.get("forensics") or {}).get("dossiers") or []
+            cx = [os.path.join(x["dir"], "counterexample.json") for x in fs]
+            if not cx or not all(map(_refuted_from_json, cx)):
+                raise AssertionError(f"phase15a: {d}: convicted without a "
+                                     f"refuted counterexample: {fs}")
+            dossiers += len(cx)
+    need_launches("phase15a", dev, launches)
+    r = {"iterations": out["stats"]["iterations"],
+         "coverage": out["coverage"], "corpus": out["corpus"],
+         "cells": [c["name"] for c in out["cells"]],
+         "reproducer_events": len(cell.events),
+         "replayed": len(corpus.entries), "x_changed": x_changed,
+         "checked": checked,
+         "convicted": convicted, "dossiers": dossiers,
+         "sweeps": launches.get("witness_sweep", 0),
+         "search_s": search_s, "replay_s": replay_s,
+         "forensics_s": sum(clock.forensics)}
+    log("phase15a: " + json.dumps(r))
+    return r
+
+
+def forensics_of_a_run(torch, dev, tmp: str, smi: str) -> dict:
+    """15b: phase 11b's shape (200 keys, stale reads on keys 0-29)
+    checked on `dev`, its dossiers read back (see `phase_search`)."""
+    from jepsen_tpu_torch import cli
+    from jepsen_tpu_torch.parallel import clear_settle_memo
+    from jepsen_tpu_torch.workloads import _extra_opts, test_fn
+
+    def stale(opts):
+        return {**test_fn(opts), "client": stale_read_client()}
+
+    argv = ["--workload", "linearizable-register", "--dummy-ssh",
+            "--key-count", str(RUN_KEYS_SMALL), "--per-key-limit",
+            str(RUN_PER_KEY), "--threads-per-key", str(RUN_THREADS_PER_KEY),
+            "--concurrency", str(RUN_CONCURRENCY), "--time-limit",
+            str(RUN_TIME_LIMIT), "--seed", str(BENCH_SEED), "--store-dir",
+            os.path.join(tmp, "b")]
+    b = _run_cli(torch, ["test", "--device", dev.type, *argv], stale, "b",
+                 smi, phase="15")
+    fz = b["results"].get("forensics") or {}
+    ds = fz.get("dossiers") or []
+    if (b["exit"] != cli.EXIT_INVALID or fz.get("anomaly-count")
+            != RUN_STALE_KEYS or len(ds) != 16 or fz.get("skipped")
+            != RUN_STALE_KEYS - 16):
+        raise AssertionError(f"phase15b: exit {b['exit']}, forensics "
+                             f"{ {k: v for k, v in fz.items() if k != 'dossiers'} }"
+                             f", {len(ds)} dossiers")
+    before = {}
+    for x in ds:
+        missing = [f for f in FORENSICS_FILES
+                   if not os.path.isfile(os.path.join(x["dir"], f))]
+        if missing or not x["op-count"] < x["original-op-count"]:
+            raise AssertionError(f"phase15b: dossier {x['key']}: missing "
+                                 f"{missing}, {x.get('op-count')} of "
+                                 f"{x.get('original-op-count')} ops")
+        path = os.path.join(x["dir"], "counterexample.json")
+        if not _refuted_from_json(path):
+            raise AssertionError(f"phase15b: dossier {x['key']}: its "
+                                 f"counterexample is not refuted")
+        with open(path, "rb") as f:
+            before[path] = f.read()
+    # As a fresh `analyze` process would: the run's settle memo would
+    # hand every key its group's verdict without the positional
+    # certificates (final-configs) the dossier's signature reads.
+    clear_settle_memo()
+    parser = cli.single_test_cmd(stale, extra_opts=_extra_opts)
+    with AnalysisClock(torch) as clock:
+        code = cli.run(parser, ["analyze", "--device", "cpu", *argv,
+                                b["dir"]])
+    same = 0
+    for path, data in before.items():
+        with open(path, "rb") as f:
+            same += f.read() == data
+    if code != cli.EXIT_INVALID or same != len(before):
+        raise AssertionError(f"phase15b: `analyze --device cpu` exit "
+                             f"{code}, {same} of {len(before)} "
+                             f"counterexample.json files byte-identical")
+    r = {"exit": b["exit"], "anomalies": fz["anomaly-count"],
+         "dossiers": len(ds), "skipped": fz["skipped"],
+         "op_counts": [[x["op-count"], x["original-op-count"]] for x in ds],
+         "analyze_s": b["analyze_s"], "forensics_s": b["forensics_s"],
+         "sweeps": b["sweeps"], "cpu_analyze_s": sum(clock.seconds),
+         "cpu_forensics_s": sum(clock.forensics), "identical": same}
+    log("phase15b: " + json.dumps(r))
+    return r
+
+
+def search_repkv(torch, dev, tmp: str) -> dict:
+    """15c: `repkv search` through the suite's CLI against the real
+    servers (see `phase_search`)."""
+    from jepsen_tpu_torch import cli, store
+    from jepsen_tpu_torch.suites import repkv
+
+    store_dir = os.path.join(tmp, "c")
+    argv = ["search", "--device", dev.type, *SUITE_NODES,
+            "--search-families", "partition,kill", "--max-iterations",
+            str(SEARCH_REPKV_ITERATIONS), "--shrink-attempts",
+            str(SEARCH_REPKV_SHRINK), "--budget", "120", "--seed", "1",
+            "--store-dir", store_dir]
+    with AnalysisClock(torch) as clock:
+        t0 = time.perf_counter()
+        code, launches, _ = counted(torch, dev, lambda: repkv.main(argv))
+        wall = time.perf_counter() - t0
+    left = _servers(store_dir)
+    if left:
+        raise AssertionError(f"phase15c: servers outlived the search: "
+                             f"{left}")
+    sdir = os.path.join(store_dir, "repkv-register-search")
+    state_path = os.path.join(sdir, "search.json")
+    if code != cli.EXIT_VALID or not os.path.isfile(state_path):
+        raise AssertionError(f"phase15c: exit {code}, search.json "
+                             f"{os.path.isfile(state_path)}")
+    with open(state_path) as f:
+        state = json.load(f)
+    verdicts = []
+    for d in _stored_runs(os.path.join(sdir, "runs")):
+        tf = store.load(d)
+        try:
+            ran = tf.results
+        finally:
+            tf.close()
+        if not isinstance(ran, dict):
+            continue
+        cpu = repkv.main(["analyze", "--device", "cpu", *SUITE_NODES,
+                          "--store-dir", store_dir, d])
+        tf = store.load(d)
+        try:
+            again = tf.results
+        finally:
+            tf.close()
+        verdicts.append([os.path.relpath(d, sdir), ran["valid"],
+                         again["valid"]])
+        if (again["valid"] != ran["valid"]
+                or again["linear"]["valid"] != ran["linear"]["valid"]
+                or cpu != cli.validity_exit(ran)):
+            raise AssertionError(f"phase15c: {d}: the card's verdict "
+                                 f"{ran['valid']}, the CPU re-analysis "
+                                 f"{again['valid']} (exit {cpu})")
+    if not verdicts:
+        raise AssertionError("phase15c: no iteration stored a verdict")
+    r = {"exit": code, "iterations": len(state["iterations"]),
+         "coverage": state["coverage"], "cells": len(state["cells"]),
+         "verdicts": verdicts, "sweeps": launches.get("witness_sweep", 0),
+         "wall_s": wall, "forensics_s": sum(clock.forensics)}
+    log("phase15c: " + json.dumps(r))
+    return r
+
+
+def phase_search(torch, dev=None) -> dict:
+    """Phase 15: anomaly forensics and `jepsen search` with the checks
+    on `dev` (the card by default).  (15a) the planted-bug search of
+    the JAX package's search smoke on the port: `run_search` (seed 3,
+    families partition and kill, shrink_attempts 8, a
+    `SEARCH_BUDGET_S` budget) over a register that loses acknowledged writes only when a
+    kill lands inside a partition, each iteration's composed checker
+    holding `linearizable(cas_register(), "wgl-tpu")` on the card:
+    coverage grows over the seed round; the anomaly is found and shrunk
+    to at most three events composing kill and partition; every corpus
+    entry replays with its stable features and reasons; nothing is
+    left for `jepsen repair`; every iteration's linearizability verdict
+    is the exact CPU engine's on its stored history; the witness sweep
+    (B1) launched; every convicting iteration carries a dossier whose
+    counterexample.json the exact CPU engine refutes from the file.
+    (15b) phase 11b's shape: 30 anomalies, 16 dossiers (MAX_DOSSIERS),
+    14 skipped, each with counterexample.json, death.json, linear.svg
+    and timeline.html, each minimal history shorter than its key's and
+    refuted from its JSON; `cli analyze --device cpu` of the stored run
+    rewrites byte-identical counterexample.json files.  (15c) `repkv
+    search` (partition and kill, three nodes) against the real servers:
+    exit 0, the search dir written, each iteration's verdict that of
+    its stored history's CPU re-analysis, no server left (every server
+    the phase started is killed on any way out)."""
+    import shutil
+    import tempfile
+
+    dev = torch.device("cuda") if dev is None else torch.device(dev)
+    smi = (subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip()
+           if dev.type == "cuda" else "cpu")
+    out: dict = {"card": smi}
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="phase15-")
+    try:
+        out["a"] = search_planted(torch, dev, tmp)
+        out["b"] = forensics_of_a_run(torch, dev, tmp, smi)
+        if shutil.which("g++") is None:
+            raise RuntimeError("phase15c: no g++: repkv compiles its "
+                               "servers with it")
+        out["c"] = search_repkv(torch, dev, tmp)
+    finally:
+        left = _kill_servers(tmp)
+        shutil.rmtree(tmp, ignore_errors=True)
+    if left:
+        raise AssertionError(f"phase15: servers left running: {left}")
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"phase15: done in {out['wall_s']:.3f} s")
     return out
 
 
@@ -4521,6 +5178,21 @@ def sass_instructions(lib_path: str) -> dict:
     return out
 
 
+class Stages:
+    """The script's wall seconds by stage, for its time budget: each
+    call closes the stage it names, logs it and keeps it in
+    `seconds`."""
+
+    def __init__(self):
+        self.t, self.seconds = time.perf_counter(), {}
+
+    def __call__(self, name: str) -> None:
+        now = time.perf_counter()
+        self.seconds[name] = now - self.t
+        self.t = now
+        log(f"stage {name}: {self.seconds[name]:.3f} s")
+
+
 def main() -> int:
     import torch
 
@@ -4543,9 +5215,11 @@ def main() -> int:
     log(f"device: {kind} (torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}); nvidia-smi: {smi}")
 
+    stage = Stages()
     t0 = time.perf_counter()
     kernels.sweep_lib()
     log(f"build: {time.perf_counter() - t0:.3f} s")
+    stage("build")
     for line in kernels.build_log.strip().splitlines():
         log(f"build[witness_sweep]: {line}")
 
@@ -4562,19 +5236,28 @@ def main() -> int:
         f"generate {t_gen:.3f} s, pack {t_pack:.3f} s, window W={W}")
 
     entry, timings = phase_kernel(torch, packed, pm, W, seed=BENCH_SEED)
+    stage("1")
     main_r = phase_main(torch, history, packed.n)
+    stage("2")
     entry["launches"] = main_r["sweep_launches"]
 
     # The many-key path, then phase 1b on the sweep calls it recorded;
     # all before the profiler first runs (phase 3).
     recorder = SweepRecorder()
     mixed_r = phase_mixed(torch, recorder)
+    stage("5")
     models_r = phase_models(torch, recorder)
+    stage("6")
     online_r = phase_online(torch, pm, packed, history)
+    stage("7")
     elle_r = phase_elle(torch)
+    stage("8")
     plan_r = phase_plan(torch, history)
+    stage("9")
     daemon_r = phase_daemon(torch)
+    stage("10")
     run_r = phase_run(torch)
+    stage("11")
     entry["launches_online"] = {
         "carry": online_r["carry"]["sweep_launches"],
         "scale": online_r["scale"]["sweep_launches"],
@@ -4589,12 +5272,17 @@ def main() -> int:
     wide, wide_r = phase_wide(torch, packed)
     groups, groups_r = phase_groups(torch, packed)
     batched = phase_batched(torch, recorder)
+    stage("1b")
     packing_r = phase_packing(torch, history, recorder)
+    stage("12")
     workloads_r = phase_workloads(torch)
+    stage("13")
     suites_r = phase_suites(torch)
+    stage("14")
     ptxas = ptxas_report(kernels.build_log)
     for key, n in sass_instructions(kernels.sweep_lib()._name).items():
         ptxas.setdefault(key, {})["sass_instructions"] = n
+    stage("ptxas, sass")
     for e in more:
         e["launches"] = launches.get(e["name"], 0)
         if e["launches"] <= 0:
@@ -4626,6 +5314,7 @@ def main() -> int:
             f"{json.dumps(rep)}")
 
     phase_profile(torch, entry, timings)
+    stage("3 sweep")
     for e in more:
         seen = profile_device(torch, e.pop("_kernel"), reps=200)
         n, _ = next(v for k, v in seen.items() if "witness_sweep" in k)
@@ -4643,11 +5332,20 @@ def main() -> int:
         log(f"profile: batched BFS {model_name}: {b['levels']} levels, device "
             f"time {b['device_ms']:.3f} ms in {b['device_ops']} device "
             f"operations, wall {b['wall_s']:.3f} s")
+    stage("3 instantiations, batched")
     programs = elle_programs(torch, elle_r)
+    stage("3 elle")
     main_r["breakdown"] = breakdown(torch, history)
+    stage("3 breakdown")
     log("profile: main path breakdown " + json.dumps(main_r["breakdown"]))
     bad_r = phase_invalid(torch)
     programs.append(packed_bfs_entry(bad_r))
+    stage("4")
+    # Last: phase 15 reads no device time, and phase 3's profiler
+    # windows lost more records after its runs (PERF.md §7).
+    search_r = phase_search(torch)
+    entry["launches_search"] = search_r["a"]["sweeps"]
+    stage("15")
 
     log(f"phase4 done; main path {main_r['ops_per_s']:.1f} ops/s, "
         f"invalid path {bad_r['wall_s']:.3f} s; many-key mixed "
@@ -4672,7 +5370,10 @@ def main() -> int:
         f"phase 13 {workloads_r['wall_s']:.3f} s (13d "
         f"{workloads_r['d']['vertices']} vertices, route "
         f"{workloads_r['d']['route']}); suites phase 14 "
-        f"{suites_r['wall_s']:.3f} s")
+        f"{suites_r['wall_s']:.3f} s; search phase 15 "
+        f"{search_r['wall_s']:.3f} s")
+    print(json.dumps({"stages_s": stage.seconds}))
+    print(json.dumps({"search": search_r}))
     print(json.dumps({"suites": suites_r}))
     print(json.dumps({"workloads": workloads_r}))
     print(json.dumps({"device_programs": programs}))

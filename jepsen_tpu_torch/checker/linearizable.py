@@ -15,6 +15,10 @@ indeterminate dequeue) and histories the model's `validate_packed`
 refuses go to the host-model search ("wgl-host",
 "wgl-host-unpackable").
 
+A refuted verdict checked with a store directory (`opts["dir"]`) draws
+its counterexample there as `linear.svg` (checker/linviz.py) and names
+the file in "counterexample-file", as the reference does.
+
 Before any engine runs, a verdict an online session
 (`test["streaming-session"]`, streaming/) proved while the run was
 still going is taken ("wgl-online"), when the packed history's digest
@@ -36,6 +40,7 @@ attached, where the reference settles on its CPU engine.
 
 from __future__ import annotations
 
+import os
 import time
 from typing import Optional, Union
 
@@ -111,18 +116,20 @@ class Linearizable(Checker):
         try:
             pm = model.packed()
         except NotImplementedError:
-            return self._host_fallback(history, model, "wgl-host")
+            return self._host_fallback(history, model, "wgl-host", opts)
         try:
             packed = pack_history(history, pm.encode)
         except ValueError:
             # Ops the packed form cannot encode soundly (e.g. an
             # indeterminate dequeue): host-model search.
-            return self._host_fallback(history, model, "wgl-host-unpackable")
+            return self._host_fallback(history, model, "wgl-host-unpackable",
+                                       opts)
         if pm.validate_packed is not None:
             reason = pm.validate_packed(packed)
             if reason is not None:
                 return self._host_fallback(history, model,
-                                           "wgl-host-unpackable", reason)
+                                           "wgl-host-unpackable", opts,
+                                           reason)
         sess = test.get("streaming-session")
         if self.streaming and sess is not None:
             # Digest in the session's code space (see _online_digest).
@@ -134,29 +141,29 @@ class Linearizable(Checker):
                 return r
         if self.algorithm in CPU_ALGORITHMS:
             res, engine = self._cpu_exact(packed, pm, self.algorithm)
-            return self._render(res, packed, engine, pm)
+            return self._render(res, packed, engine, pm, opts)
         if self.algorithm == "settle":
             t0 = time.monotonic()
             ref = check_refute(packed, pm, time_limit_s=self.time_limit_s)
             if ref is not None:
-                return self._render(ref, packed, "refute-screen", pm)
+                return self._render(ref, packed, "refute-screen", pm, opts)
             remaining = None
             if self.time_limit_s is not None:
                 remaining = max(
                     1.0, self.time_limit_s - (time.monotonic() - t0))
             res, engine = self._cpu_exact(packed, pm, time_limit_s=remaining)
-            return self._render(res, packed, engine, pm)
+            return self._render(res, packed, engine, pm, opts)
         from ..plan.compiler import run_single
 
         return run_single(self, packed, pm, model, self.algorithm, test,
                           opts, dev)
 
     def _host_fallback(self, history: History, model: Model, label: str,
-                       reason: Optional[str] = None) -> dict:
+                       opts: dict, reason: Optional[str] = None) -> dict:
         res = check_wgl_host_model(history, model,
                                    max_configs=self.max_configs,
                                    time_limit_s=self.time_limit_s)
-        out = self._render(res, None, label, None)
+        out = self._render(res, None, label, None, opts)
         if reason is not None:
             out["packed-fallback-reason"] = reason
         return out
@@ -173,7 +180,7 @@ class Linearizable(Checker):
         t_start = time.monotonic()
         ref = check_refute(packed, pm, time_limit_s=self.time_limit_s)
         if ref is not None:
-            return self._render(ref, packed, "refute-screen", pm)
+            return self._render(ref, packed, "refute-screen", pm, opts)
         budget_left = None
         if self.time_limit_s is not None:
             budget_left = max(
@@ -258,7 +265,7 @@ class Linearizable(Checker):
                 reason = cpu.reason or res.reason or "search exhausted"
                 res.reason = (f"{reason} (exact settling pass budget "
                               f"{budget_txt} also exhausted)")
-        return self._render(res, packed, used, pm)
+        return self._render(res, packed, used, pm, opts)
 
     def _cpu_exact(self, packed, pm, algorithm: str = "auto",
                    time_limit_s: Optional[float] = None):
@@ -284,7 +291,8 @@ class Linearizable(Checker):
         return res, engine
 
     def _render(self, res: WGLResult, packed, algorithm: str,
-                pm: Optional[PackedModel]) -> dict:
+                pm: Optional[PackedModel],
+                opts: Optional[dict] = None) -> dict:
         out = {
             "valid": res.valid,
             "algorithm": algorithm,
@@ -304,6 +312,22 @@ class Linearizable(Checker):
                                       int(packed.a1[a]))
                        if pm.describe_op else None),
             }
+        # Counterexample artifact, knossos's linear.svg
+        # (checker.clj:223-229): drawn into the store dir when the run
+        # gives one.
+        d = (opts or {}).get("dir")
+        if (res.valid is False and res.final_configs and d
+                and packed is not None and pm is not None):
+            from .linviz import render_analysis
+
+            try:
+                os.makedirs(d, exist_ok=True)
+                path = render_analysis(packed, pm, res,
+                                       os.path.join(d, "linear.svg"))
+                if path:
+                    out["counterexample-file"] = path
+            except OSError:
+                pass
         return out
 
 

@@ -3,7 +3,8 @@
 The port's copy of `jepsen_tpu/cli.py` (the reference's cli.clj): the
 standard option set (--nodes, --concurrency "3n", --time-limit,
 --test-count, the ssh flags), `single_test_cmd` giving the `test`,
-`analyze`, `repair` and, with a suite, `test-all` subcommands, and the
+`analyze`, `repair`, `search` and, with a suite, `test-all`
+subcommands, and the
 exit-code contract: 0 valid, 1 invalid, 2 unknown, 254 errors, 255
 usage.
 
@@ -13,9 +14,11 @@ on.  It is resolved when the test is built, before the first op: a run
 that asks for the card where there is none exits 254 with no history
 written.  A device fault during analysis (a kernel that failed to
 build or launch, a CUDA error, a card that ran out) exits 254 too,
-never 2 or 0.  `search`, `serve`, `checkerd`, `checkerd-router`,
-`monitor`, `fleet` and `lint` are not ported: `run` answers each with
-the usage exit and the ROADMAP item that brings it
+never 2 or 0.  `search` keeps the suite's `--device` in every
+iteration's test map, so each iteration is checked on the card; a
+device fault ends the search with 254.  `serve`, `checkerd`,
+`checkerd-router`, `monitor`, `fleet` and `lint` are not ported: `run`
+answers each with the usage exit and the ROADMAP item that brings it
 (`NOT_PORTED_COMMANDS`).
 
 Usage from a test suite:
@@ -29,6 +32,7 @@ from __future__ import annotations
 
 import argparse
 import logging
+import os
 import sys
 import traceback
 from typing import Any, Callable, Optional, Sequence
@@ -191,7 +195,6 @@ def localize_test(t: dict) -> dict:
 #: The reference's subcommands the port does not have yet, by the
 #: ROADMAP.md Queue A item that brings them.
 NOT_PORTED_COMMANDS = {
-    "search": 3,
     "serve": 7,
     "checkerd": 7,
     "checkerd-router": 7,
@@ -208,8 +211,8 @@ def single_test_cmd(
     extra_opts: Optional[Callable[[argparse.ArgumentParser], None]] = None,
     tests_fn: Optional[Callable[[dict], Sequence[dict]]] = None,
 ) -> argparse.ArgumentParser:
-    """Builds the parser with `test`, `analyze` and `repair` subcommands
-    (cli.clj:355-441).  `test_fn` maps the CLI option map to a test
+    """Builds the parser with `test`, `analyze`, `repair` and `search`
+    subcommands (cli.clj:355-441).  `test_fn` maps the CLI option map to a test
     map.  When `tests_fn` (option map -> sequence of test maps) is
     given, a `test-all` subcommand runs the whole suite
     (cli.clj:501-529)."""
@@ -252,6 +255,45 @@ def single_test_cmd(
     )
     r.set_defaults(_run=lambda opts: _run_repair(test_fn, opts))
 
+    se = sub.add_parser(
+        "search",
+        help="coverage-guided fault schedule search: breed nemesis "
+        "schedules under a wall-clock budget, shrink anything "
+        "interesting to a minimal reproducer",
+    )
+    add_standard_opts(se)
+    if extra_opts:
+        extra_opts(se)
+    se.add_argument(
+        "--budget", type=float, default=60.0, metavar="S",
+        help="wall-clock seconds to search (default 60)",
+    )
+    se.add_argument(
+        "--search-families", default=None, metavar="F1,F2",
+        help="comma-separated fault families to draw from (default: "
+        "every family whose compensator is replayable — "
+        "partition,kill,pause,packet,clock)",
+    )
+    se.add_argument(
+        "--max-iterations", type=int, default=None,
+        help="stop after this many runs even with budget left",
+    )
+    se.add_argument(
+        "--min-nodes", type=int, default=None,
+        help="survivable-minimum floor override (default: derived "
+        "from --node-loss-policy)",
+    )
+    se.add_argument(
+        "--iteration-deadline", type=float, default=60.0, metavar="S",
+        help="per-iteration hang deadline (default 60)",
+    )
+    se.add_argument(
+        "--shrink-attempts", type=int, default=12,
+        help="max extra runs spent minimizing one reproducer "
+        "(default 12)",
+    )
+    se.set_defaults(_run=lambda opts: _run_search(test_fn, opts))
+
     return parser
 
 
@@ -287,6 +329,11 @@ def _run_test(test_fn, opts) -> int:
             f"==> {test['name']} {test.get('start-time')}: "
             f"valid={test['results'].get('valid')}"
         )
+        forens = test["results"].get("forensics")
+        if isinstance(forens, dict) and forens.get("dossiers"):
+            n = len(forens["dossiers"])
+            print(f"    {n} anomaly dossier{'s' if n != 1 else ''}: "
+                  f"{forens.get('dir')}")
         if _SEVERITY[code] > _SEVERITY[worst]:
             worst = code
     return worst
@@ -389,6 +436,71 @@ def _run_repair(test_fn, opts) -> int:
     residue = report.get("residue") or {}
     print(f"    residue clean={residue.get('clean')}")
     return EXIT_VALID if report["clean"] else EXIT_UNKNOWN
+
+
+def _run_search(test_fn, opts) -> int:
+    """`jepsen search`: the coverage-guided fault fuzzer.  Each
+    iteration is a full run in its own store dir under
+    <store-dir>/<name>-search/runs/; the suite's test map provides the
+    cluster, client, checker and device, while the search installs the
+    compiled nemesis + scripted generator.  The search dir is stable
+    across invocations, so corpus and coverage resume — and the
+    leading heal sweep repairs whatever a SIGKILLed predecessor left
+    mid-fault."""
+    from . import telemetry
+    from .nemesis import search as nsearch
+
+    base = _build_test(test_fn, opts)
+    name = base.get("name") or "jepsen"
+    search_dir = os.path.join(opts.store_dir, f"{name}-search")
+    n_nodes = len(base.get("nodes") or [])
+    if n_nodes < 2:
+        print("search needs >= 2 nodes", file=sys.stderr)
+        return EXIT_USAGE
+    min_nodes = opts.min_nodes or nsearch.floor_from_test(base)
+    families = tuple(
+        f.strip() for f in (opts.search_families or "").split(",")
+        if f.strip()
+    ) or nsearch.DEFAULT_FAMILIES
+
+    runner = nsearch.CoreRunner(
+        lambda: _build_test(test_fn, opts), search_dir,
+        {
+            "iteration-deadline": opts.iteration_deadline,
+            "node-loss-policy": base.get("node-loss-policy"),
+        },
+    )
+    was_enabled = telemetry.enabled()
+    telemetry.enable(True)
+    try:
+        out = nsearch.run_search(
+            runner,
+            search_dir=search_dir,
+            n_nodes=n_nodes,
+            budget_s=opts.budget,
+            seed=opts.seed or 0,
+            families=families,
+            min_nodes=min_nodes,
+            max_iterations=opts.max_iterations,
+            shrink_attempts=opts.shrink_attempts,
+            repair_template=base,
+        )
+    finally:
+        telemetry.enable(was_enabled)
+    stats = out["stats"]
+    print(f"==> search {search_dir}")
+    print(
+        f"    iterations={stats['iterations']} "
+        f"coverage={out['coverage']} corpus={out['corpus']} "
+        f"interesting={stats['interesting']} cells={len(out['cells'])}"
+    )
+    for cell in out["cells"]:
+        print(
+            f"    cell {cell['name']}: {cell['events']} event(s), "
+            f"shrunk from {cell['from_events']} in "
+            f"{cell['shrink_runs']} runs"
+        )
+    return EXIT_VALID
 
 
 def run(parser: argparse.ArgumentParser,

@@ -27,7 +27,8 @@ What differs from the reference:
   "history-reviver" where it has one: the store keeps op values as JSON
   has them (a keyed value as a list), and a workload that ran with
   other values (the north-star workload's KV pairs) turns them back.
-- The anomaly forensics of the reference's `analyze` are not ported.
+- The anomaly forensics that `analyze` attaches (forensics.py) are
+  fail-open for any error but a device fault, which raises.
 """
 
 from __future__ import annotations
@@ -232,6 +233,23 @@ def analyze(test: dict, history: History, dir: Optional[str] = None) -> dict:
         results.setdefault("resilience", resil)
     if sess is not None and isinstance(results, dict):
         results.setdefault("streaming", sess.stats())
+    # Anomaly forensics: every bad verdict ships a dossier (minimal
+    # counterexample, death state, trace slice, nemesis correlation)
+    # under <store>/forensics/.  Fail-open but for a device fault:
+    # assembly must never change the verdict it documents.
+    if isinstance(results, dict) and opts.get("dir"):
+        from . import forensics
+
+        try:
+            fsum = forensics.assemble(test, results, history, opts["dir"],
+                                      checker=checker)
+        except Exception as e:  # noqa: BLE001 — side output only
+            if degrade.is_device_fault(e):
+                raise
+            log.warning("forensics assembly failed", exc_info=True)
+        else:
+            if fsum is not None:
+                results.setdefault("forensics", fsum)
     return results
 
 

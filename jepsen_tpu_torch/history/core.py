@@ -222,6 +222,16 @@ class History(Sequence[Op]):
     def client_ops(self) -> "History":
         return self.filter(lambda o: o.is_client_op)
 
+    def fold(self, f: "Any", chunk_size: "int | None" = None) -> Any:
+        """Runs a history.fold.Fold over this history (h/fold)."""
+        # Import the submodule explicitly: the package re-exports the
+        # `fold` FUNCTION, which shadows the module name.
+        from .fold import fold as run_fold
+
+        if chunk_size is None:
+            return run_fold(self, f)
+        return run_fold(self, f, chunk_size=chunk_size)
+
     # -- sequence protocol -------------------------------------------------
 
     def __len__(self) -> int:

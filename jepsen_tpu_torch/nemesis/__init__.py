@@ -1,12 +1,11 @@
 """Fault injection: the Nemesis protocol and stock faults.
 
-The port's copy of `jepsen_tpu/nemesis/__init__.py`, without `search`
-(the schedule fuzzer, ROADMAP.md Queue A item 3).  Equivalent of
+The port's copy of `jepsen_tpu/nemesis/__init__.py`.  Equivalent of
 jepsen/src/jepsen/nemesis.clj plus the nemesis/ subtree (combined
 packages, clock faults, membership churn).
 """
 
-from . import ledger
+from . import ledger, search
 from .core import (
     Compose,
     FMap,
@@ -54,6 +53,7 @@ __all__ = [
     "partition_random_halves",
     "partition_random_node",
     "partitioner",
+    "search",
     "split_one",
     "timeout",
 ]

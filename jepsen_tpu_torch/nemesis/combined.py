@@ -1,9 +1,6 @@
 """Declarative "fault packages": nemesis + generator bundles.
 
-The port's copy of `jepsen_tpu/nemesis/combined.py`.  The lazyfs and
-faketime families stay in the registry, and their constructors raise
-NotImplementedError until those modules are ported (ROADMAP.md Queue A
-item 4).
+The port's copy of `jepsen_tpu/nemesis/combined.py`.
 
 Equivalent of jepsen/src/jepsen/nemesis/combined.clj:
 a package is {"nemesis", "generator", "final-generator", "perf"}
@@ -305,15 +302,13 @@ def _membership_package(opts: dict) -> Optional[dict]:
 
 
 def _lazyfs_package(opts: dict) -> Optional[dict]:
-    raise NotImplementedError(
-        "the lazyfs fault family (jepsen_tpu/lazyfs.py) is not ported "
-        "yet: ROADMAP.md Queue A item 4")
+    from ..lazyfs import lazyfs_package
+    return lazyfs_package(opts)
 
 
 def _faketime_package(opts: dict) -> Optional[dict]:
-    raise NotImplementedError(
-        "the faketime fault family (jepsen_tpu/faketime.py) is not ported "
-        "yet: ROADMAP.md Queue A item 4")
+    from ..faketime import faketime_package
+    return faketime_package(opts)
 
 
 #: The family registry: name -> (faults served, constructor), in

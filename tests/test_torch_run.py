@@ -335,8 +335,9 @@ def test_keyed_run_writes_the_references_key_artifacts(tmp_path,
     """A keyed run stores independent/<key>/{results.json,history.txt}
     for every key, as the reference's IndependentChecker does for the
     same history: the history files byte for byte, the results equal
-    but for "elapsed-s" (a wall clock) and "counterexample-file" (the
-    reference's SVG rendering, which the port does not draw)."""
+    but for "elapsed-s" (a wall clock), and "counterexample-file" equal
+    below each store root: the SVG both packages draw for a refuted
+    key (checker/linviz.py), which exists in both stores."""
     import json
 
     monkeypatch.delenv("JEPSEN_WGL_PACKED", raising=False)
@@ -361,7 +362,11 @@ def test_keyed_run_writes_the_references_key_artifacts(tmp_path,
     def results(root, k):
         r = json.loads(read(root, k, "results.json"))
         r.pop("elapsed-s", None)
-        r.pop("counterexample-file", None)
+        cx = r.get("counterexample-file")
+        if cx is not None:
+            assert os.path.isfile(cx), cx
+            r["counterexample-file"] = os.path.relpath(
+                cx, os.path.dirname(root))
         return r
 
     for k in keys:
@@ -370,6 +375,8 @@ def test_keyed_run_writes_the_references_key_artifacts(tmp_path,
         assert results(ours, k) == results(ref_dir / "independent", k)
     assert [k for k in keys if results(ours, k)["valid"] is False] == [
         "0", "1"]
+    assert {results(ours, k).get("counterexample-file")
+            for k in ("0", "1")} == {"linear.svg"}
 
 
 def test_north_star_workload_online(tmp_path):

@@ -134,7 +134,7 @@ def test_suite_needs_the_card_unless_asked_for_the_cpu(name, tmp_path,
     assert not store_dir.exists()
 
 
-@pytest.mark.parametrize("command", ["search", "serve", "monitor", "fleet",
+@pytest.mark.parametrize("command", ["serve", "monitor", "fleet",
                                      "checkerd", "checkerd-router", "lint"])
 def test_unported_subcommands_name_their_item(command, capsys):
     from jepsen_tpu_torch import cli
@@ -142,3 +142,66 @@ def test_unported_subcommands_name_their_item(command, capsys):
     assert pkvdb.main([command]) == cli.EXIT_USAGE
     item = cli.NOT_PORTED_COMMANDS[command]
     assert f"Queue A item {item}" in capsys.readouterr().err
+
+
+def test_search_needs_two_nodes_and_the_card(tmp_path, monkeypatch):
+    """`search` is a suite subcommand: kvdb's single node is refused
+    with the usage exit, and without a card it exits 254 before the
+    first iteration."""
+    import torch
+
+    from jepsen_tpu_torch import cli
+
+    store_dir = tmp_path / "store"
+    assert pkvdb.main(["search", "--device", "cpu", "--store-dir",
+                       str(store_dir)]) == cli.EXIT_USAGE
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert pkvdb.main(["search", "--store-dir",
+                       str(store_dir)]) == cli.EXIT_ERROR
+    assert not (store_dir / "kvdb-register-search").exists()
+
+
+def test_repkv_search_through_its_cli(tmp_path):
+    """`repkv search` against the real servers, checked on the CPU: the
+    search dir written, each iteration's stored verdict that of the
+    exact CPU engine on its stored history, a convicting iteration's
+    dossier refuted from its JSON alone, and no server left."""
+    import jepsen_tpu_torch.suites.repkv as prepkv
+    from chip_smoke import _servers
+    from jepsen_tpu_torch import cli
+    from jepsen_tpu_torch.checker import Linearizable
+    from jepsen_tpu_torch.history import History, Op
+    from jepsen_tpu_torch.models import cas_register
+
+    store_dir = tmp_path / "store"
+    argv = ["search", "--device", "cpu", "--node", "n1", "--node", "n2",
+            "--node", "n3", "--search-families", "partition,kill",
+            "--max-iterations", "2", "--shrink-attempts", "1",
+            "--budget", "60", "--seed", "1", "--store-dir", str(store_dir)]
+    try:
+        assert prepkv.main(argv) == cli.EXIT_VALID
+    finally:
+        left = _servers(str(tmp_path))
+    assert not left, left
+    sdir = store_dir / "repkv-register-search"
+    state = json.loads((sdir / "search.json").read_text())
+    assert [h["label"] for h in state["iterations"]][:2] == [
+        "seed-partition", "seed-kill"]
+    runs = sorted(p for p in (sdir / "runs").glob("*/2*") if p.is_dir())
+    assert len(runs) >= 2
+    for d in runs:
+        tf = pstore.load(str(d))
+        try:
+            res, h = tf.results, tf.history()
+        finally:
+            tf.close()
+        exact = Linearizable(cas_register(), "cpu", device="cpu").check(
+            {}, h.client_ops(), {})
+        assert res["linear"]["valid"] == exact["valid"], d
+        for dossier in (res.get("forensics") or {}).get("dossiers", []):
+            ce = json.loads(pathlib.Path(
+                dossier["dir"], "counterexample.json").read_text())
+            mini = History([Op.from_dict(o) for o in ce["ops"]],
+                           reindex=False)
+            assert Linearizable(cas_register(), "cpu", device="cpu").check(
+                {}, mini, {})["valid"] is False
