@@ -6,11 +6,12 @@
 Needs one CUDA card and the CUDA toolkit (nvcc): the witness sweep
 kernel is built from jepsen_tpu_torch/csrc/ into build/jepsen_tpu_torch/
 at first use.  Exits non-zero, printing no result, when torch sees no
-CUDA device or the package is missing.  Sixteen phases, each raising on
-failure, run in the order 1, 2, 5, 6, 7, 8, 9, 10, 11, 1b, 12, 13, 14, 3,
-4, 15 (every CUDA-event timing before the profiler first runs; phase 15,
-host-clock walls only, after it, since torch.profiler drops device
-operations from its windows in a process that has run a search).  The searches run with the packed member lanes at their default
+CUDA device or the package is missing.  Seventeen phases, each raising
+on failure, run in the order 1, 2, 5, 6, 7, 8, 9, 10, 11, 1b, 12, 13, 14,
+3, 4, 15, 16 (every CUDA-event timing before the profiler first runs;
+phases 15 and 16, host-clock walls only, after it, since torch.profiler
+drops device operations from its windows in a process that has run a
+search).  The searches run with the packed member lanes at their default
 (`JEPSEN_WGL_PACKED`, on), as users run them.  The
 checkers' only route is the compiled plan, so phases 1-8, 10 and 11 run
 it; phase 9 reads its own parts (JEPSEN_PLAN=0, memo, faults, records):
@@ -71,7 +72,8 @@ it; phase 9 reads its own parts (JEPSEN_PLAN=0, memo, faults, records):
    longest recorded call.  Their device time is read in phase 3, and
    each one's registers and spills from the build's -Xptxas -v output.
    Also the batched BFS on each model's cohort recorded in phases 5
-   and 6: levels, host syncs and wall time; its device time in phase 3.
+   and 6: levels, host syncs and wall time; the FIFO cohort's device
+   time in phase 3.
    Then the wide cases (`phase_wide`): every instantiation at beams of
    33, 48 and 64 lanes (two 32-lane blocks joined), and the wide
    multi-register (33, 40 and 64 registers, state rows in shared
@@ -180,7 +182,7 @@ it; phase 9 reads its own parts (JEPSEN_PLAN=0, memo, faults, records):
    batched BFS the same way: no key decided differently (which keys
    overflow the beam to "unknown" depends on the children each hash
    keeps), and its whole check (settle included) with equal per-key
-   verdicts; (12c) a 2M-op `random_register_packed` history:
+   verdicts; (12c) a 500k-op `random_register_packed` history:
    one fresh check, then one whose budget expires mid-search with a
    checkpoint directory, then a resume from the file: valid, fewer
    sweeps than the fresh run, the file gone; all three walls printed.
@@ -249,8 +251,34 @@ it; phase 9 reads its own parts (JEPSEN_PLAN=0, memo, faults, records):
    search` against the real servers (three iterations, partition and
    kill): exit 0, each iteration's verdict its stored history's CPU
    re-analysis, no server left.
+16. Jepsen against real nodes and the federated checker
+   (`phase_remote`), every check on the card: (16a) three loopback
+   SSH nodes (the port's minissh servers) and SshCliRemote through the
+   port's `ssh`/`scp` shims: an exec and a 1 MiB scp round trip with
+   equal checksums, then tests/test_ssh_localhost.py's kvdb run (kill
+   faults, 6 s, the C++ server compiled on the node through SSH):
+   valid or unknown, its stored history's `cli analyze --device cpu`
+   the same per-key verdicts, B1 launched, the SSH and analyze seconds
+   printed; (16b) where network namespaces work, the repkv kernel
+   partition convicted and its safe-reads control valid, each as its
+   CPU re-analysis, else a `{"netns": {"available": false, "why": ...}}`
+   line; (16c) two `jepsen checkerd --device cuda` processes behind
+   `jepsen checkerd-router`: two concurrent phase-10a runs through the
+   router while the daemon holding their tickets is SIGKILLed inside
+   its batch window (per-key valid and algorithm the in-process check's,
+   a failover counted, the router's /metrics gauges), a journaled
+   ticket surviving its daemon's SIGKILL and restart, and a run
+   streamed through the router whose feed resumes after its connection
+   is cut and a daemon killed (only the tail resent, the in-process
+   verdicts), B1 launched in the daemon each time (their STATS);
+   (16d) tools/chaos_smoke.py's schedule against a router and two
+   daemons on the card: no lost verdict, an honest shed, identical
+   replayed digests, the light tenant's p95 within 30 s, the overload
+   gauges on /metrics, B1 launched in the daemons.
 
-The last lines are the phase-15 JSON line (per sub-phase: iterations,
+The last lines are the phase-16 JSON line (`{"federation": ...}`: per
+sub-phase verdicts, seconds and the daemons' B1 launches), the phase-15
+JSON line (per sub-phase: iterations,
 coverage, cells, convictions and dossiers, B1 sweeps and seconds), the
 phase-14 JSON line (per run: exit, ops, verdict,
 route, B1 sweeps, B7 screens and B8 extractions, seconds; the card and
@@ -486,17 +514,19 @@ def chain_step_ns(torch) -> float:
     return (t_2n - t_n) * 1e6 / n
 
 
-def profile_device(torch, fn, reps: int) -> dict:
+def profile_device(torch, fn, reps: int, warm: bool = True) -> dict:
     """{name: (count, microseconds)} of the kernels and copies that
     torch.profiler saw on the card over `reps` calls of `fn` (after a
-    warm-up call).  It records the card's activity alone: nothing here
+    warm-up call, unless `warm` is false because the caller ran `fn`
+    already).  It records the card's activity alone: nothing here
     reads the host's operators, and recording them made the windows of
     many launches (the batched BFS's ~200,000) about three times
     slower."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
@@ -1409,6 +1439,18 @@ def phase_instantiations(torch, recorder: SweepRecorder, seed: int) -> list:
     return timing_entries(torch, recorder.longest, max_err)
 
 
+#: Each other instantiation's timing: the plain version once on its
+#: longest call after one warm-up call (three times until its cost,
+#: ~0.1-0.5 s a call over ~40 instantiations, pushed the script past its
+#: time budget), and INSTANCE_REPS profiled launches for its device time
+#: in phase 3.
+INSTANCE_PLAIN_REPS, INSTANCE_REPS = 1, 50
+#: Phase 3 profiles the batched BFS of the FIFO cohort alone (the
+#: cohort ROADMAP's B6 record reads; each profiled call records up to
+#: ~200,000 launches, and profiling every model's took most of 60-110 s).
+BATCHED_PROFILED = "fifo"
+
+
 def timing_entries(torch, longest: dict, max_err: dict) -> list:
     """Times each instantiation on its longest recorded call (CUDA
     events over back-to-back wrapper launches; the plain version on the
@@ -1427,9 +1469,12 @@ def timing_entries(torch, longest: dict, max_err: dict) -> list:
         def kernel(pm=pm, start_k=start_k, args=c["args"], init=init):
             kernels.witness_sweep(pm.kernel_model, start_k, *args, init)
 
+        def plain_call(start_k=start_k, args=c["args"], pm=pm):
+            return sweep_plain(start_k, *args, pm.torch_step_rows)
+
         ms = cuda_ms(kernel, reps=200)
-        plain = wall_ms(lambda: sweep_plain(start_k, *c["args"],
-                                            pm.torch_step_rows), reps=3)
+        plain_call()  # warm-up: the plain version's first run on the card
+        plain = wall_ms(plain_call, reps=INSTANCE_PLAIN_REPS)
         swept = c["span"] + 1
         nbytes = roofline.sweep_cost(start_k, c["death"], bars.shape[1],
                                      bars[0].tolist(), B, sw,
@@ -3625,8 +3670,10 @@ def phase_run(torch, dev=None, keys: int = RUN_KEYS,
 # ---------------------------------------------------------------------------
 # The packed member lanes and the witness checkpoint (phase 12).
 
-#: Phase 12c's one-shot history: 2M ops, phase 7b's size.
-CKPT_OPS = 2_000_000
+#: Phase 12c's one-shot history: 500k ops (a quarter of phase 7b's 2M,
+#: so that the script with phase 16 and phase 3's plain warm-ups stays
+#: inside its time budget).
+CKPT_OPS = 500_000
 #: Phase 12a's word counts.
 HASH_WORDS = (1, 2, 33)
 
@@ -4174,7 +4221,7 @@ def phase_workloads(torch, dev=None, kafka_ops: int = KAFKA_OPS,
 
 #: Seconds of each phase-14 run (the reference's suite tests' settings,
 #: tests/test_{kvdb,logd,txnd,repkv,electd}_suite.py, cut to these).
-SUITE_SECONDS = {"a": 5, "b": 5, "c": 8, "d": 6, "e": 6, "f": 8}
+SUITE_SECONDS = {"a": 5, "b": 5, "c": 6, "d": 6, "e": 6, "f": 6}
 #: 14b's op limit: its Kafka graph stays under the screen's 1,024
 #: vertices (1,000 ops made 795 in phase 13a).
 SUITE_KAFKA_OPS = 1000
@@ -4274,11 +4321,7 @@ def phase_suites(torch, dev=None) -> dict:
         raise RuntimeError("phase14: no g++: the suites compile their "
                            "servers with it")
     dev = torch.device("cuda") if dev is None else torch.device(dev)
-    cuda = dev.type == "cuda"
-    smi = (subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, check=True).stdout.strip()
-           if cuda else "cpu")
+    smi = _smi(dev)
     out: dict = {"card": smi, "host": host_privilege()}
     log("phase14: host " + json.dumps(out["host"]))
     t_phase = time.perf_counter()
@@ -4991,10 +5034,7 @@ def phase_search(torch, dev=None) -> dict:
     import tempfile
 
     dev = torch.device("cuda") if dev is None else torch.device(dev)
-    smi = (subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, check=True).stdout.strip()
-           if dev.type == "cuda" else "cpu")
+    smi = _smi(dev)
     out: dict = {"card": smi}
     t_phase = time.perf_counter()
     tmp = tempfile.mkdtemp(prefix="phase15-")
@@ -5012,6 +5052,755 @@ def phase_search(torch, dev=None) -> dict:
         raise AssertionError(f"phase15: servers left running: {left}")
     out["wall_s"] = time.perf_counter() - t_phase
     log(f"phase15: done in {out['wall_s']:.3f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 16: Jepsen against real nodes over SSH, and the federated checker.
+# ---------------------------------------------------------------------------
+
+#: 16a: tests/test_ssh_localhost.py's loopback nodes and kvdb settings.
+SSH_NODES = 3
+SSH_SECONDS, SSH_RATE, SSH_INTERVAL, SSH_CONCURRENCY = 6.0, 50.0, 2.0, 4
+#: 16a's scp round trip: this many random bytes.
+SSH_SCP_BYTES = 1 << 20
+#: 16c: each daemon's batch window, long enough to SIGKILL the daemon
+#: holding a ticket inside it; the seeds of 16c's histories.
+FED_WINDOW_S = 2.0
+FED_SEEDS = (16_000, 17_000)
+FED_RESTART_SEED, FED_STREAM_SEED = 18_000, 19_000
+FED_WAIT_S = 300.0
+#: 16d: tools/chaos_smoke.py's schedule.
+CHAOS_SECONDS, CHAOS_BOUND_S = 16.0, 30.0
+
+
+def _smi(dev) -> str:
+    if dev.type != "cuda":
+        return "cpu"
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip()
+
+
+class SshCluster:
+    """SSH_NODES loopback nodes, each a port minissh server (hostname
+    n<i>, its own root directory under `tmp`), one ed25519 key, and the
+    port's `ssh`/`scp` shims first on PATH while entered (the card's
+    host has no OpenSSH client)."""
+
+    def __init__(self, tmp: str):
+        self.tmp = tmp
+
+    def __enter__(self):
+        from jepsen_tpu_torch.control import minissh
+
+        os.makedirs(self.tmp, exist_ok=True)
+        self.key, blob = minissh.generate_keypair(self.tmp)
+        self.servers = []
+        for i in range(SSH_NODES):
+            root = os.path.join(self.tmp, f"n{i + 1}")
+            os.makedirs(root, exist_ok=True)
+            self.servers.append(minissh.MiniSshServer(
+                authorized_keys=[blob], hostname=f"n{i + 1}",
+                root_dir=root).start())
+        self.nodes = [f"127.0.0.1:{s.port}" for s in self.servers]
+        self.old_path = os.environ["PATH"]
+        os.environ["PATH"] = minissh.BIN_DIR + os.pathsep + self.old_path
+        return self
+
+    def __exit__(self, *exc):
+        os.environ["PATH"] = self.old_path
+        for s in self.servers:
+            s.stop()
+
+    def ssh_map(self) -> dict:
+        """The test keys that reach the nodes: SshCliRemote as root with
+        the cluster's key."""
+        from jepsen_tpu_torch.control import SshCliRemote
+
+        return {"remote": SshCliRemote(),
+                "ssh": {"username": "root", "private-key-path": self.key}}
+
+
+def ssh_roundtrip(cluster: SshCluster, tmp: str) -> dict:
+    """An exec of random bytes (base64 through `cat`) and an scp upload
+    and download of SSH_SCP_BYTES random bytes through SshCliRemote and
+    the port's shims, each checksum equal -> the seconds of each."""
+    import base64
+    import hashlib
+
+    from jepsen_tpu_torch.control import with_sessions
+
+    blob = random.Random(16).randbytes(SSH_SCP_BYTES)
+    text = base64.b64encode(blob[:4096]).decode()
+    src = os.path.join(tmp, "scp-up.bin")
+    back = os.path.join(tmp, "scp-back.bin")
+    with open(src, "wb") as f:
+        f.write(blob)
+    test = {"nodes": cluster.nodes, **cluster.ssh_map()}
+    out = {}
+    with with_sessions(test) as t:
+        sess = t["sessions"][test["nodes"][0]]
+        t0 = time.perf_counter()
+        echoed = sess.exec("cat", stdin=text)
+        out["exec_s"] = time.perf_counter() - t0
+        if echoed != text or sess.exec("hostname") != "n1":
+            raise AssertionError("phase16a: the exec round trip changed "
+                                 "its bytes")
+        remote = os.path.join(cluster.tmp, "n1", "phase16a-scp.bin")
+        t0 = time.perf_counter()
+        sess.upload(src, remote)
+        out["upload_s"] = time.perf_counter() - t0
+        far = sess.exec("sha256sum", remote).split()[0]
+        t0 = time.perf_counter()
+        sess.download(remote, back)
+        out["download_s"] = time.perf_counter() - t0
+    with open(back, "rb") as f:
+        got = hashlib.sha256(f.read()).hexdigest()
+    want = hashlib.sha256(blob).hexdigest()
+    if not far == got == want:
+        raise AssertionError(f"phase16a: scp checksums differ: sent {want}, "
+                             f"on the node {far}, back {got}")
+    out["scp_bytes"] = len(blob)
+    return out
+
+
+def _linear_per_key(results: dict) -> dict:
+    """{key: valid} of a stored run's linearizability result (one key,
+    None, for a single register)."""
+    lin = results.get("linear") or results
+    if isinstance(lin.get("results"), dict):
+        return {str(k): r.get("valid") for k, r in lin["results"].items()}
+    return {None: lin.get("valid")}
+
+
+def ssh_suite(torch, dev, tmp: str) -> dict:
+    """(16a) tests/test_ssh_localhost.py's kvdb run on the port: three
+    loopback port minissh nodes, SshCliRemote through the port's shims,
+    the kvdb C++ server compiled on the node through SSH, register
+    workload, kill faults, SSH_SECONDS at SSH_RATE, interval
+    SSH_INTERVAL, concurrency SSH_CONCURRENCY, `core.run` on `dev` with
+    the witness path (`wgl-tpu`, as phase 14a).  Before it, an exec and
+    an scp round trip.  Gates: the verdict the reference test accepts
+    (valid or unknown) with the nemesis in the history, the stored run's
+    `cli analyze --device cpu` the same per-key verdicts, and on the
+    card the witness sweep (B1) launched.  Prints the SSH seconds
+    (the DB's build and start, the run, the teardown) and the analyze
+    seconds."""
+    from jepsen_tpu_torch import core, store
+    from jepsen_tpu_torch.nemesis.selfchaos import _free_port
+    from jepsen_tpu_torch.parallel import clear_settle_memo
+    from jepsen_tpu_torch.suites import kvdb
+
+    out: dict = {}
+    with SshCluster(os.path.join(tmp, "nodes")) as cluster:
+        out["roundtrip"] = ssh_roundtrip(cluster, tmp)
+        store_dir = os.path.join(tmp, "store")
+        test = kvdb.kvdb_test({
+            "workload": "register", "faults": ["kill"],
+            "time-limit": SSH_SECONDS, "rate": SSH_RATE,
+            "interval": SSH_INTERVAL, "store-dir": store_dir,
+            "nodes": cluster.nodes[:1], "concurrency": SSH_CONCURRENCY,
+            "algorithm": "wgl-tpu", "device": dev.type})
+        test.update(cluster.ssh_map())
+        test.update({
+            "nodes": cluster.nodes[:1], "store-dir": store_dir, "kvdb-local": False,
+            "kvdb-port": _free_port(), "device": dev.type})
+        spent = {"setup": 0.0, "teardown": 0.0}
+        db = test["db"]
+        for name in spent:
+            def timed(*a, _f=getattr(db, name), _n=name, **kw):
+                t0 = time.perf_counter()
+                try:
+                    return _f(*a, **kw)
+                finally:
+                    spent[_n] += time.perf_counter() - t0
+            setattr(db, name, timed)
+        clear_settle_memo()
+        with AnalysisClock(torch) as clock:
+            t0 = time.perf_counter()
+            done, launches, _ = counted(torch, dev, lambda: core.run(test))
+            wall = time.perf_counter() - t0
+    res, h = done["results"], done["history"]
+    kills = sum(1 for o in h if o.process == "nemesis")
+    if res.get("valid") not in (True, "unknown") or not kills:
+        raise AssertionError(f"phase16a: valid {res.get('valid')}, "
+                             f"{kills} nemesis ops")
+    need_launches("phase16a", dev, launches)
+    d = store.latest(store_dir)
+    code = kvdb.main(["analyze", "--device", "cpu", "--store-dir", store_dir,
+                      d])
+    tf = store.load(d)
+    try:
+        cpu = json.loads(store.format._encode(tf.results))
+    finally:
+        tf.close()
+    ours = _linear_per_key(json.loads(store.format._encode(res)))
+    if _linear_per_key(cpu) != ours or code not in (0, 2):
+        raise AssertionError(f"phase16a: the CPU re-analysis (exit {code}) "
+                             f"differs: {_linear_per_key(cpu)} vs {ours}")
+    analyze_s = sum(clock.seconds)
+    out.update({
+        "valid": res.get("valid"), "ops": len(h) // 2,
+        "nemesis_ops": kills, "keys": len(ours),
+        "sweeps": launches.get("witness_sweep", 0),
+        "ssh_s": {"build_and_start": spent["setup"],
+                  "run": wall - spent["setup"] - spent["teardown"]
+                  - analyze_s,
+                  "teardown": spent["teardown"]},
+        "analyze_s": analyze_s, "wall_s": wall, "cpu_exit": code})
+    log("phase16a: " + json.dumps(out))
+    return out
+
+
+def _suite_netns(torch, dev, cluster, tmp: str, **opts) -> dict:
+    """tests/test_netns_cluster.py's run_suite_netns for repkv on the
+    port: the namespace cluster's transport and RouteNet, nodes on their
+    in-cluster addresses, the witness path, on `dev`."""
+    from jepsen_tpu_torch import core
+    from jepsen_tpu_torch.suites import repkv
+
+    o = {"nodes": cluster.nodes, "store-dir": os.path.join(tmp, "store"),
+         "time-limit": 10.0, "rate": 120.0, "interval": 1.0,
+         "algorithm": "wgl-tpu", "device": dev.type}
+    o.update(opts)
+    test = repkv.repkv_test(o)
+    test.update(cluster.test_overlay())
+    test.update({"repkv-local": False, "concurrency": 6,
+                 "store-dir": o["store-dir"], "device": dev.type})
+    done, launches, _ = counted(torch, dev, lambda: core.run(test))
+    done["launches"] = launches
+    return done
+
+
+def netns_partition(torch, dev, tmp: str) -> dict:
+    """(16b) Where `netns_available()` holds: the reference's repkv
+    kernel partition (blackhole routes inside the namespaces cut
+    replication, a backup serves stale reads) convicted on `dev` within
+    three attempts, and its safe-reads control valid, each verdict that
+    of the stored run's CPU re-analysis.  Elsewhere it says why not (the
+    reference's own skip condition)."""
+    import shutil
+
+    from jepsen_tpu_torch import store
+    from jepsen_tpu_torch.control.netns import NetnsCluster, netns_available
+    from jepsen_tpu_torch.suites import repkv
+
+    if shutil.which("ip") is None:
+        why = "no `ip` binary (iproute2) on this host"
+    elif not netns_available():
+        why = ("`ip netns add` or a veth pair was refused (needs root or "
+               "CAP_NET_ADMIN)")
+    else:
+        why = None
+    if why is not None:
+        out = {"available": False, "why": why}
+        print(json.dumps({"netns": out}), flush=True)
+        return out
+
+    def cpu_linear(done) -> object:
+        sd = done["store-dir"]
+        d = store.latest(sd)
+        repkv.main(["analyze", "--device", "cpu", "--node", "n1", "--node",
+                    "n2", "--node", "n3", "--store-dir", sd, d])
+        tf = store.load(d)
+        try:
+            return tf.results["linear"]["valid"]
+        finally:
+            tf.close()
+
+    out: dict = {"available": True, "attempts": []}
+    convicted = None
+    for attempt in range(3):
+        c = NetnsCluster(n_nodes=3, tag="jtp%05d" % (time.time_ns() % 90000))
+        with c:
+            done = _suite_netns(torch, dev, c, os.path.join(tmp, f"a{attempt}"),
+                                **{"safe-reads": False,
+                                   "faults": ["partition"], "sync": False,
+                                   "seed": attempt})
+        parts = [o for o in done["history"] if o.process == "nemesis"
+                 and o.f == "start-partition" and o.type == "info"]
+        valid = done["results"]["linear"]["valid"]
+        out["attempts"].append({"valid": valid, "partitions": len(parts),
+                                "algorithm": done["results"]["linear"].get(
+                                    "algorithm"),
+                                "sweeps": done["launches"].get(
+                                    "witness_sweep", 0)})
+        if not parts:
+            raise AssertionError("phase16b: the nemesis never partitioned")
+        if valid is False:
+            convicted = done
+            break
+    if convicted is None:
+        raise AssertionError(f"phase16b: three kernel-partitioned runs never "
+                             f"convicted: {out['attempts']}")
+    if cpu_linear(convicted) is not False:
+        raise AssertionError("phase16b: the CPU re-analysis did not convict")
+    # A stale read the host's refutation screen convicts never reaches
+    # the device search (as phase 14f's unsafe electd run); any other
+    # conviction went through B1.
+    if out["attempts"][-1]["algorithm"] != "refute-screen":
+        need_launches("phase16b convicted", dev, convicted["launches"])
+    c = NetnsCluster(n_nodes=3, tag="jtc%05d" % (time.time_ns() % 90000))
+    with c:
+        ctl = _suite_netns(torch, dev, c, os.path.join(tmp, "control"),
+                           **{"safe-reads": True, "faults": ["partition"],
+                              "sync": True})
+    if ctl["results"]["linear"]["valid"] is not True or \
+            cpu_linear(ctl) is not True:
+        raise AssertionError(f"phase16b: the safe-reads control is not "
+                             f"valid: {ctl['results']['linear']}")
+    need_launches("phase16b control", dev, ctl["launches"])
+    out["control"] = {"valid": True, "sweeps": ctl["launches"].get(
+        "witness_sweep", 0)}
+    log("phase16b: " + json.dumps(out))
+    return out
+
+
+class _Child:
+    """One `jepsen` subcommand process (`python -m
+    jepsen_tpu_torch.suites.kvdb <argv>`) listening on `port`, started,
+    awaited and stopped by the chaos fleet's helpers, its output in
+    `<tmp>/<name>.log`."""
+
+    def __init__(self, name: str, argv: list, port: int, tmp: str):
+        self.name, self.argv, self.port = name, argv, port
+        self.log = os.path.join(tmp, f"{name}.log")
+        self.proc = None
+
+    @property
+    def addr(self) -> str:
+        return f"127.0.0.1:{self.port}"
+
+    def spawn(self) -> "_Child":
+        from jepsen_tpu_torch.nemesis.selfchaos import spawn_child
+
+        here = os.path.dirname(os.path.abspath(__file__))
+        self.proc = spawn_child(
+            [sys.executable, "-m", "jepsen_tpu_torch.suites.kvdb",
+             *self.argv], dict(os.environ, PYTHONPATH=here), self.log)
+        return self
+
+    def ready(self) -> "_Child":
+        """Waits until it listens; raises if it exits first."""
+        from jepsen_tpu_torch.nemesis.selfchaos import _wait_listening
+
+        _wait_listening(self.addr, timeout_s=120.0, proc=self.proc,
+                        log_path=self.log)
+        return self
+
+    def alive(self) -> bool:
+        return self.proc is not None and self.proc.poll() is None
+
+    def kill(self) -> None:
+        self.proc.kill()
+        self.proc.wait(timeout=30)
+
+    def stop(self) -> None:
+        from jepsen_tpu_torch.nemesis.selfchaos import stop_children
+
+        if self.alive():
+            stop_children([self.proc], timeout_s=30.0)
+
+
+def _valid_algorithm(res: dict) -> dict:
+    """{key: (valid, algorithm)} of a many-key result."""
+    return {k: v[:2] for k, v in _key_view(res).items()}
+
+
+def _ticket_view(keys: list, payload: dict) -> dict:
+    """`_valid_algorithm` of a daemon's RESULT payload for `keys`."""
+    return {str(k): (kr.get("valid"), kr.get("algorithm"))
+            for k, kr in zip(keys, payload["key-results"])}
+
+
+def _daemon_launches(addr: str) -> int:
+    from jepsen_tpu_torch.checkerd.client import fetch_stats
+
+    return int(fetch_stats(addr, timeout=10.0).get("launches", {}).get(
+        "witness_sweep", 0))
+
+
+def federation(torch, dev, tmp: str) -> dict:
+    """(16c) Two `jepsen checkerd --device <dev>` processes (a `--queue`
+    journal and a FED_WINDOW_S batch window each) behind one `jepsen
+    checkerd-router` (with its own journal and /metrics).  Two
+    concurrent runs of phase 10a's shape go through the router with the
+    in-process fallback off; the daemon holding their tickets is
+    SIGKILLed inside its batch window: every per-key valid and
+    algorithm equals the in-process check on `dev`, the router counts a
+    failover, its /metrics shows its gauges, and the surviving daemon
+    launched B1.  Then a ticket submitted straight to a daemon, which is
+    SIGKILLed with it journaled and unfinished and restarted on the same
+    journal and port: the ticket polls to the in-process verdicts, and
+    the restarted daemon launched B1.  Then a run streamed through the
+    router by a RemoteFeed whose connection is severed while a daemon
+    is SIGKILLed: the feed resumes and resends only the tail, and the
+    verdicts are the in-process ones.  Every child is stopped on the
+    way out, and one that died unasked fails the phase."""
+    import socket
+    import threading
+    import urllib.request
+
+    from jepsen_tpu_torch.checker import Linearizable
+    from jepsen_tpu_torch.checkerd.client import (CheckerdClient,
+                                                  RemoteChecker, fetch_stats)
+    from jepsen_tpu_torch.checkerd.protocol import model_to_spec
+    from jepsen_tpu_torch.models import cas_register
+    from jepsen_tpu_torch.nemesis.selfchaos import _free_port
+    from jepsen_tpu_torch.parallel import (IndependentChecker,
+                                           clear_settle_memo, subhistories)
+    from jepsen_tpu_torch.streaming.remote import RemoteFeed
+
+    def checker():
+        return IndependentChecker(Linearizable(cas_register(), time_limit_s=120,
+                                               device=dev), device=dev)
+
+    def in_process(h) -> dict:
+        clear_settle_memo()
+        return _valid_algorithm(checker().check({}, h, {}))
+
+    if dev.type == "cuda":
+        # Built once here before any daemon starts, as the chaos fleet
+        # does: the children load the library instead of compiling it.
+        from jepsen_tpu_torch.ops import kernels
+
+        kernels.sweep_lib()
+    runs = {f"fo{i}": mixed_history(MIXED_KEYS, MIXED_BAD, seed0=s)
+            for i, s in enumerate(FED_SEEDS)}
+    want = {run: in_process(h) for run, h in runs.items()}
+    restart_h = mixed_history(MIXED_KEYS, MIXED_BAD, seed0=FED_RESTART_SEED)
+    stream_h = mixed_history(MIXED_KEYS, MIXED_BAD, seed0=FED_STREAM_SEED)
+    restart_want = in_process(restart_h)
+    stream_want = in_process(stream_h)
+
+    def daemon(i: int) -> _Child:
+        port = _free_port()
+        return _Child(f"d{i}", [
+            "checkerd", "--device", dev.type, "--host", "127.0.0.1",
+            "--port", str(port), "--batch-window", str(FED_WINDOW_S),
+            "--queue", os.path.join(tmp, f"d{i}.queue")], port, tmp)
+
+    ds = [daemon(0).spawn(), daemon(1).spawn()]
+    rport, mport = _free_port(), _free_port()
+    rt = _Child("router", [
+        "checkerd-router", "--host", "127.0.0.1", "--port", str(rport),
+        "--probe-interval", "0.2", "--metrics-port", str(mport),
+        "--queue", os.path.join(tmp, "router.queue"),
+        "--daemon", ds[0].addr, "--daemon", ds[1].addr], rport, tmp).spawn()
+    children = ds + [rt]
+    out: dict = {}
+    t_start = time.perf_counter()
+    try:
+        for c in children:
+            c.ready()
+        out["start_s"] = time.perf_counter() - t_start
+
+        # Failover: two concurrent runs, the holding daemon killed.
+        got, errors = {}, []
+
+        def submit(run):
+            try:
+                t0 = time.perf_counter()
+                res = RemoteChecker(checker(), rt.addr, run_id=run,
+                                    fallback=False).check(
+                    {"name": run}, runs[run], {})
+                got[run] = (res, time.perf_counter() - t0)
+            except Exception as e:  # noqa: BLE001 — reported below
+                errors.append(f"{run}: {e!r}")
+
+        threads = [threading.Thread(target=submit, args=(run,))
+                   for run in runs]
+        for th in threads:
+            th.start()
+        t0 = time.monotonic()
+        while True:
+            st = fetch_stats(rt.addr, timeout=10.0)
+            if st["inflight"] >= len(runs) and st["affinity"]:
+                break
+            if time.monotonic() - t0 > FED_WAIT_S or errors:
+                raise AssertionError(f"phase16c: the router never placed "
+                                     f"both runs: {errors or st}")
+            time.sleep(0.05)
+        victim_addr = next(iter(st["affinity"].values()))
+        victim = next(c for c in ds if c.addr == victim_addr)
+        survivor = next(c for c in ds if c is not victim)
+        held = fetch_stats(victim.addr, timeout=10.0)["queue-depth"]
+        t_kill = time.perf_counter()
+        victim.kill()
+        for th in threads:
+            th.join(FED_WAIT_S)
+        if errors or len(got) != len(runs):
+            raise AssertionError(f"phase16c: {errors or sorted(got)}")
+        for run, (res, _) in got.items():
+            if "fallback" in res["checkerd"]:
+                raise AssertionError(f"phase16c {run}: fell back in-process")
+            diff = {k: (v, want[run][k])
+                    for k, v in _valid_algorithm(res).items()
+                    if v != want[run][k]}
+            if diff or len(want[run]) != len(res["results"]):
+                raise AssertionError(
+                    f"phase16c {run}: per-key results differ from "
+                    f"in-process: {dict(list(diff.items())[:6])}")
+        st = fetch_stats(rt.addr, timeout=10.0)
+        if st["failovers"] < 1:
+            raise AssertionError(f"phase16c: no failover counted: {st}")
+        body = urllib.request.urlopen(f"http://127.0.0.1:{mport}/metrics",
+                                      timeout=10).read().decode()
+        gauges = ("jepsen_router_daemons", "jepsen_router_daemons_healthy",
+                  "jepsen_router_failovers", "jepsen_router_inflight",
+                  "jepsen_router_results")
+        missing = [g for g in gauges if g not in body]
+        if missing:
+            raise AssertionError(f"phase16c: /metrics lacks {missing}")
+        survived = _daemon_launches(survivor.addr)
+        need_launches("phase16c failover", dev,
+                      {"witness_sweep": survived})
+        out["failover"] = {
+            "runs": {run: {"verdict_s": wall,
+                           "queue_wait_s": res["checkerd"].get(
+                               "queue-wait-s"),
+                           "check_s": res["checkerd"].get("check-s")}
+                     for run, (res, wall) in sorted(got.items())},
+            "after_kill_s": time.perf_counter() - t_kill,
+            "queued_at_kill": held,
+            "failovers": st["failovers"], "submits": st["submits"],
+            "survivor_sweeps": survived}
+        log("phase16c failover: " + json.dumps(out["failover"]))
+
+        # The daemon journal: a ticket killed inside its window.
+        victim.spawn()  # back on its journal, in the background
+        subs = subhistories(restart_h)
+        keys = list(subs)
+        lin = Linearizable(cas_register(), time_limit_s=120, device=dev)
+        with CheckerdClient(survivor.addr, io_timeout=FED_WAIT_S) as c:
+            ticket = c.submit_ops("restart", model_to_spec(cas_register()),
+                                  [[o.to_dict() for o in subs[k]]
+                                   for k in keys],
+                                  algorithm=lin.algorithm,
+                                  time_limit_s=lin.time_limit_s)
+        t_kill = time.perf_counter()
+        survivor.kill()
+        survivor.spawn().ready()
+        victim.ready()
+        with CheckerdClient(survivor.addr, io_timeout=FED_WAIT_S) as c:
+            payload = c.wait(ticket, deadline_s=FED_WAIT_S)
+        if _ticket_view(keys, payload) != restart_want:
+            raise AssertionError("phase16c: the replayed ticket's verdicts "
+                                 "differ from in-process")
+        replayed = fetch_stats(survivor.addr, timeout=10.0)["replayed"]
+        restarted = _daemon_launches(survivor.addr)
+        need_launches("phase16c restart", dev, {"witness_sweep": restarted})
+        out["restart"] = {"verdict_s": time.perf_counter() - t_kill,
+                          "replayed": replayed, "sweeps": restarted}
+        log("phase16c restart: " + json.dumps(out["restart"]))
+
+        # A streamed run: the feed's connection severed and a daemon
+        # killed mid-stream; it resumes and resends only the tail.  The
+        # router first readmits the restarted daemon.
+        t0 = time.monotonic()
+        while fetch_stats(rt.addr, timeout=10.0)["health"].get(
+                survivor.addr, {}).get("state") == "quarantined":
+            if time.monotonic() - t0 > 60:
+                raise AssertionError("phase16c: the router never readmitted "
+                                     "the restarted daemon")
+            time.sleep(0.1)
+        subs = subhistories(stream_h)
+        keys = list(subs)
+        feed = RemoteFeed(rt.addr, run="stream",
+                          model_spec=model_to_spec(cas_register()),
+                          algorithm=lin.algorithm, budget_s=None,
+                          time_limit_s=lin.time_limit_s)
+        feed._stop.set()
+        feed._wake.set()
+        feed._thread.join(timeout=10)
+        total = sum(len(subs[k]) for k in keys)
+        for k in keys:
+            for op in subs[k][:len(subs[k]) // 2]:
+                feed.put(k, op)
+        feed._flush()
+        before = _daemon_launches(survivor.addr)
+        time.sleep(0.3)  # the router takes in the head, as in the test
+        feed._client.sock.shutdown(socket.SHUT_RDWR)
+        victim.kill()
+        for k in keys:
+            for op in subs[k][len(subs[k]) // 2:]:
+                feed.put(k, op)
+        t0 = time.perf_counter()
+        feed.commit(keys)
+        if feed.dead or feed.resumes != 1 or not 0 < feed.ops_resent < total:
+            raise AssertionError(f"phase16c stream: {feed.stats()}")
+        with CheckerdClient(rt.addr, io_timeout=FED_WAIT_S) as c:
+            payload = c.wait(feed.ticket, deadline_s=FED_WAIT_S)
+        if _ticket_view(keys, payload) != stream_want:
+            raise AssertionError("phase16c: the streamed run's verdicts "
+                                 "differ from in-process")
+        streamed = _daemon_launches(survivor.addr) - before
+        need_launches("phase16c stream", dev, {"witness_sweep": streamed})
+        out["stream"] = {"verdict_s": time.perf_counter() - t0,
+                         "ops": total, "ops_sent": feed.ops_sent,
+                         "ops_resent": feed.ops_resent,
+                         "resumes": feed.resumes, "sweeps": streamed}
+        log("phase16c stream: " + json.dumps(out["stream"]))
+        dead = [c.name for c in (survivor, rt) if not c.alive()]
+        if dead:
+            raise AssertionError(f"phase16c: {dead} died unasked")
+    finally:
+        for c in children:
+            c.stop()
+    return out
+
+
+def self_chaos(torch, dev, tmp: str) -> dict:
+    """(16d) tools/chaos_smoke.py's schedule on the port, against a
+    router and two daemons checking on `dev` (the fleet resolves it here
+    and passes it to every child): three tenants, one a whale, for
+    CHAOS_SECONDS; daemon 0 SIGKILLed at 30%, its journal torn while it
+    is down, restarted at 40%; an impossible deadline shed.  Gates:
+    every acked ticket polls to a verdict, at least one honest shed with
+    a positive retry-after, the replayed verdict digests byte-identical,
+    the light tenant's queue-wait p95 within CHAOS_BOUND_S, the
+    checkerd.overload.* gauges on the restarted daemon's /metrics, no
+    child dead unasked, and on the card B1 launched in the daemons."""
+    import threading
+    import urllib.request
+
+    from jepsen_tpu_torch.checkerd.client import (CheckerdClient,
+                                                  RemoteUnavailable,
+                                                  ShedByServer)
+    from jepsen_tpu_torch.nemesis import selfchaos as sc
+
+    whale, alpha, beta = "whale", "alpha", "beta"
+    t_start = time.perf_counter()
+    fleet = sc.ChaosFleet(2, os.path.join(tmp, "chaos"), metrics=True,
+                          device=dev.type)
+    history = sc.ChaosHistory()
+    stop = threading.Event()
+    out: dict = {"device": fleet.device}
+    try:
+        fleet.start()
+        out["start_s"] = time.perf_counter() - t_start
+        loads = [sc.TenantLoad(whale, fleet.router_addr, history, stop,
+                               seed=101, n_keys=6, pairs_per_key=24,
+                               think_s=0.0),
+                 sc.TenantLoad(alpha, fleet.router_addr, history, stop,
+                               seed=102, n_keys=2, pairs_per_key=4,
+                               think_s=0.05),
+                 sc.TenantLoad(beta, fleet.router_addr, history, stop,
+                               seed=103, n_keys=2, pairs_per_key=4,
+                               think_s=0.05)]
+        for ld in loads:
+            ld.start()
+        time.sleep(CHAOS_SECONDS * 0.3)
+        history.record("inject", family="daemon-kill", target=0)
+        fleet.kill_daemon(0)
+        time.sleep(0.5)
+        history.record("inject", family="journal-tear", target=0)
+        fleet.tear_journal(0)
+        time.sleep(CHAOS_SECONDS * 0.1)
+        history.record("heal", family="daemon-kill", target=0)
+        fleet.restart_daemon(0)
+        ops = [[{"index": i, "time": i, "type": t, "process": 0, "f": f,
+                 "value": v} for i, (t, f, v) in enumerate(
+                    [("invoke", "write", 1), ("ok", "write", 1)] * 40)]
+               for _ in range(4)]
+        shed = None
+        for attempt in range(10):
+            try:
+                with CheckerdClient(fleet.router_addr, io_timeout=30.0) as c:
+                    c.submit_ops(f"impossible-{attempt}",
+                                 {"type": "register", "value": None}, ops,
+                                 tenant=alpha, deadline_s=1e-6)
+            except ShedByServer as e:
+                history.record("shed", tenant=alpha,
+                               retry_after_s=e.retry_after_s,
+                               reason=e.shed.reason)
+                shed = {"reason": e.shed.reason,
+                        "retry_after_s": e.retry_after_s}
+                break
+            except RemoteUnavailable:
+                time.sleep(0.5)
+        if shed is None:
+            raise AssertionError("phase16d: no structured shed for an "
+                                 "impossible deadline")
+        time.sleep(CHAOS_SECONDS * 0.6)
+        stop.set()
+        for ld in loads:
+            ld.join(timeout=60)
+        stop.clear()
+        sc.chase_outstanding(history, fleet.router_addr, timeout_s=60)
+        divergent = sc.replay_check(history, fleet.router_addr, n=5)
+        if divergent:
+            raise AssertionError(f"phase16d: replay digests diverged: "
+                                 f"{divergent}")
+        body = urllib.request.urlopen(
+            f"http://127.0.0.1:{fleet.metrics_ports[0]}/metrics",
+            timeout=10).read().decode()
+        missing = [g for g in ("jepsen_checkerd_overload_brownout_level",
+                               "jepsen_checkerd_overload_shed_total",
+                               "jepsen_checkerd_queue_depth")
+                   if g not in body]
+        if missing:
+            raise AssertionError(f"phase16d: /metrics lacks {missing}")
+        sweeps = [_daemon_launches(fleet.daemon_addr(i))
+                  for i in range(fleet.n)]
+        need_launches("phase16d", dev, {"witness_sweep": sum(sweeps)})
+        dead = fleet.dead_children()
+        if dead:
+            raise AssertionError(f"phase16d: children died unasked: {dead}")
+    finally:
+        stop.set()
+        fleet.stop()
+    violations = sc.check_invariants(history, fairness_bound_s=CHAOS_BOUND_S,
+                                     light_tenant=alpha)
+    st = history.stats()
+    if violations or not st["kinds"].get("ack"):
+        raise AssertionError(f"phase16d: {violations or 'nothing acked'}")
+    waits = sorted(op["wait_s"] for op in history.ops("verdict")
+                   if op.get("tenant") == alpha
+                   and isinstance(op.get("wait_s"), (int, float)))
+    out.update({
+        "acked": st["kinds"].get("ack", 0),
+        "verdicts": st["kinds"].get("verdict", 0),
+        "sheds": st["kinds"].get("shed", 0), "shed": shed,
+        "submitted": sum(ld.submitted for ld in loads),
+        "light_p95_s": waits[max(0, int(len(waits) * 0.95) - 1)]
+        if waits else None,
+        "bound_s": CHAOS_BOUND_S, "sweeps_by_daemon": sweeps,
+        "wall_s": time.perf_counter() - t_start})
+    log("phase16d: " + json.dumps(out))
+    return out
+
+
+def phase_remote(torch, dev=None) -> dict:
+    """Phase 16: Jepsen against real nodes and the federated checker,
+    every check on `dev` (the card by default): (16a) `ssh_suite`,
+    (16b) `netns_partition`, (16c) `federation`, (16d) `self_chaos`.
+    Each raises on a failed gate; B1's launch counter is read in this
+    process (16a, 16b) and in the daemons' STATS (16c, 16d), whose
+    counts start at 0 with each process."""
+    import shutil
+    import tempfile
+
+    dev = torch.device("cuda") if dev is None else torch.device(dev)
+    out: dict = {"card": _smi(dev)}
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="phase16-")
+    try:
+        for part, fn in (("a", ssh_suite), ("b", netns_partition),
+                         ("c", federation), ("d", self_chaos)):
+            sub = os.path.join(tmp, part)
+            os.makedirs(sub)
+            t0 = time.perf_counter()
+            out[part] = fn(torch, dev, sub)
+            out[part]["phase_s"] = time.perf_counter() - t0
+    finally:
+        left = _kill_servers(tmp)
+        shutil.rmtree(tmp, ignore_errors=True)
+    if left:
+        raise AssertionError(f"phase16: processes left running: {left}")
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"phase16: done in {out['wall_s']:.3f} s")
     return out
 
 
@@ -5316,7 +6105,7 @@ def main() -> int:
     phase_profile(torch, entry, timings)
     stage("3 sweep")
     for e in more:
-        seen = profile_device(torch, e.pop("_kernel"), reps=200)
+        seen = profile_device(torch, e.pop("_kernel"), reps=INSTANCE_REPS)
         n, _ = next(v for k, v in seen.items() if "witness_sweep" in k)
         # A beam past 32 lanes is the sweep's launch and the join's.
         us = sum(t for k, (_, t) in seen.items()
@@ -5326,7 +6115,11 @@ def main() -> int:
             f"{e['device_ms']:.6f} ms ({e['device_ms'] * 1e6 / e['barriers_timed']:.4f}"
             f" ns/barrier)")
     for model_name, b in batched.items():
-        seen = profile_device(torch, b.pop("_call"), reps=1)
+        call = b.pop("_call")
+        if BATCHED_PROFILED not in model_name:
+            continue
+        # Phase 1b ran each call twice already: no warm-up here.
+        seen = profile_device(torch, call, reps=1, warm=False)
         b["device_ms"] = sum(us for _, us in seen.values()) / 1e3
         b["device_ops"] = sum(n for n, _ in seen.values())
         log(f"profile: batched BFS {model_name}: {b['levels']} levels, device "
@@ -5346,6 +6139,14 @@ def main() -> int:
     search_r = phase_search(torch)
     entry["launches_search"] = search_r["a"]["sweeps"]
     stage("15")
+    remote_r = phase_remote(torch)
+    entry["launches_remote"] = {
+        "ssh": remote_r["a"]["sweeps"],
+        "failover_survivor": remote_r["c"]["failover"]["survivor_sweeps"],
+        "journal_restart": remote_r["c"]["restart"]["sweeps"],
+        "stream": remote_r["c"]["stream"]["sweeps"],
+        "chaos": remote_r["d"]["sweeps_by_daemon"]}
+    stage("16")
 
     log(f"phase4 done; main path {main_r['ops_per_s']:.1f} ops/s, "
         f"invalid path {bad_r['wall_s']:.3f} s; many-key mixed "
@@ -5371,8 +6172,10 @@ def main() -> int:
         f"{workloads_r['d']['vertices']} vertices, route "
         f"{workloads_r['d']['route']}); suites phase 14 "
         f"{suites_r['wall_s']:.3f} s; search phase 15 "
-        f"{search_r['wall_s']:.3f} s")
+        f"{search_r['wall_s']:.3f} s; remote phase 16 "
+        f"{remote_r['wall_s']:.3f} s")
     print(json.dumps({"stages_s": stage.seconds}))
+    print(json.dumps({"federation": remote_r}))
     print(json.dumps({"search": search_r}))
     print(json.dumps({"suites": suites_r}))
     print(json.dumps({"workloads": workloads_r}))

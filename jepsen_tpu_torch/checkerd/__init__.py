@@ -31,19 +31,27 @@ and kernel build.  This package is that pool:
                     work to a daemon and falls back to in-process
                     checking (on the card by default) when the daemon
                     is unreachable.
+  * ``router``    — the federation router: one address in front of N
+                    daemons, with placement, failover, admission and a
+                    ticket journal.
 
-Start one with ``python -m jepsen_tpu_torch.checkerd --device cuda``;
-point runs at it with `RemoteChecker` / `wrap_remote` or the
-JEPSEN_CHECKERD env var ("host:port").  A daemon started with no CUDA
-card raises at start; tests pass ``device="cpu"``.  Not ported: the
-federation router, the streaming session's remote feed, the CLI and the
-web pages.
+Start one with ``jepsen checkerd`` (any suite CLI) or ``python -m
+jepsen_tpu_torch.checkerd``, both on the card (``--device cuda``, the
+default), and a router with ``jepsen checkerd-router --daemon ADDR
+...``; point runs at either with ``--remote host:port``, `RemoteChecker`
+/ `wrap_remote` or the JEPSEN_CHECKERD env var ("host:port").  A daemon
+started with no CUDA card raises at start; tests pass ``device="cpu"``.
+Not ported: the web pages.
 """
 
 from __future__ import annotations
 
 #: Default TCP port for the daemon (the reference's).
 DEFAULT_PORT = 7462
+
+#: Default TCP port for the federation router (`jepsen checkerd-router`,
+#: router.py), the reference's.
+ROUTER_PORT = 7472
 
 #: Environment variable naming a default daemon address ("host:port").
 ADDR_ENV = "JEPSEN_CHECKERD"

@@ -270,6 +270,14 @@ class CheckerdClient:
         return payload
 
 
+def fetch_stats(addr: str, *, timeout: float = 2.0) -> dict:
+    """One-shot stats of a daemon or a router (the router's health
+    probe and placement gauge)."""
+    with CheckerdClient(addr, connect_timeout=timeout,
+                        io_timeout=timeout) as c:
+        return c.stats()
+
+
 class RemoteChecker(Checker):
     """Routes a linearizable check through a checkerd daemon.
 
@@ -301,7 +309,8 @@ class RemoteChecker(Checker):
         #: Comma-separated addresses are a failover chain: a dead
         #: daemon's ticket is retried against the next sibling (full
         #: re-submission from the client's own copy of the ops) before
-        #: the in-process fallback.
+        #: the in-process fallback.  A federation router counts as one
+        #: address — it fails over internally with its journaled bytes.
         self.addrs = [a.strip() for a in addr.split(",") if a.strip()]
         self.addr = self.addrs[0] if self.addrs else addr
         self.run_id = run_id
@@ -475,25 +484,38 @@ class RemoteChecker(Checker):
         budget: Optional[float],
         deadline: float,
     ) -> dict:
-        """One full submit-and-wait against one address.  (The
-        reference first consumes a ticket its streaming session's remote
-        feed already uploaded; the port has no remote feed yet.)"""
+        """One full submit-and-wait against one address."""
+        # A streaming session may have shipped this exact submission
+        # CHUNK-by-CHUNK while the run was still going (streaming/
+        # remote.py); consume its ticket instead of re-uploading.
+        ticket = None
+        sess = (test or {}).get("streaming-session")
+        if independent and sess is not None:
+            ticket = sess.remote_ticket(
+                addr, keys, spec, lin.algorithm, budget,
+                lin.time_limit_s,
+            )
+            if ticket is not None:
+                telemetry.count("checkerd.stream-ticket")
+                log.info("consuming streamed checkerd ticket %s", ticket)
+
         with CheckerdClient(
             addr, connect_timeout=self.connect_timeout,
         ) as c:
-            ticket = c.submit_ops(
-                run, spec, subs_ops,
-                algorithm=lin.algorithm,
-                budget_s=budget,
-                time_limit_s=lin.time_limit_s,
-                trace=telemetry.trace_context()
-                if telemetry.enabled() else None,
-                tenant=self.tenant,
-                # The client's own wait ceiling rides the SUBMIT so the
-                # daemon can shed at COMMIT instead of checking into a
-                # void nobody is still polling.
-                deadline_s=deadline,
-            )
+            if ticket is None:
+                ticket = c.submit_ops(
+                    run, spec, subs_ops,
+                    algorithm=lin.algorithm,
+                    budget_s=budget,
+                    time_limit_s=lin.time_limit_s,
+                    trace=telemetry.trace_context()
+                    if telemetry.enabled() else None,
+                    tenant=self.tenant,
+                    # The client's own wait ceiling rides the SUBMIT so
+                    # the daemon can shed at COMMIT instead of checking
+                    # into a void nobody is still polling.
+                    deadline_s=deadline,
+                )
             return c.wait(ticket, deadline_s=deadline)
 
 

@@ -27,6 +27,11 @@ A ticket with a ``submit`` record but no ``result``/``abandon`` is
 ticket id so a reconnecting client's POLL keeps working.  Fresh
 ``result`` records survive restart too (late polls get the same bytes);
 stale ones are dropped by compaction on open.
+
+The federation router (router.py) keeps its own ticket journal in this
+class: `frames_to_record`/`frames_from_record` serialize raw wire
+frames (PACKED payloads as base64) so a failed daemon's ticket can be
+re-submitted to a sibling byte-identically.
 """
 
 from __future__ import annotations
@@ -352,3 +357,34 @@ def request_from_record(rec: dict) -> Any:
         trace=rec.get("trace"),
         tenant=rec.get("tenant"),
     )
+
+
+# ---------------------------------------------------------------------------
+# Wire-frame <-> record codecs (router side)
+# ---------------------------------------------------------------------------
+
+
+def frames_to_record(frames: list) -> list:
+    """Serializes captured wire frames ((ftype, payload) pairs; PACKED
+    payloads are raw bytes) for the router's journal, so a dead
+    daemon's ticket replays byte-identically against a sibling."""
+    out = []
+    for ftype, payload in frames:
+        if isinstance(payload, (bytes, bytearray)):
+            out.append({
+                "t": int(ftype),
+                "b64": base64.b64encode(bytes(payload)).decode("ascii"),
+            })
+        else:
+            out.append({"t": int(ftype), "p": payload})
+    return out
+
+
+def frames_from_record(entries: list) -> list:
+    frames = []
+    for e in entries:
+        if "b64" in e:
+            frames.append((int(e["t"]), base64.b64decode(e["b64"])))
+        else:
+            frames.append((int(e["t"]), e.get("p")))
+    return frames

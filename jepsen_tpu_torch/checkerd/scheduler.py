@@ -487,6 +487,12 @@ class Scheduler:
             self.journal.stats() if self.journal is not None else None
         )
         out["devices"] = _device_info(self.device)
+        # The hand kernels' launch counts in this process (ops/kernels.py
+        # `launches`, 0 at the daemon's start): a client reads them to
+        # show that its checks went through the card's kernels.
+        from ..ops import kernels
+
+        out["launches"] = kernels.launch_counts()
         # Observability surface: the degrade ladder's last chip probe
         # verdict and the fleet-wide profile-store aggregate (the
         # daemon's store accumulates a record per pass across every

@@ -16,9 +16,11 @@ written.  A device fault during analysis (a kernel that failed to
 build or launch, a CUDA error, a card that ran out) exits 254 too,
 never 2 or 0.  `search` keeps the suite's `--device` in every
 iteration's test map, so each iteration is checked on the card; a
-device fault ends the search with 254.  `serve`, `checkerd`,
-`checkerd-router`, `monitor`, `fleet` and `lint` are not ported: `run`
-answers each with the usage exit and the ROADMAP item that brings it
+device fault ends the search with 254.  `checkerd` runs the checker
+daemon on `--device` (cuda by default; no card exits 254) and
+`checkerd-router` the federation router in front of daemons.  `serve`,
+`monitor`, `fleet` and `lint` are not ported: `run` answers each with
+the usage exit and the ROADMAP item that brings it
 (`NOT_PORTED_COMMANDS`).
 
 Usage from a test suite:
@@ -196,8 +198,6 @@ def localize_test(t: dict) -> dict:
 #: ROADMAP.md Queue A item that brings them.
 NOT_PORTED_COMMANDS = {
     "serve": 7,
-    "checkerd": 7,
-    "checkerd-router": 7,
     "monitor": 7,
     "fleet": 7,
     "lint": 8,
@@ -293,6 +293,76 @@ def single_test_cmd(
         "(default 12)",
     )
     se.set_defaults(_run=lambda opts: _run_search(test_fn, opts))
+
+    from .checkerd import DEFAULT_PORT as _CHECKERD_PORT
+
+    cd = sub.add_parser(
+        "checkerd",
+        help="run the long-lived checker daemon (serves --remote runs)",
+    )
+    cd.add_argument("--port", "-p", type=int, default=_CHECKERD_PORT)
+    cd.add_argument("--host", "-b", default="0.0.0.0")
+    cd.add_argument(
+        "--batch-window", type=float, default=0.05, metavar="S",
+        help="seconds to linger after the first queued request so "
+        "concurrent runs merge into one cohort (default 0.05)",
+    )
+    cd.add_argument(
+        "--max-budget", type=float, default=None, metavar="S",
+        help="clamp every request's checker budget (pool protection)",
+    )
+    cd.add_argument(
+        "--device", default="cuda",
+        help="the torch device the daemon checks on (default cuda; the "
+        "daemon exits 254 at start when it has no CUDA card)",
+    )
+    cd.add_argument(
+        "--queue", default=None, metavar="PATH",
+        help="crash-safe queue journal (checkerd.queue): a restarted "
+        "daemon replays unfinished tickets under their original ids",
+    )
+    cd.add_argument(
+        "--metrics-port", type=int, default=None, metavar="P",
+        help="HTTP port for the Prometheus /metrics scrape surface",
+    )
+    cd.set_defaults(_run=_run_checkerd)
+
+    from .checkerd import ROUTER_PORT as _ROUTER_PORT
+
+    rt = sub.add_parser(
+        "checkerd-router",
+        help="run the federation router: one --remote address fronting "
+        "N checkerd daemons with failover + admission control",
+    )
+    rt.add_argument("--port", "-p", type=int, default=_ROUTER_PORT)
+    rt.add_argument("--host", "-b", default="0.0.0.0")
+    rt.add_argument(
+        "--daemon", "-d", action="append", default=[], metavar="ADDR",
+        help="a daemon address (host:port); repeatable",
+    )
+    rt.add_argument(
+        "--tenant-quota", type=int, default=None, metavar="N",
+        help="max in-flight tickets per run name (over it: a "
+        "deterministic checkerd.admission-rejected error)",
+    )
+    rt.add_argument(
+        "--max-inflight", type=int, default=None, metavar="N",
+        help="max in-flight tickets fleet-wide (bounded queue depth)",
+    )
+    rt.add_argument(
+        "--probe-interval", type=float, default=2.0, metavar="S",
+        help="health-probe cadence for suspect/quarantined daemons",
+    )
+    rt.add_argument(
+        "--metrics-port", type=int, default=None, metavar="P",
+        help="HTTP port for the router's Prometheus /metrics surface",
+    )
+    rt.add_argument(
+        "--queue", default=None, metavar="PATH",
+        help="crash-safe ticket journal: a restarted router keeps "
+        "answering polls for every journaled ticket",
+    )
+    rt.set_defaults(_run=_run_checkerd_router)
 
     return parser
 
@@ -500,6 +570,43 @@ def _run_search(test_fn, opts) -> int:
             f"shrunk from {cell['from_events']} in "
             f"{cell['shrink_runs']} runs"
         )
+    return EXIT_VALID
+
+
+def _run_checkerd(opts) -> int:
+    """`jepsen checkerd`: the shared checker pool on `--device` (the
+    card by default).  Blocks until interrupted; without a card it
+    raises at start (exit 254)."""
+    from .checkerd.server import serve as serve_checkerd
+
+    serve_checkerd(
+        opts.host, opts.port,
+        device=opts.device,
+        batch_window_s=opts.batch_window,
+        max_budget_s=opts.max_budget,
+        metrics_port=opts.metrics_port,
+        queue_path=opts.queue,
+    )
+    return EXIT_VALID
+
+
+def _run_checkerd_router(opts) -> int:
+    """`jepsen checkerd-router`: the federation front-end.  Blocks
+    until interrupted."""
+    from .checkerd.router import serve as serve_router
+
+    if not opts.daemon:
+        print("checkerd-router: at least one --daemon ADDR is required")
+        return EXIT_UNKNOWN
+    serve_router(
+        opts.host, opts.port,
+        daemons=opts.daemon,
+        tenant_quota=opts.tenant_quota,
+        max_inflight=opts.max_inflight,
+        probe_interval_s=opts.probe_interval,
+        metrics_port=opts.metrics_port,
+        queue_path=opts.queue,
+    )
     return EXIT_VALID
 
 

@@ -1,7 +1,7 @@
 """Control plane: sessions, the exec DSL, and node fan-out.
 
-The port's copy of `jepsen_tpu/control/__init__.py`, with the dummy,
-local and retrying remotes (control/remotes.py).  Equivalent of jepsen/control.clj, with one
+The port's copy of `jepsen_tpu/control/__init__.py`, with every remote
+of control/remotes.py.  Equivalent of jepsen/control.clj, with one
 deliberate design change (SURVEY.md §7): the reference scopes host/
 session/sudo state in dynamic vars (`control.clj:44-57`); here a
 `Session` is an explicit object bound to one node, carrying its sudo/
@@ -34,7 +34,15 @@ from .core import (
     throw_on_nonzero_exit,
     wrap_action,
 )
-from .remotes import DummyRemote, LocalRemote, RetryRemote, default_remote
+from .remotes import (
+    DockerRemote,
+    DummyRemote,
+    K8sRemote,
+    LocalRemote,
+    RetryRemote,
+    SshCliRemote,
+    default_remote,
+)
 
 # Imported after Session's dependencies: health only needs telemetry at
 # import time (it reaches back for Session lazily inside its probe).
@@ -44,7 +52,9 @@ log = logging.getLogger(__name__)
 
 __all__ = [
     "ConnSpec",
+    "DockerRemote",
     "DummyRemote",
+    "K8sRemote",
     "LocalRemote",
     "Lit",
     "NonzeroExit",
@@ -53,6 +63,7 @@ __all__ = [
     "RemoteError",
     "RetryRemote",
     "Session",
+    "SshCliRemote",
     "default_remote",
     "escape",
     "escape_arg",

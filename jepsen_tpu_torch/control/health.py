@@ -376,6 +376,33 @@ class HealthMonitor:
             return out
 
 
+def monitor_for_targets(
+    targets: list,
+    probe: Callable[[dict, Any], bool],
+    *,
+    interval_s: float = DEFAULT_PROBE_INTERVAL_S,
+    quarantine_after: int = DEFAULT_QUARANTINE_AFTER,
+    readmit_after: int = DEFAULT_READMIT_AFTER,
+    start_thread: bool = True,
+) -> HealthMonitor:
+    """A HealthMonitor over arbitrary targets instead of SSH nodes.
+
+    The checkerd federation router reuses the suspect→quarantined
+    state machine for daemon addresses: `probe` is a TCP stats
+    round-trip instead of an SSH ``true``, signals come from failed
+    submissions/polls instead of client ops, and quarantined daemons
+    drop out of placement until probes readmit them.  Same lazy-thread
+    contract: a healthy fleet runs no monitor thread at all."""
+    test = {
+        "nodes": list(targets),
+        "health-probe": probe,
+        "health-probe-interval": interval_s,
+        "health-quarantine-after": quarantine_after,
+        "health-readmit-after": readmit_after,
+    }
+    return HealthMonitor(test, start_thread=start_thread)
+
+
 def monitor_of(test: dict) -> Optional[HealthMonitor]:
     hm = test.get("node-health")
     return hm if isinstance(hm, HealthMonitor) else None

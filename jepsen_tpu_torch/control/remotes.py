@@ -1,18 +1,20 @@
-"""Remote implementations: dummy, local subprocess, and a retrying
-wrapper.
+"""Remote implementations: dummy, local subprocess, ssh CLI, docker,
+kubectl, and a retrying wrapper.
 
-The port's copy of `jepsen_tpu/control/remotes.py`, trimmed to the dummy
-remote, which never touches the network (the `:dummy?` strategy of a
-run with `--dummy-ssh`), the local-subprocess remote the demo suites
-run on (every node a port and a data directory on this machine), the
-retrying wrapper (≤5 tries, ~100 ms backoff), and `default_remote`.
-The ssh, docker and k8s remotes are not ported: a test that needs one
-supplies it as test["remote"].
+The port's copy of `jepsen_tpu/control/remotes.py`: the dummy remote,
+which never touches the network (the `:dummy?` strategy of a run with
+`--dummy-ssh`), the local-subprocess remote the demo suites run on
+(every node a port and a data directory on this machine), an
+`ssh`/`scp` CLI remote (the binaries may be absent; it gates at connect
+time; `control/minissh/bin` holds shims that speak SSH-2 for them), a
+`docker exec/cp` remote, a `kubectl exec/cp` remote, the retrying
+wrapper (≤5 tries, ~100 ms backoff), and `default_remote`, which gives
+retry(ssh-cli) as the reference's does.
 
-A local command runs as `subprocess.run(["bash", "-c", cmd])`: a fork
-followed at once by an exec, with every descriptor but the three
-standard ones closed, so a command (and any daemon it starts) inherits
-nothing of the interpreter's CUDA state.
+Every command runs as a `subprocess.run` of its argv: a fork followed
+at once by an exec, with every descriptor but the three standard ones
+closed, so a command (and any daemon it starts) inherits nothing of the
+interpreter's CUDA state.
 """
 
 from __future__ import annotations
@@ -115,6 +117,261 @@ class LocalRemote(Remote):
                 shutil.copy(p, dest)
 
 
+class SshCliRemote(Remote):
+    """Shells out to the `ssh`/`scp` binaries (the reference uses the
+    sshj library + an scp subprocess; control/scp.clj:29-57).  Gated:
+    raises RemoteError at connect time if ssh isn't installed."""
+
+    # A real host over ssh is its own failure domain: packet and
+    # clock faults stay on the target machine.
+    isolation = frozenset({"net", "clock"})
+
+    def __init__(self):
+        self.spec: Optional[ConnSpec] = None
+
+    def _ssh_opts(self) -> list[str]:
+        spec = self.spec
+        opts = ["-p", str(spec.port), "-l", spec.user]
+        if not spec.strict_host_key_checking:
+            opts += [
+                "-o", "StrictHostKeyChecking=no",
+                "-o", "UserKnownHostsFile=/dev/null",
+                "-o", "LogLevel=ERROR",
+            ]
+        if spec.private_key_path:
+            opts += ["-i", spec.private_key_path]
+        return opts
+
+    def _scp_opts(self) -> list[str]:
+        spec = self.spec
+        opts = ["-rpC", "-P", str(spec.port)]
+        if not spec.strict_host_key_checking:
+            opts += [
+                "-o", "StrictHostKeyChecking=no",
+                "-o", "UserKnownHostsFile=/dev/null",
+                "-o", "LogLevel=ERROR",
+            ]
+        if spec.private_key_path:
+            opts += ["-i", spec.private_key_path]
+        return opts
+
+    def connect(self, spec: ConnSpec) -> "SshCliRemote":
+        if shutil.which("ssh") is None:
+            raise RemoteError(
+                "ssh binary not found; use DummyRemote/LocalRemote or "
+                "install openssh-client"
+            )
+        r = SshCliRemote()
+        r.spec = spec
+        return r
+
+    #: Marker separating the remote command's real exit status from
+    #: ssh's own: the wrapped remote shell always exits 0, so any
+    #: nonzero ssh status (or a missing marker) IS a transport failure —
+    #: no stderr guessing, and non-idempotent commands are never
+    #: re-run by the retry wrapper for their own failures.
+    STATUS_MARKER = "\x01JTPU_STATUS:"
+
+    def execute(self, action: dict) -> dict:
+        wrapped = (
+            f"{action['cmd']}\nprintf '{self.STATUS_MARKER}%d' \"$?\""
+        )
+        cmd = ["ssh", *self._ssh_opts(), self.spec.host, wrapped]
+        try:
+            proc = subprocess.run(
+                cmd,
+                input=(action.get("in") or "").encode(),
+                capture_output=True,
+                timeout=action.get("timeout", 300),
+            )
+        except subprocess.TimeoutExpired as e:
+            raise RemoteError(f"ssh timed out: {action['cmd']!r}") from e
+        stdout = proc.stdout.decode(errors="replace")
+        marker_at = stdout.rfind(self.STATUS_MARKER)
+        if proc.returncode != 0:
+            raise RemoteError(
+                f"ssh to {self.spec.host} failed (status {proc.returncode}): "
+                f"{proc.stderr.decode(errors='replace')}"
+            )
+        if marker_at < 0:
+            # ssh exited 0 but the status line never printed: the remote
+            # shell ended cleanly without reporting (e.g. the command ran
+            # `exit`).  It may well have run — distinct type so
+            # RetryRemote won't replay a possibly-applied non-idempotent
+            # command.  NOTE: a command that tears the connection down
+            # hard (reboot, networking restart) usually makes ssh exit
+            # 255 instead, which is indistinguishable from a transport
+            # failure and IS retried — wrap such commands in nohup/
+            # disown+sleep so the shell reports before the link drops.
+            raise RemoteDisconnected(
+                f"remote shell on {self.spec.host} ended before reporting "
+                f"status for {action['cmd']!r}"
+            )
+        status = int(stdout[marker_at + len(self.STATUS_MARKER):] or -1)
+        out = dict(action)
+        out.update(
+            {
+                "host": self.spec.host,
+                "out": stdout[:marker_at],
+                "err": proc.stderr.decode(errors="replace"),
+                "exit": status,
+            }
+        )
+        return out
+
+    def _scp(self, sources: Sequence[str], dest: str) -> None:
+        proc = subprocess.run(
+            ["scp", *self._scp_opts(), *sources, dest],
+            capture_output=True,
+        )
+        if proc.returncode != 0:
+            raise RemoteError(
+                f"scp failed: {proc.stderr.decode(errors='replace')}"
+            )
+
+    def upload(self, local_paths: Sequence[str], remote_path: str) -> None:
+        host = f"{self.spec.user}@{self.spec.host}"
+        self._scp(list(local_paths), f"{host}:{remote_path}")
+
+    def download(self, remote_paths: Sequence[str], local_path: str) -> None:
+        host = f"{self.spec.user}@{self.spec.host}"
+        self._scp([f"{host}:{p}" for p in remote_paths], local_path)
+
+
+class DockerRemote(Remote):
+    """docker exec / docker cp transport (control/docker.clj:30-92); the
+    node name is the container name."""
+
+    # A container has its own netns, so packet faults are contained;
+    # the clock is the host's — skewing it would wound the control
+    # host too, so "clock" is deliberately absent.
+    isolation = frozenset({"net"})
+
+    def __init__(self):
+        self.spec: Optional[ConnSpec] = None
+
+    def connect(self, spec: ConnSpec) -> "DockerRemote":
+        if shutil.which("docker") is None:
+            raise RemoteError("docker binary not found")
+        r = DockerRemote()
+        r.spec = spec
+        return r
+
+    def execute(self, action: dict) -> dict:
+        cmd = [
+            "docker", "exec", "-i", self.spec.host,
+            "bash", "-c", action["cmd"],
+        ]
+        try:
+            proc = subprocess.run(
+                cmd,
+                input=(action.get("in") or "").encode(),
+                capture_output=True,
+                timeout=action.get("timeout", 300),
+            )
+        except subprocess.TimeoutExpired as e:
+            raise RemoteError(f"docker exec timed out") from e
+        out = dict(action)
+        out.update(
+            {
+                "host": self.spec.host,
+                "out": proc.stdout.decode(errors="replace"),
+                "err": proc.stderr.decode(errors="replace"),
+                "exit": proc.returncode,
+            }
+        )
+        return out
+
+    def upload(self, local_paths: Sequence[str], remote_path: str) -> None:
+        for p in local_paths:
+            subprocess.run(
+                ["docker", "cp", p, f"{self.spec.host}:{remote_path}"],
+                check=True,
+            )
+
+    def download(self, remote_paths: Sequence[str], local_path: str) -> None:
+        for p in remote_paths:
+            subprocess.run(
+                ["docker", "cp", f"{self.spec.host}:{p}", local_path],
+                check=True,
+            )
+
+
+class K8sRemote(Remote):
+    """kubectl exec / kubectl cp transport (control/k8s.clj:14-60); the
+    node name is the pod name.  Optional kubectl context/namespace are
+    fixed at construction — ConnSpec carries only the pod."""
+
+    # A pod runs on a separate cluster node: both packet and clock
+    # faults stay on the target's machine, not the control host.
+    isolation = frozenset({"net", "clock"})
+
+    def __init__(self, context: Optional[str] = None,
+                 namespace: Optional[str] = None):
+        self.context = context
+        self.namespace = namespace
+        self.spec: Optional[ConnSpec] = None
+
+    def _flags(self) -> list[str]:
+        flags = []
+        if self.context:
+            flags += ["--context", self.context]
+        if self.namespace:
+            flags += ["--namespace", self.namespace]
+        return flags
+
+    def connect(self, spec: ConnSpec) -> "K8sRemote":
+        if shutil.which("kubectl") is None:
+            raise RemoteError("kubectl binary not found")
+        r = K8sRemote(self.context, self.namespace)
+        r.spec = spec
+        return r
+
+    def execute(self, action: dict) -> dict:
+        cmd = [
+            "kubectl", "exec", "-i", *self._flags(), self.spec.host,
+            "--", "sh", "-c", action["cmd"],
+        ]
+        try:
+            proc = subprocess.run(
+                cmd,
+                input=(action.get("in") or "").encode(),
+                capture_output=True,
+                timeout=action.get("timeout", 300),
+            )
+        except subprocess.TimeoutExpired as e:
+            raise RemoteError("kubectl exec timed out") from e
+        out = dict(action)
+        out.update(
+            {
+                "host": self.spec.host,
+                "out": proc.stdout.decode(errors="replace"),
+                "err": proc.stderr.decode(errors="replace"),
+                "exit": proc.returncode,
+            }
+        )
+        return out
+
+    def _cp(self, src: str, dst: str) -> None:
+        proc = subprocess.run(
+            ["kubectl", "cp", *self._flags(), src, dst],
+            capture_output=True,
+        )
+        if proc.returncode != 0:
+            raise RemoteError(
+                f"kubectl cp {src} -> {dst} failed: "
+                f"{proc.stderr.decode(errors='replace')}"
+            )
+
+    def upload(self, local_paths: Sequence[str], remote_path: str) -> None:
+        for p in local_paths:
+            self._cp(p, f"{self.spec.host}:{remote_path}")
+
+    def download(self, remote_paths: Sequence[str], local_path: str) -> None:
+        for p in remote_paths:
+            self._cp(f"{self.spec.host}:{p}", local_path)
+
+
 class RetryRemote(Remote):
     """Wraps any Remote with reconnect-and-retry on connection failures:
     ≤5 tries with exponential backoff + jitter (control/retry.clj:15-33
@@ -204,17 +461,13 @@ class RetryRemote(Remote):
 
 
 def default_remote(test: dict) -> Remote:
-    """The test's transport: the dummy remote when test["ssh"]["dummy?"]
-    is set, else test["remote"].  The reference's default, a retrying
-    ssh remote, is not in the port: without either it raises."""
+    """Picks a transport for the test, the reference's default being
+    retry(scp(sshj)) (control/sshj.clj:201-207): here retry(ssh-cli),
+    with dummy short-circuit via test["ssh"]["dummy?"]."""
     ssh = test.get("ssh", {}) or {}
     if ssh.get("dummy?"):
         return DummyRemote()
     remote = test.get("remote")
     if remote is not None:
         return remote
-    raise NotImplementedError(
-        "no remote: the port has the dummy remote (test['ssh']['dummy?'], "
-        "--dummy-ssh), the local remote (LocalRemote, which the suites' "
-        "CLIs take by default) or a test-supplied test['remote']; its ssh, "
-        "docker and k8s remotes are ROADMAP Queue A item 5")
+    return RetryRemote(SshCliRemote())

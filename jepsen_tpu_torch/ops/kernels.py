@@ -88,6 +88,13 @@ class KernelLaunchError(RuntimeError):
     run."""
 
 
+def launch_counts() -> dict:
+    """A copy of `launches`, taken under its lock (launching threads
+    may be counting meanwhile)."""
+    with _launches_lock:
+        return dict(launches)
+
+
 def _nvcc() -> str:
     nvcc = shutil.which("nvcc") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")

@@ -11,8 +11,11 @@ run ends most keys already carry a verdict; `Linearizable` and
 `IndependentChecker` take it by packed-digest match, and only the rest
 pays the post-hoc ladder.
 
-Enable with `test["streaming"]` or `JEPSEN_STREAMING=1`.  The remote
-checkerd feed is not ported.
+Enable with `test["streaming"]` or `JEPSEN_STREAMING=1`.  With a
+checkerd address (`test["checkerd"]`, `--remote`, or JEPSEN_CHECKERD)
+the session also streams each key's ops to that daemon or router while
+the run goes on (remote.py `RemoteFeed`), and RemoteChecker consumes
+the ticket at analyze instead of uploading the history again.
 """
 
 from __future__ import annotations
@@ -58,4 +61,20 @@ def maybe_session(test: dict, *,
         log.info("streaming requested but model %s has no packed form; "
                  "checking stays post-hoc", type(model).__name__)
         return None
-    return StreamingSession(pm, device=device)
+    remote = None
+    addr = test.get("checkerd") or os.environ.get("JEPSEN_CHECKERD")
+    if addr:
+        from ..ops import degrade
+
+        try:
+            from .remote import remote_feed_for
+
+            remote = remote_feed_for(str(addr), test, model)
+        except Exception as e:  # noqa: BLE001 — the feed is optional
+            # Without a feed the post-hoc submission covers the upload;
+            # a device fault is not a feed's to swallow.
+            if degrade.is_device_fault(e):
+                raise
+            log.info("streaming remote feed unavailable: %s", e)
+    return StreamingSession(pm, device=device, remote=remote,
+                            run_id=str(test.get("name") or "run"))

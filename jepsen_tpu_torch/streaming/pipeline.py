@@ -37,8 +37,10 @@ telemetry; finish() writes the "frontier" profile record.  Each
 stream batch takes its segment and restart knobs from the cost
 model (`choose_stream_knobs`) and the finalize its chunk rows
 (`choose_finalize_chunk_rows`); untrained, or with `JEPSEN_PLAN=0`,
-both are the hand formulas.  Not ported: the SLO and time-series
-hooks and the remote checkerd feed.
+both are the hand formulas.  With a `remote` feed (streaming/remote.py
+`RemoteFeed`) the session mirrors each key's routed ops to a checkerd
+daemon or router as it ingests them, and commits the upload at
+finish().  Not ported: the SLO and time-series hooks.
 """
 
 from __future__ import annotations
@@ -124,6 +126,8 @@ class StreamingSession:
         advance_rows: int = ADVANCE_ROWS,
         recheck_min_rows: int = RECHECK_MIN_ROWS,
         device: Union[str, torch.device, None] = "cuda",
+        remote: Optional[Any] = None,
+        run_id: str = "run",
     ):
         self.pm = pm
         self.dev = _device.resolve(device)
@@ -131,6 +135,7 @@ class StreamingSession:
         self.swap_ops = swap_ops
         self.advance_rows = advance_rows
         self.recheck_min_rows = recheck_min_rows
+        self.run_id = run_id
 
         self.mode: Optional[str] = None
         self.finished = False
@@ -174,6 +179,10 @@ class StreamingSession:
         self._swaps = 0
         self._rechecks = 0
         self._checks = 0  # stream-witness batches
+
+        #: streaming/remote.py RemoteFeed, already configured to mirror
+        #: the submission RemoteChecker would make, or None.
+        self._remote = remote
 
         self._thread = threading.Thread(
             target=self._loop, name="streaming-checker", daemon=True)
@@ -280,6 +289,8 @@ class StreamingSession:
             if b is None:
                 b = self._packers[k] = PackedBuilder(self.pm.encode)
             b.append_many(rops)
+            if self._remote is not None:
+                self._remote.put_many(k, rops)
         for k in routed_by_key:
             self._changed[k] = True
             v = self._verdicts.pop(k, None)
@@ -428,6 +439,8 @@ class StreamingSession:
                     self.fault = e
                     raise
                 self._break(f"{type(e).__name__}: {e}", e)
+        if self._remote is not None:
+            self._remote.commit(list(self._packers))
         self.verdict_lag_s = time.monotonic() - t0
         telemetry.gauge("wgl.online.verdict-lag-s", self.verdict_lag_s)
         # Also into the quantile ring, which the SLO p95 rule and the
@@ -512,6 +525,18 @@ class StreamingSession:
         telemetry.count("wgl.online.consumed")
         return dict(v["res"])
 
+    def remote_ticket(self, addr: str, keys: list, model_spec: Any,
+                      algorithm: str, budget_s: Any,
+                      time_limit_s: Any) -> Optional[str]:
+        """The checkerd ticket for this run's streamed upload, iff the
+        upload completed and covered the same keys and settings the
+        caller would submit: RemoteChecker then skips re-uploading a
+        history the daemon already holds."""
+        if self._remote is None:
+            return None
+        return self._remote.ticket_for(addr, keys, model_spec, algorithm,
+                                       budget_s, time_limit_s)
+
     @property
     def proven(self) -> int:
         return len(self._verdicts)
@@ -539,4 +564,6 @@ class StreamingSession:
             }
         if self._frontiers:
             out["key-frontiers"] = len(self._frontiers)
+        if self._remote is not None:
+            out["remote"] = self._remote.stats()
         return out

@@ -215,8 +215,9 @@ def test_nonzero_static_pads_like_jnp(size):
 
 
 def test_import_guard_no_jax_no_reference_package():
-    """Importing every module of the port with jax blocked loads
-    neither jax nor any jepsen_tpu module."""
+    """Importing every module of the port, and loading its ssh and scp
+    shims, with jax blocked loads neither jax nor any jepsen_tpu
+    module."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
 
@@ -254,8 +255,18 @@ def test_import_guard_no_jax_no_reference_package():
             "suites.repkv", "suites.electd", "forensics", "checker.linviz",
             "nemesis.search", "fs_cache", "reconnect", "faketime", "lazyfs",
             "checker.clock", "checker.perf", "history.fold", "codec",
-            "report")}
+            "report", "control.minissh", "control.minissh.transport",
+            "control.minissh.scp", "control.minissh.client",
+            "control.minissh.server", "control.netns", "streaming.remote",
+            "checkerd.router", "nemesis.selfchaos")}
         assert want <= names, sorted(want - names)
+        # The ssh and scp shims, loaded as modules (not run).
+        import os, runpy
+        from jepsen_tpu_torch.control import minissh
+        for shim in ("ssh", "scp"):
+            g = runpy.run_path(os.path.join(minissh.BIN_DIR, shim),
+                               run_name="shim")
+            assert callable(g["main"]), shim
         bad = sorted(n for n in sys.modules
                      if n.split(".")[0] in ("jax", "jaxlib", "jepsen_tpu"))
         assert not bad, bad

@@ -37,11 +37,8 @@ def one_torch_thread():
 
 
 #: Cases of the JAX test files that test modules the port does not have
-#: yet, by the ROADMAP.md Queue A item that will port them.
-NOT_PORTED = {
-    # control's K8sRemote: item 5.
-    "test_k8s_remote_requires_kubectl",
-}
+#: yet, by the ROADMAP.md Queue A item that will port them: none.
+NOT_PORTED: set = set()
 
 CYCLE = torch_ported.load("test_cycle_workload")
 PROBE = torch_ported.load("test_probe_workloads")
@@ -73,7 +70,8 @@ def test_every_excluded_case_exists():
     names = set(torch_ported.cases(CYCLE)) | set(torch_ported.cases(PROBE))
     assert NOT_PORTED <= names
     assert len(set(torch_ported.cases(CYCLE)) - NOT_PORTED) == 13
-    assert len(set(torch_ported.cases(PROBE)) - NOT_PORTED) == 11
+    assert len(set(torch_ported.cases(PROBE)) - NOT_PORTED) == 12
+    assert "test_k8s_remote_requires_kubectl" in torch_ported.cases(PROBE)
 
 
 # -- seeded simulations through both packages -----------------------------
