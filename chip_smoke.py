@@ -6,12 +6,12 @@
 Needs one CUDA card and the CUDA toolkit (nvcc): the witness sweep
 kernel is built from jepsen_tpu_torch/csrc/ into build/jepsen_tpu_torch/
 at first use.  Exits non-zero, printing no result, when torch sees no
-CUDA device or the package is missing.  Seventeen phases, each raising
+CUDA device or the package is missing.  Eighteen phases, each raising
 on failure, run in the order 1, 2, 5, 6, 7, 8, 9, 10, 11, 1b, 12, 13, 14,
-3, 4, 15, 16 (every CUDA-event timing before the profiler first runs;
-phases 15 and 16, host-clock walls only, after it, since torch.profiler
-drops device operations from its windows in a process that has run a
-search).  The searches run with the packed member lanes at their default
+3, 4, 15, 16, 17 (every CUDA-event timing before the profiler first
+runs; phases 15-17, host-clock walls only, after it, since
+torch.profiler drops device operations from its windows in a process
+that has run a search).  The searches run with the packed member lanes at their default
 (`JEPSEN_WGL_PACKED`, on), as users run them.  The
 checkers' only route is the compiled plan, so phases 1-8, 10 and 11 run
 it; phase 9 reads its own parts (JEPSEN_PLAN=0, memo, faults, records):
@@ -97,7 +97,7 @@ it; phase 9 reads its own parts (JEPSEN_PLAN=0, memo, faults, records):
    own: (7a) the bench history replayed in 24 stable-prefix slices
    through FrontierCarry equals one check_wgl_witness at the same block
    knobs (valid, sweep launches, chain rounds); (7b) bench.py
-   run_scale_online: a 2M-op random_register_packed stream in 24
+   run_scale_online: a 1M-op random_register_packed stream in 24
    slices, warmed on 50k ops, valid, with its verdict lag and
    lag_fraction; (7c) a producer thread feeds the bench history through
    a StreamingSession and Linearizable takes the "wgl-online" verdict;
@@ -125,12 +125,12 @@ it; phase 9 reads its own parts (JEPSEN_PLAN=0, memo, faults, records):
    Phase 3 profiles the closure, the extraction, one screen call and
    one 8b check.
 9. The plan route (plan/, telemetry/): (9a) the bench history through
-   Linearizable with JEPSEN_PLAN on and off in turns (on, off, off, on,
-   on, off; off turns the cost model and the memo off, and still runs
-   the plan): equal verdicts, labels, sweep launches, chain rounds and
-   host syncs, every check through the plan executor, both medians
-   printed; (9b) phase 5's history (three each) and the 2,000-key
-   all-valid one (once each) through IndependentChecker, on and off:
+   Linearizable with JEPSEN_PLAN on, then off (off turns the cost model
+   and the memo off, and still runs the plan): equal verdicts, labels,
+   sweep launches, chain rounds and host syncs, every check through the
+   plan executor, both walls printed; (9b) phase 5's history and the
+   2,000-key all-valid one (once each) through IndependentChecker, on
+   and off:
    equal per-key
    verdicts and labels, failure count, tiers, stream passes, restarts
    and sweep launches, the wgl.settle.* counters printed; (9c) the
@@ -160,7 +160,7 @@ it; phase 9 reads its own parts (JEPSEN_PLAN=0, memo, faults, records):
 
 11. A Jepsen test run through the port's CLI (`phase_run`): (11a)
    `cli test --dummy-ssh` of the north-star workload
-   (linearizable_register, in-memory client) at 2,000 keys x 100 ops,
+   (linearizable_register, in-memory client) at 1,000 keys x 100 ops,
    threads-per-key 4, concurrency 32, noop nemesis: valid, every
    per-key verdict the exact CPU engine's on the stored history;
    (11b) 200 keys with a stale-read client on keys 0-29: invalid on
@@ -248,7 +248,7 @@ it; phase 9 reads its own parts (JEPSEN_PLAN=0, memo, faults, records):
    skipped, each minimal history shorter than its key's and refuted
    from its JSON, and `cli analyze --device cpu` of the stored run
    writing byte-identical counterexample.json files; (15c) `repkv
-   search` against the real servers (three iterations, partition and
+   search` against the real servers (two iterations, partition and
    kill): exit 0, each iteration's verdict its stored history's CPU
    re-analysis, no server left.
 16. Jepsen against real nodes and the federated checker
@@ -275,8 +275,37 @@ it; phase 9 reads its own parts (JEPSEN_PLAN=0, memo, faults, records):
    daemons on the card: no lost verdict, an honest shed, identical
    replayed digests, the light tenant's p95 within 30 s, the overload
    gauges on /metrics, B1 launched in the daemons.
+17. Standing verification (`phase_standing`): `jepsen monitor`,
+   `jepsen fleet` and `jepsen serve` of the port.  (17a)
+   tools/monitor_smoke.py's phase 2 in this process: `run_monitor` at
+   MonitorConfig's default widths, 20,000 ops/s for 6 s, a synthetic
+   SLO for 2 s and a file sink: the alert delivered once with its
+   dossier and cleared once, every key proven, resident rows under
+   25,000, B1 launched; the measured rate, the verdict lag's median and
+   p95, and the card's peak allocated bytes.  Then, together: (17b)
+   tools/live_monitor_smoke.py with monitor_smoke.py's phase 1: a
+   `kvdb monitor --suite kvdb --device cuda` child against the kvdb
+   server with kill and pause windows, SIGKILLed between an inject and
+   its heal, a torn tail added to its series, and a second monitor on
+   the same store (10 s, the smoke's 20 cut) with its dashboard: both
+   families injected and healed, the residue swept, the search resumed
+   and advanced, the series continuous, /api/series and the SSE stream
+   served, exit 0 with every key proven (or 2 where each unknown key's
+   frontier died with the witness unable to prove it, as the log
+   says), B1 launched in the second monitor; (17c) tools/fleet_smoke.py: a FleetSupervisor over kvdb,
+   logd and electd tenants teeing to 16d's router and daemons, kvdb's
+   monitor and daemon 0 SIGKILLed, the daemon restarted 2 s later: the
+   survivors' series and windows advance with no pre-kill point lost,
+   kvdb restarted and its search resumed, no daemon or router dead
+   unasked, every tenant under its retention budget, /api/fleet and the
+   fleet's and a daemon's /metrics, a shed survivor still advancing, B1
+   launched in the surviving daemon and in each tenant; (17d) `kvdb
+   serve` on phase 11's store: `/` (11a's row valid), 11a's run page,
+   file and zip, and 11e's telemetry page answer 200.
 
-The last lines are the phase-16 JSON line (`{"federation": ...}`: per
+The last lines are the stages line (`{"stages_s": ...}`), the phase-17
+JSON line (`{"standing": ...}`: per sub-phase gates' readings, seconds
+and B1 launches), the phase-16 JSON line (`{"federation": ...}`: per
 sub-phase verdicts, seconds and the daemons' B1 launches), the phase-15
 JSON line (per sub-phase: iterations,
 coverage, cells, convictions and dossiers, B1 sweeps and seconds), the
@@ -1443,7 +1472,7 @@ def phase_instantiations(torch, recorder: SweepRecorder, seed: int) -> list:
 #: longest call after one warm-up call (three times until its cost,
 #: ~0.1-0.5 s a call over ~40 instantiations, pushed the script past its
 #: time budget), and INSTANCE_REPS profiled launches for its device time
-#: in phase 3.
+#: in phase 3 (200 until the script outgrew its time budget).
 INSTANCE_PLAIN_REPS, INSTANCE_REPS = 1, 50
 #: Phase 3 profiles the batched BFS of the FIFO cohort alone (the
 #: cohort ROADMAP's B6 record reads; each profiled call records up to
@@ -1936,7 +1965,9 @@ def phase_batched(torch, recorder: SweepRecorder) -> dict:
 # the rolling discard.
 
 ONLINE_SLICES = 24  # bench.py run_scale_online's default
-SCALE_OPS, SCALE_WARM_OPS = 2_000_000, 50_000
+#: 7b's scale point: 1M ops (bench.py run_scale_online's 2M, halved to
+#: pay for phase 17's time), warmed on 50k.
+SCALE_OPS, SCALE_WARM_OPS = 1_000_000, 50_000
 ROLLING_OPS = 200_000
 #: The live producers feed this many ops, then pause FEED_PAUSE_S.
 FEED_BURST, FEED_PAUSE_S = 2048, 0.02
@@ -2617,11 +2648,13 @@ def phase_elle(torch, dev=None) -> dict:
 # and memo allowed and with JEPSEN_PLAN=0, the persistent plan memo, the
 # fault hook and the profile records.
 
-#: Alternation of JEPSEN_PLAN on and off ("on", "off") in the timed
-#: comparisons: three checks each, in turns.
-PLAN_ORDER = ("on", "off", "off", "on", "on", "off")
-#: The 2,000-key all-valid check, two each.
-PLAN_ORDER_BIG = ("on", "off", "off", "on")
+#: JEPSEN_PLAN on and off ("on", "off") in the compared checks: one
+#: pair each (was three and two pairs: the plan is the port's only
+#: route, so the pairs hold equal results, and their walls compare
+#: nothing a user chooses between).
+PLAN_ORDER = ("on", "off")
+#: The 2,000-key all-valid check, one pair.
+PLAN_ORDER_BIG = ("on", "off")
 #: Phase 9d's valid history: 2,000 ops.
 FAULT_OPS = 2000
 
@@ -3402,11 +3435,12 @@ def phase_daemon(torch, dev=None, keys: int = MIXED_KEYS,
 
 #: Phase 11: a Jepsen test run through the port's CLI.  The north-star
 #: workload (linearizable_register, in-memory client, noop nemesis,
-#: dummy remote) at 2,000 keys x 100 ops (threads-per-key 4,
-#: concurrency 32: phase 5's 2,000-key shape), at 200 keys with a
+#: dummy remote) at 1,000 keys x 100 ops (threads-per-key 4,
+#: concurrency 32: phase 5's shape at half its 2,000 keys, to pay for
+#: phase 17's time), at 200 keys with a
 #: stale-read client on keys 0-29, and at 200 keys with the online
 #: session; list-append at 1,000 transactions.
-RUN_KEYS, RUN_KEYS_SMALL, RUN_PER_KEY = 2000, 200, 100
+RUN_KEYS, RUN_KEYS_SMALL, RUN_PER_KEY = 1000, 200, 100
 RUN_THREADS_PER_KEY, RUN_CONCURRENCY, RUN_TIME_LIMIT = 4, 32, 300
 RUN_STALE_KEYS = 30
 RUN_APPEND_TXNS = 1000
@@ -3554,7 +3588,7 @@ def _hold_exact(what: str, run: dict, want_invalid=()) -> None:
 
 def phase_run(torch, dev=None, keys: int = RUN_KEYS,
               small: int = RUN_KEYS_SMALL,
-              txns: int = RUN_APPEND_TXNS) -> dict:
+              txns: int = RUN_APPEND_TXNS, root=None) -> dict:
     """Phase 11: a Jepsen test run on the card, through the port's CLI
     (`cli test --dummy-ssh`, `cli analyze`) and its normal entry points:
     core.run -> generator -> interpreter -> in-memory client workers ->
@@ -3566,9 +3600,13 @@ def phase_run(torch, dev=None, keys: int = RUN_KEYS,
     keys with the online session (--streaming): every key "wgl-online",
     each verdict the post-hoc check's of the same stored history, and
     the verdict lag; (11d) `cli analyze` of 11a's stored run: 11a's
-    results; (11e) list-append at `txns` transactions: the verdict and
-    anomaly types of the host search (device="off").  Each prints ops,
-    run and analyze seconds, sweeps and host syncs, and the card."""
+    results; (11e) list-append at `txns` transactions, with telemetry
+    on for the whole run, into 11a's store: the verdict and anomaly types
+    of the host search (device="off").  Each prints ops, run and analyze
+    seconds, sweeps and host syncs, and the card.  With `root` the
+    stores are made there and kept (phase 17d serves 11a's), and
+    `out["stored"]` names 11a's and 11e's run directories."""
+    import contextlib
     import tempfile
 
     from jepsen_tpu_torch import cli
@@ -3590,7 +3628,8 @@ def phase_run(torch, dev=None, keys: int = RUN_KEYS,
             check=True).stdout.strip()
     out: dict = {}
     t_phase = time.perf_counter()
-    with tempfile.TemporaryDirectory(prefix="phase11-") as tmp:
+    with (contextlib.nullcontext(root) if root is not None else
+          tempfile.TemporaryDirectory(prefix="phase11-")) as tmp:
         def argv(cmd, n_keys, sub, *more):
             return [cmd, "--workload", "linearizable-register",
                     "--dummy-ssh", "--device", dev, "--key-count",
@@ -3641,9 +3680,17 @@ def phase_run(torch, dev=None, keys: int = RUN_KEYS,
             return {**wl, "generator": gen.clients(gen.limit(
                 txns, wl["generator"]))}
 
-        e = _run_cli(torch, ["test", "--dummy-ssh", "--device", dev,
-                             "--concurrency", "10", "--store-dir",
-                             os.path.join(tmp, "e")], txn_suite, "e", smi)
+        from jepsen_tpu_torch import telemetry
+
+        was = telemetry.enabled()
+        telemetry.enable(True)
+        try:
+            e = _run_cli(torch, ["test", "--dummy-ssh", "--device", dev,
+                                 "--concurrency", "10", "--store-dir",
+                                 os.path.join(tmp, "a")], txn_suite, "e",
+                         smi)
+        finally:
+            telemetry.enable(was)
         host = AppendChecker("serializable", device="off").check(
             {}, e["history"], {})
         if (e["exit"] != cli.EXIT_VALID or e["ops"] != txns
@@ -3655,6 +3702,12 @@ def phase_run(torch, dev=None, keys: int = RUN_KEYS,
                                  f"{host.get('valid')}")
         out["artifacts"] = {k: key_artifacts(r, k)
                             for k, r in (("a", a), ("b", b))}
+        if e["dir"] == a["dir"] or not os.path.isfile(
+                os.path.join(e["dir"], "telemetry.json")):
+            raise AssertionError("phase11e: no telemetry.json in its own "
+                                 "run directory")
+        out["stored"] = {"root": os.path.join(tmp, "a"), "a": a["dir"],
+                         "e": e["dir"], "a_valid": a["results"]["valid"]}
         for k, r in zip("abcde", (a, b, c, d, e)):
             if dev == "cuda" and k != "e" and r["sweeps"] <= 0:
                 raise AssertionError(f"phase11{k}: the witness sweep kernel "
@@ -3670,8 +3723,8 @@ def phase_run(torch, dev=None, keys: int = RUN_KEYS,
 # ---------------------------------------------------------------------------
 # The packed member lanes and the witness checkpoint (phase 12).
 
-#: Phase 12c's one-shot history: 500k ops (a quarter of phase 7b's 2M,
-#: so that the script with phase 16 and phase 3's plain warm-ups stays
+#: Phase 12c's one-shot history: 500k ops (half of phase 7b's 1M, so
+#: that the script with phase 16 and phase 3's plain warm-ups stays
 #: inside its time budget).
 CKPT_OPS = 500_000
 #: Phase 12a's word counts.
@@ -3910,9 +3963,10 @@ KAFKA_BIG_SECONDS = 60
 #: 13c's G1c/G0 pairs: 400 vertices, past the 256 of the device
 #: extraction.
 KAFKA_CYCLE_PAIRS = 200
-#: 13e: seconds per workload; rw-register's transactions, so that its
-#: graph stays under the screen's 1,024 vertices.
-WORKLOAD_SECONDS = 5
+#: 13e: seconds per workload (5 until phase 17 needed the time);
+#: rw-register's transactions, so that its graph stays under the
+#: screen's 1,024 vertices.
+WORKLOAD_SECONDS = 3
 WR_TXNS = 800
 #: 13e's workloads, with the CLI options past the common ones.
 OTHER_WORKLOADS = {
@@ -4501,8 +4555,9 @@ SEARCH_SHRINK = 8
 #: MAX_DOSSIERS (16) of them and counts the rest as skipped.
 FORENSICS_FILES = ("counterexample.json", "death.json", "linear.svg",
                    "timeline.html")
-#: 15c: `repkv search` against the real servers.
-SEARCH_REPKV_ITERATIONS = 3
+#: 15c: `repkv search` against the real servers: its two seed runs
+#: (partition, kill), one evolved run less than before phase 17.
+SEARCH_REPKV_ITERATIONS = 2
 SEARCH_REPKV_SHRINK = 2
 
 
@@ -5070,8 +5125,10 @@ FED_WINDOW_S = 2.0
 FED_SEEDS = (16_000, 17_000)
 FED_RESTART_SEED, FED_STREAM_SEED = 18_000, 19_000
 FED_WAIT_S = 300.0
-#: 16d: tools/chaos_smoke.py's schedule.
-CHAOS_SECONDS, CHAOS_BOUND_S = 16.0, 30.0
+#: 16d: tools/chaos_smoke.py's schedule, its 16 s load window cut to 10
+#: (the schedule's events fall at fixed fractions of it) to pay for
+#: phase 17's time.
+CHAOS_SECONDS, CHAOS_BOUND_S = 10.0, 30.0
 
 
 def _smi(dev) -> str:
@@ -5651,7 +5708,7 @@ def federation(torch, dev, tmp: str) -> dict:
     return out
 
 
-def self_chaos(torch, dev, tmp: str) -> dict:
+def self_chaos(torch, dev, tmp: str, fleet=None) -> dict:
     """(16d) tools/chaos_smoke.py's schedule on the port, against a
     router and two daemons checking on `dev` (the fleet resolves it here
     and passes it to every child): three tenants, one a whale, for
@@ -5661,7 +5718,10 @@ def self_chaos(torch, dev, tmp: str) -> dict:
     a positive retry-after, the replayed verdict digests byte-identical,
     the light tenant's queue-wait p95 within CHAOS_BOUND_S, the
     checkerd.overload.* gauges on the restarted daemon's /metrics, no
-    child dead unasked, and on the card B1 launched in the daemons."""
+    child dead unasked, and on the card B1 launched in the daemons.
+    A `fleet` the caller gives (two daemons, metrics on, not started) is
+    started here and left running for the caller to stop: `main` hands
+    it on to phase 17c."""
     import threading
     import urllib.request
 
@@ -5672,8 +5732,10 @@ def self_chaos(torch, dev, tmp: str) -> dict:
 
     whale, alpha, beta = "whale", "alpha", "beta"
     t_start = time.perf_counter()
-    fleet = sc.ChaosFleet(2, os.path.join(tmp, "chaos"), metrics=True,
-                          device=dev.type)
+    own = fleet is None
+    if own:
+        fleet = sc.ChaosFleet(2, os.path.join(tmp, "chaos"), metrics=True,
+                              device=dev.type)
     history = sc.ChaosHistory()
     stop = threading.Event()
     out: dict = {"device": fleet.device}
@@ -5750,7 +5812,8 @@ def self_chaos(torch, dev, tmp: str) -> dict:
             raise AssertionError(f"phase16d: children died unasked: {dead}")
     finally:
         stop.set()
-        fleet.stop()
+        if own:
+            fleet.stop()
     violations = sc.check_invariants(history, fairness_bound_s=CHAOS_BOUND_S,
                                      light_tenant=alpha)
     st = history.stats()
@@ -5772,14 +5835,23 @@ def self_chaos(torch, dev, tmp: str) -> dict:
     return out
 
 
-def phase_remote(torch, dev=None) -> dict:
+def _close_dir(tmp: str) -> list:
+    """Kills what still runs from `tmp`, removes it -> what was left."""
+    import shutil
+
+    left = _kill_servers(tmp)
+    shutil.rmtree(tmp, ignore_errors=True)
+    return left
+
+
+def phase_remote(torch, dev=None, fleet=None) -> dict:
     """Phase 16: Jepsen against real nodes and the federated checker,
     every check on `dev` (the card by default): (16a) `ssh_suite`,
-    (16b) `netns_partition`, (16c) `federation`, (16d) `self_chaos`.
+    (16b) `netns_partition`, (16c) `federation`, (16d) `self_chaos`
+    (on `fleet` when the caller gives one; the caller stops it).
     Each raises on a failed gate; B1's launch counter is read in this
     process (16a, 16b) and in the daemons' STATS (16c, 16d), whose
     counts start at 0 with each process."""
-    import shutil
     import tempfile
 
     dev = torch.device("cuda") if dev is None else torch.device(dev)
@@ -5792,15 +5864,650 @@ def phase_remote(torch, dev=None) -> dict:
             sub = os.path.join(tmp, part)
             os.makedirs(sub)
             t0 = time.perf_counter()
-            out[part] = fn(torch, dev, sub)
+            out[part] = (fn(torch, dev, sub, fleet) if part == "d"
+                         else fn(torch, dev, sub))
             out[part]["phase_s"] = time.perf_counter() - t0
     finally:
-        left = _kill_servers(tmp)
-        shutil.rmtree(tmp, ignore_errors=True)
+        left = _close_dir(tmp)
     if left:
         raise AssertionError(f"phase16: processes left running: {left}")
     out["wall_s"] = time.perf_counter() - t_phase
     log(f"phase16: done in {out['wall_s']:.3f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Standing verification (phase 17): `jepsen monitor`, `jepsen fleet` and
+# `jepsen serve` on the card.
+
+#: 17a: tools/monitor_smoke.py's phase 2 at MonitorConfig's default
+#: widths (8 keys, 4 processes a key, 64 bars a block, 4 blocks a call,
+#: beam 8, 1,024 rows between advances): the rate, the run's seconds,
+#: the synthetic SLO's seconds, the cadence (the smoke's 0.3 s: at the
+#: default 5 s a 6 s run samples once, after the SLO has cleared), and
+#: the ceiling the smoke holds `monitor.resident-rows` under.
+MON_RATE, MON_SECONDS, MON_INJECT_S, MON_CADENCE_S = 20_000.0, 6.0, 2.0, 0.3
+MON_ROWS_CEILING = 25_000
+#: 17b: tools/live_monitor_smoke.py's monitor at TenantSpec's defaults,
+#: and the resumed monitor's seconds (the smoke's 20, cut to 10: a
+#: resumed window takes ~3 s).
+LIVE_ARGS = ["--suite", "kvdb", "--live-faults", "kill,pause", "--rate",
+             "50", "--keys", "2", "--procs-per-key", "2", "--cadence", "1"]
+LIVE_RESUME_S = 10.0
+LIVE_SERIES = "monitor.ops-per-s"
+#: How a frontier's death reads in a monitor's log when the witness
+#: could not prove its blocks (at an advance or at the finish).
+WITNESS_UNPROVEN = ("frontier died (witness cannot prove)",
+                    "frontier empty at finalize")
+TORN_TAIL = b"\x00\x17GARBAGE-TORN-TAIL-NOT-A-BLOCK"
+#: 17c: tools/fleet_smoke.py's tenants (TenantSpec's widths: rate 50, 2
+#: keys, 2 processes a key, 1 s cadence) with the smoke's tee window,
+#: deadline and retention, and its supervisor's settings.
+FLEET_TENANTS = ("kvdb", "logd", "electd")
+FLEET_RETAIN_BYTES = 32 << 20
+#: Every wait of phase 17 ends within this many seconds.
+STANDING_WAIT_S = 240.0
+
+
+def _read_json(path: str) -> dict:
+    try:
+        with open(path) as f:
+            return json.load(f)
+    except (OSError, ValueError):
+        return {}
+
+
+def _until(pred, what: str, deadline_s: float = STANDING_WAIT_S,
+           proc=None, poll_s: float = 0.2, log_path=None):
+    """pred()'s first truthy value; raises past the deadline or when
+    `proc` exits first (with the end of its log at `log_path`)."""
+    from jepsen_tpu_torch.nemesis.selfchaos import _tail
+
+    deadline = time.monotonic() + deadline_s
+    while True:
+        v = pred()
+        if v:
+            return v
+        if proc is not None and proc.poll() is not None:
+            raise AssertionError(f"{what}: the child exited "
+                                 f"{proc.returncode} first: "
+                                 f"{_tail(log_path)}")
+        if time.monotonic() > deadline:
+            raise AssertionError(f"{what}: not within {deadline_s} s")
+        time.sleep(poll_s)
+
+
+def _http(url: str, timeout: float = 15.0) -> tuple:
+    """(status, body bytes) of a GET."""
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url, timeout=timeout) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def _sse_payload(url: str, deadline_s: float = 30.0) -> dict:
+    """The first `data:` payload of an SSE stream, read under a
+    deadline."""
+    import urllib.request
+
+    deadline = time.monotonic() + deadline_s
+    with urllib.request.urlopen(url, timeout=deadline_s) as resp:
+        while time.monotonic() < deadline:
+            line = resp.readline()
+            if line.startswith(b"data:"):
+                return json.loads(line[5:].strip())
+    raise AssertionError("phase17b: the SSE stream sent no payload")
+
+
+def _witness_sweeps(launches: dict) -> int:
+    return int((launches or {}).get("witness_sweep", 0))
+
+
+def standing_monitor(torch, dev, tmp: str) -> dict:
+    """(17a) `run_monitor` in this process at MonitorConfig's default
+    widths, MON_RATE ops/s for MON_SECONDS with the synthetic SLO firing
+    for MON_INJECT_S and a file sink.  Gates: the alert reaches the sink
+    once (not a renotify) with its dossier and the flight postmortem,
+    and clears once; every key proven; `monitor.resident-rows` under
+    MON_ROWS_CEILING at every sample; B1 launched.  Reads ops, the
+    measured rate, `monitor.verdict-lag-s` (median and p95 of its
+    samples) and the card's peak allocated bytes after the first second
+    and at the end."""
+    import threading
+
+    from jepsen_tpu_torch import telemetry
+    from jepsen_tpu_torch.monitor import MonitorConfig, run_monitor
+    from jepsen_tpu_torch.ops import kernels
+    from jepsen_tpu_torch.telemetry import flight, profile, slo, timeseries
+
+    store = os.path.join(tmp, "store")
+    sink = os.path.join(tmp, "alerts.jsonl")
+    cuda = dev.type == "cuda"
+    peaks: dict = {}
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        peaks["allocated_at_start"] = torch.cuda.memory_allocated()
+    timer = threading.Timer(1.0, lambda: peaks.update(
+        peak_after_1s=torch.cuda.max_memory_allocated()) if cuda else None)
+    timeseries.reset_rings()
+    was = telemetry.enabled()
+    kernels.launches.clear()
+    t0 = time.perf_counter()
+    timer.start()
+    try:
+        summary = run_monitor(MonitorConfig(
+            store_dir=store, device=dev.type, rate=MON_RATE,
+            duration_s=MON_SECONDS, cadence_s=MON_CADENCE_S,
+            inject_slo_s=MON_INJECT_S, sinks=(f"file:{sink}",)))
+    finally:
+        timer.cancel()
+        profile.set_store(None)
+        flight.set_dir(None)
+        slo.set_dir(None)
+        telemetry.enable(was)
+    wall = time.perf_counter() - t0
+    if cuda:
+        torch.cuda.synchronize()
+        peaks["peak_at_end"] = torch.cuda.max_memory_allocated()
+    launches = dict(kernels.launches)
+    lag = timeseries.quantiles("monitor.verdict-lag-s")
+    events = [json.loads(ln) for ln in open(sink) if ln.strip()]
+    mine = [e for e in events if e.get("rule") == "monitor-injected"]
+    firing = [e for e in mine if e.get("rec") == "firing"
+              and not e.get("renotify")]
+    cleared = [e for e in mine if e.get("rec") == "cleared"]
+    rows = [v for _, v in timeseries.read_disk_series(
+        store, "monitor.resident-rows")]
+    out = {"ops": summary["ops"], "rate_target": MON_RATE,
+           "rate_measured": summary["rate_measured"],
+           "duration_s": summary["duration_s"], "wall_s": wall,
+           "keys": summary["keys"], "ok_keys": summary["ok_keys"],
+           "unknown_keys": summary["unknown_keys"],
+           "discarded_rows": summary["checker"]["discarded-rows"],
+           "verdict_lag_s": {"p50": lag.get("p50"), "p95": lag.get("p95"),
+                             "final": summary["verdict_lag_s"]},
+           "resident_rows_max": max(rows) if rows else None,
+           "samples": len(rows), "alerts": len(events),
+           "sweeps": _witness_sweeps(launches), "launches": launches,
+           "card_memory": peaks}
+    log("phase17a: " + json.dumps(out))
+    dossier = firing[0].get("dossier") if len(firing) == 1 else None
+    if (len(firing) != 1 or len(cleared) != 1 or not dossier
+            or not os.path.isfile(dossier)
+            or not firing[0].get("postmortem")):
+        raise AssertionError(f"phase17a: the injected alert's round trip: "
+                             f"{len(firing)} firing, {len(cleared)} "
+                             f"cleared, dossier {dossier!r}")
+    if summary["ok_keys"] != summary["keys"] or summary["unknown_keys"]:
+        raise AssertionError(f"phase17a: verdicts {summary['verdicts']}")
+    if not rows or max(rows) >= MON_ROWS_CEILING or \
+            out["discarded_rows"] <= 0:
+        raise AssertionError(f"phase17a: resident rows {rows[-5:]}, "
+                             f"discarded {out['discarded_rows']}")
+    need_launches("phase17a", dev, launches)
+    return out
+
+
+def standing_live(torch, dev, tmp: str) -> dict:
+    """(17b) tools/live_monitor_smoke.py with monitor_smoke.py's phase 1:
+    `kvdb monitor --suite kvdb --device <dev>` against the kvdb server,
+    kill and pause windows; SIGKILLed once a window has completed and
+    while the fault ledger holds an outstanding intent; a torn tail
+    appended to its tier-0 series file; then a second monitor on the
+    same store with the dashboard for LIVE_RESUME_S.  Gates: both
+    families injected and healed in the ledger; the stranded intent
+    swept on resume, zero outstanding at exit and a clean residue probe;
+    search.json resumed as a superset with its window counter advanced;
+    the series continuous across the kill and the torn tail truncated;
+    /api/series serving the pre-kill samples, /monitor wired to the
+    SSE stream and the stream delivering a payload; B1 launched in the
+    second monitor (its summary); exit 0 with every key proven, or exit
+    2 (the reference smoke's other accepted code) where each unknown key
+    is a frontier the witness could not prove (its log says so) and never
+    an invalid verdict: the witness, in both packages, leaves some
+    linearizable histories with crashed (info) ops unproven, which the
+    rolling checker cannot escalate (PERF.md §6)."""
+    import signal
+
+    from jepsen_tpu_torch.nemesis import ledger
+    from jepsen_tpu_torch.telemetry.timeseries import (read_disk_series,
+                                                       series_path)
+
+    store = os.path.join(tmp, "store")
+    base = ["monitor", *LIVE_ARGS, "--device", dev.type, "--store-dir",
+            store, "--search-dir", os.path.join(store, "search")]
+    ledger_path = ledger.ledger_path(os.path.join(store, "live"))
+    logs = [os.path.join(tmp, f"m{i}.log") for i in (1, 2)]
+    t0 = time.perf_counter()
+    first = _Child("m1", base + ["--duration", "300"], 0, tmp).spawn().proc
+    try:
+        st0 = _until(lambda: (lambda st: st if st.get("windows", 0) >= 1
+                              else None)(_read_json(os.path.join(
+                                  store, "live-status.json"))),
+                     "phase17b: a first fault window", proc=first,
+                     log_path=logs[0])
+        pre = read_disk_series(store, LIVE_SERIES)
+        stranded = _until(lambda: ledger.read_outstanding(ledger_path),
+                          "phase17b: an outstanding intent", proc=first,
+                          poll_s=0.02, log_path=logs[0])
+        os.kill(first.pid, signal.SIGKILL)
+        first.wait(timeout=30)
+    finally:
+        if first.poll() is None:
+            first.kill()
+            first.wait(timeout=30)
+    t_kill = time.time()
+    killed_s = time.perf_counter() - t0
+    with open(series_path(store), "ab") as f:
+        f.write(TORN_TAIL)
+    if len(read_disk_series(store, LIVE_SERIES)) < len(pre):
+        raise AssertionError("phase17b: a reader lost samples at the tear")
+    t1 = time.perf_counter()
+    # The dashboard on a port of the monitor's choosing, read from its
+    # log: a port picked here could be taken by a client connection
+    # before the monitor binds it.
+    second = _Child("m2", base + ["--duration", str(LIVE_RESUME_S),
+                                  "--serve-port", "0"], 0, tmp).spawn().proc
+    try:
+        port = _until(lambda: _dashboard_port(logs[1]),
+                      "phase17b: the dashboard", proc=second,
+                      log_path=logs[1])
+        web = f"http://127.0.0.1:{port}"
+        names = json.loads(_http(f"{web}/api/series")[1])["names"]
+        served = json.loads(_http(
+            f"{web}/api/series?name={LIVE_SERIES}")[1])["points"]
+        page = _http(f"{web}/monitor")[1].decode()
+        payload = _sse_payload(f"{web}/api/series/stream")
+        rc = second.wait(timeout=LIVE_RESUME_S + 120)
+    finally:
+        if second.poll() is None:
+            second.kill()
+            second.wait(timeout=30)
+    resume_s = time.perf_counter() - t1
+    with open(series_path(store), "rb") as f:
+        torn_left = TORN_TAIL in f.read()
+    summary = _read_json(os.path.join(store, "monitor-summary.json"))
+    live = summary.get("live") or {}
+    with open(logs[1], errors="replace") as f:
+        deaths = [ln.split("online frontier died: ", 1)[1].strip()
+                  for ln in f if "online frontier died: " in ln]
+    unproven = sum(1 for d in deaths if d.startswith(WITNESS_UNPROVEN))
+    records = ledger.read_records(ledger_path)
+    healed = {r["id"] for r in records if r.get("rec") == "healed"}
+    families = sorted({r.get("tag") for r in records
+                       if r.get("rec") == "intent" and r["id"] in healed
+                       and r.get("tag") in ("db-kill", "db-pause")})
+    sj = _read_json(os.path.join(store, "search", "search.json"))
+    merged = read_disk_series(store, LIVE_SERIES)
+    before = [t for t, _ in merged if t <= t_kill]
+    after = [t for t, _ in merged if t > t_kill]
+    out = {"exit": rc, "killed_after_s": killed_s, "resume_s": resume_s,
+           "stranded": [(e.get("fault"), e.get("tag")) for e in stranded],
+           "windows": [st0.get("windows"), sj.get("windows")],
+           "coverage": [st0.get("coverage"), len(sj.get("coverage") or [])],
+           "novel_windows": sj.get("novel-windows"),
+           "families_healed": families,
+           "repair_healed": (live.get("repair-on-start") or {}).get("healed"),
+           "residue_clean": (live.get("residue") or {}).get("clean"),
+           "outstanding_at_exit": live.get("outstanding-at-exit"),
+           "series": [len(before), len(after)], "pre_kill": len(pre),
+           "ops": summary.get("ops"), "ok_keys": summary.get("ok_keys"),
+           "unknown_keys": summary.get("unknown_keys"),
+           "frontier_deaths": deaths,
+           "sweeps": _witness_sweeps(summary.get("launches")),
+           "sse": sorted(payload.get("s") or {})[:3]}
+    log("phase17b: " + json.dumps(out))
+    unknown = summary.get("unknown_keys")
+    fails = [what for what, bad in (
+        ("exit", not ((rc == 0 and unknown == 0) or (
+            rc == 2 and 0 < unknown <= unproven
+            and summary.get("ok_keys", 0) + unknown == 2))),
+        ("families", len(families) < 2),
+        ("repair", not out["repair_healed"]),
+        ("residue", out["residue_clean"] is not True
+         or out["outstanding_at_exit"] != 0),
+        ("search", len(sj.get("coverage") or []) < st0.get("coverage", 0)
+         or sj.get("windows", 0) <= st0.get("windows", 0)
+         or sj.get("novel-windows", 0) < 1),
+        ("series", len(before) < len(pre) or not after or torn_left),
+        ("dashboard", LIVE_SERIES not in names or not served
+         or min(t for t, _ in served) > t_kill
+         or "EventSource" not in page or not payload.get("s")),
+    ) if bad]
+    if fails:
+        raise AssertionError(f"phase17b: {fails}: {out}")
+    need_launches("phase17b", dev, summary.get("launches") or {})
+    return out
+
+
+def _log_tails(d: str) -> None:
+    """Logs the end of each child log under `d` (a failed sub-phase's)."""
+    import glob
+
+    from jepsen_tpu_torch.nemesis.selfchaos import _tail
+
+    for path in sorted(glob.glob(os.path.join(d, "*.log"))):
+        log(f"{path}: ...{_tail(path, 1500)}")
+
+
+def _dashboard_port(log_path: str):
+    """The port a monitor's log says its dashboard serves on, if it
+    says so yet."""
+    import re
+
+    try:
+        with open(log_path, errors="replace") as f:
+            m = re.search(r"monitor dashboard at http://127\.0\.0\.1:(\d+)/",
+                          f.read())
+    except OSError:
+        return None
+    return int(m.group(1)) if m else None
+
+
+def _card_processes() -> list:
+    """[pid, MiB] of each process holding a context on the card, as
+    nvidia-smi reports them."""
+    r = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,used_memory",
+                        "--format=csv,noheader,nounits"],
+                       capture_output=True, text=True)
+    return [[int(x) for x in ln.split(",")]
+            for ln in r.stdout.splitlines() if ln.strip()]
+
+
+def standing_fleet(torch, dev, tmp: str, chaos=None) -> dict:
+    """(17c) tools/fleet_smoke.py: a FleetSupervisor in this process over
+    three tenants (kvdb, logd, electd, each a live monitor child with
+    kill and pause windows, `--device <dev>`), their tee on a router in
+    front of two `jepsen checkerd` daemons (16d's, when `chaos` hands
+    them over).  Once every tenant has completed a window, kvdb's
+    monitor and daemon 0 are SIGKILLed, and the daemon is restarted 2 s
+    later in this thread (a restart that fails raises).  Gates: the
+    survivors' series keep every pre-kill point and grow, and their
+    window counters advance; kvdb is restarted and resumes its search
+    (windows advanced, coverage a superset); no daemon or router dead
+    unasked and the restarted daemon 0 answering STATS; each tenant
+    under its retention budget, a sweep counted; /api/fleet (off the
+    fleet root) lists the three with supervisor state and kvdb's
+    restart; the fleet's /metrics has the fleet.* families and daemon
+    1's the checkerd queue and overload ones; a surviving tenant that
+    daemon 1 shed has still advanced its windows (the smoke's shed
+    fairness); B1 launched in daemon 1 (STATS) and, on the card, in
+    each tenant's last monitor (its summary, after the drain)."""
+    import signal
+    import threading
+
+    from jepsen_tpu_torch import telemetry, web
+    from jepsen_tpu_torch.monitor.fleet import (FleetRegistry,
+                                                FleetSupervisor, TenantSpec,
+                                                tenant_argv,
+                                                tenant_store_dir)
+    from jepsen_tpu_torch.monitor.retention import disk_bytes
+    from jepsen_tpu_torch.nemesis import selfchaos as sc
+    from jepsen_tpu_torch.nemesis.selfchaos import spawn_child
+    from jepsen_tpu_torch.telemetry.timeseries import read_disk_series
+
+    t0 = time.perf_counter()
+    own = chaos is None
+    if own:
+        chaos = sc.ChaosFleet(2, os.path.join(tmp, "checkerd"),
+                              metrics=True, device=dev.type)
+        chaos.start()
+    root = os.path.join(tmp, "fleet")
+    here = os.path.dirname(os.path.abspath(__file__))
+
+    def spawn(spec, store, endpoint):
+        return spawn_child(tenant_argv(spec, store, endpoint, dev.type),
+                           dict(os.environ, PYTHONPATH=here),
+                           os.path.join(tmp, f"{spec.name}.log"))
+
+    def live(t):
+        return _read_json(os.path.join(tenant_store_dir(root, t),
+                                       "live-status.json"))
+
+    def search(t):
+        return _read_json(os.path.join(tenant_store_dir(root, t),
+                                       "search", "search.json"))
+
+    reg = FleetRegistry(root)
+    for name in FLEET_TENANTS:
+        reg.add(TenantSpec(
+            name=name, suite=name, duration_s=600.0,
+            live_faults=("kill", "pause"), endpoint=chaos.router_addr,
+            deadline_s=30.0, tee_window_ops=256, retain_dossiers=8,
+            retain_bytes=FLEET_RETAIN_BYTES))
+    from jepsen_tpu_torch.checkerd.client import fetch_stats
+
+    was = telemetry.enabled()
+    telemetry.enable(True)
+    launches0 = _daemon_launches(chaos.daemon_addr(1))
+    requests0 = fetch_stats(chaos.daemon_addr(1), timeout=10.0).get(
+        "requests", 0)
+    sup = FleetSupervisor(root, device=dev.type,
+                          endpoint=chaos.router_addr, tick_s=0.5,
+                          park_after=5, min_uptime_s=3.0,
+                          drain_timeout_s=20.0, retention_interval_s=10.0,
+                          spawn=spawn)
+    stop = threading.Event()
+    sup_thread = threading.Thread(target=sup.run, args=(stop,),
+                                  name="phase17c-fleet", daemon=True)
+    sup_thread.start()
+    httpd = web.make_server(root, "127.0.0.1", 0)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    victim, survivors = "kvdb", ("logd", "electd")
+    out: dict = {"reused_16d": not own}
+    try:
+        _until(lambda: all(live(t).get("windows", 0) >= 1
+                           for t in FLEET_TENANTS),
+               "phase17c: a window on every tenant")
+        out["windowed_s"] = time.perf_counter() - t0
+        pre = {t: {"windows": live(t).get("windows", 0),
+                   "coverage": live(t).get("coverage", 0),
+                   "series": len(read_disk_series(
+                       tenant_store_dir(root, t), LIVE_SERIES))}
+               for t in FLEET_TENANTS}
+        os.kill(sup.children[victim].proc.pid, signal.SIGKILL)
+        chaos.kill_daemon(0)
+        t_kill = time.time()
+        t_killed = time.perf_counter()
+        time.sleep(2.0)
+        chaos.restart_daemon(0)
+        out["daemon0_back_s"] = time.perf_counter() - t_killed
+        _until(lambda: (sup.children[victim].restarts >= 1
+                        and sup.children[victim].alive()),
+               "phase17c: kvdb restarted")
+        _until(lambda: (search(victim).get("windows", 0)
+                        > pre[victim]["windows"]
+                        and len(search(victim).get("coverage") or [])
+                        >= pre[victim]["coverage"]),
+               "phase17c: kvdb's search resumed")
+        out["resume_s"] = time.perf_counter() - t_killed
+        out["series"] = {}
+        for t in survivors:
+            _until(lambda t=t: live(t).get("windows", 0)
+                   > pre[t]["windows"], f"phase17c: {t}'s windows")
+            pts = read_disk_series(tenant_store_dir(root, t), LIVE_SERIES)
+            n_before = sum(1 for p in pts if p[0] <= t_kill)
+            n_after = len(pts) - n_before
+            if n_before < pre[t]["series"] or not n_after:
+                raise AssertionError(f"phase17c: {t}'s series: {n_before} "
+                                     f"of {pre[t]['series']} pre-kill "
+                                     f"points, {n_after} after")
+            out["series"][t] = [n_before, n_after]
+        dead = chaos.dead_children()
+        if dead or chaos.daemons[0] is None:
+            raise AssertionError(f"phase17c: children died unasked: {dead}")
+        out["daemon0_requests"] = fetch_stats(
+            chaos.daemon_addr(0), timeout=10.0).get("requests", 0)
+        if dev.type == "cuda":
+            # The card's memory by process as nvidia-smi reports it (its
+            # pids are the host's, which a sandbox may not show).
+            out["card_mib"] = _card_processes()
+        disk = {t: disk_bytes(tenant_store_dir(root, t))
+                for t in FLEET_TENANTS}
+        out["disk_bytes"] = disk
+        out["retention_sweeps"] = telemetry.counter_value(
+            "fleet.retention.sweeps")
+        if max(disk.values()) > FLEET_RETAIN_BYTES or \
+                out["retention_sweeps"] < 1:
+            raise AssertionError(f"phase17c: retention: {disk}, "
+                                 f"{out['retention_sweeps']} sweeps")
+        api = json.loads(_http(f"{base}/api/fleet")[1])
+        rows = api.get("tenants") or {}
+        out["api_states"] = {t: (r.get("supervisor") or {}).get("state")
+                             for t, r in rows.items()}
+        if sorted(rows) != sorted(FLEET_TENANTS) or not (
+                rows[victim].get("supervisor") or {}).get("restarts"):
+            raise AssertionError(f"phase17c: /api/fleet: {out['api_states']}")
+        metrics = _http(f"{base}/metrics")[1].decode()
+        dmetrics = _http(f"http://127.0.0.1:{chaos.metrics_ports[1]}"
+                         "/metrics")[1].decode()
+        missing = [f for f in ("jepsen_fleet_tenant_starts_total",
+                               "jepsen_fleet_retention_sweeps_total")
+                   if f not in metrics]
+        missing += [f for f in ("jepsen_checkerd_queue_depth",
+                                "jepsen_checkerd_overload_brownout_level")
+                    if f not in dmetrics]
+        if missing:
+            raise AssertionError(f"phase17c: /metrics lacks {missing}")
+        tenant_lines = [ln for ln in dmetrics.splitlines()
+                        if "tenant=" in ln]
+        shed = sorted({t for t in FLEET_TENANTS for ln in tenant_lines
+                       if "shed" in ln and f'tenant="{t}"' in ln
+                       and not ln.rstrip().endswith(" 0.0")})
+        stalled = [t for t in shed if t in survivors
+                   and live(t).get("windows", 0) <= pre[t]["windows"]]
+        if stalled:
+            raise AssertionError(f"phase17c: {stalled} shed, then stalled")
+        out["daemon_tenant_lines"] = len(tenant_lines)
+        out["shed_tenants"] = shed
+        out["daemon1_sweeps"] = _daemon_launches(
+            chaos.daemon_addr(1)) - launches0
+        out["daemon1_requests"] = fetch_stats(
+            chaos.daemon_addr(1), timeout=10.0).get("requests", 0) - requests0
+        need_launches("phase17c daemon 1", dev,
+                      {"witness_sweep": out["daemon1_sweeps"]})
+    finally:
+        stop.set()
+        sup_thread.join(timeout=120)
+        httpd.shutdown()
+        httpd.server_close()
+        telemetry.enable(was)
+        if own:
+            chaos.stop()
+    if sup_thread.is_alive():
+        raise AssertionError("phase17c: the supervisor did not drain")
+    out["tenants"] = {}
+    for t in FLEET_TENANTS:
+        s = _read_json(os.path.join(tenant_store_dir(root, t),
+                                    "monitor-summary.json"))
+        out["tenants"][t] = {
+            "ops": s.get("ops"), "ok_keys": s.get("ok_keys"),
+            "unknown_keys": s.get("unknown_keys"),
+            "windows": (live(t) or {}).get("windows"),
+            "restarts": sup.children[t].restarts,
+            "last_exit": sup.children[t].last_exit,
+            "sweeps": _witness_sweeps(s.get("launches"))}
+        need_launches(f"phase17c tenant {t}", dev,
+                      {"witness_sweep": out["tenants"][t]["sweeps"]})
+    out["wall_s"] = time.perf_counter() - t0
+    log("phase17c: " + json.dumps(out))
+    return out
+
+
+def standing_serve(torch, dev, tmp: str, stored: dict) -> dict:
+    """(17d) `jepsen serve` through the port's CLI (kvdb's) on phase
+    11's store: `/` (with 11a's run valid in its row), 11a's run page,
+    its history.txt, its zip and 11e's telemetry page (11e ran with
+    telemetry on) each answer 200."""
+    import io
+    import urllib.parse
+    import zipfile
+
+    from jepsen_tpu_torch.nemesis.selfchaos import _free_port
+
+    root = stored["root"]
+    rel_a = urllib.parse.quote(os.path.relpath(stored["a"], root))
+    rel_e = urllib.parse.quote(os.path.relpath(stored["e"], root))
+    port = _free_port()
+    t0 = time.perf_counter()
+    child = _Child("serve", ["serve", "--store-dir", root, "--host",
+                             "127.0.0.1", "--port", str(port)], port, tmp)
+    base = f"http://{child.addr}"
+    try:
+        child.spawn().ready()
+        up_s = time.perf_counter() - t0
+        got = {what: _http(base + path) for what, path in (
+            ("index", "/"), ("run", f"/files/{rel_a}/"),
+            ("file", f"/files/{rel_a}/history.txt"),
+            ("zip", f"/zip/{rel_a}"), ("telemetry", f"/telemetry/{rel_e}"))}
+    finally:
+        child.stop()
+    codes = {k: c for k, (c, _) in got.items()}
+    stamp = os.path.basename(stored["a"])
+    index = got["index"][1].decode()
+    row = next((r for r in index.split("<tr>") if stamp in r), "")
+    names = zipfile.ZipFile(io.BytesIO(got["zip"][1])).namelist() \
+        if codes["zip"] == 200 else []
+    out = {"codes": codes, "up_s": up_s, "a_valid": stored["a_valid"],
+           "row_valid": "valid-true" in row, "zip_members": len(names),
+           "history_bytes": len(got["file"][1])}
+    log("phase17d: " + json.dumps(out))
+    if (set(codes.values()) != {200} or stored["a_valid"] is not True
+            or "valid-true" not in row or "history.txt" not in names
+            or b"invoke" not in got["file"][1]
+            or b"history.txt" not in got["run"][1]):
+        raise AssertionError(f"phase17d: {out}")
+    return out
+
+
+def phase_standing(torch, stored: dict, dev=None, chaos=None) -> dict:
+    """Phase 17: standing verification on `dev` (the card by default):
+    (17a) `standing_monitor` in this process, then (17b)
+    `standing_live`, (17c) `standing_fleet` (on 16d's router and
+    daemons when `chaos` is given) and (17d) `standing_serve` (on phase
+    11's `stored` runs) together, each in a thread of its own, since
+    their children wait mostly on their paced clients and fault
+    windows.  Each raises on a failed gate; no server started from the
+    phase's directory outlives it."""
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    dev = torch.device("cuda") if dev is None else torch.device(dev)
+    out: dict = {"card": _smi(dev)}
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="phase17-")
+    try:
+        for part in "abcd":
+            os.makedirs(os.path.join(tmp, part))
+        out["a"] = standing_monitor(torch, dev, os.path.join(tmp, "a"))
+        out["a"]["phase_s"] = time.perf_counter() - t_phase
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(3) as pool:
+            futs = {"b": pool.submit(standing_live, torch, dev,
+                                     os.path.join(tmp, "b")),
+                    "c": pool.submit(standing_fleet, torch, dev,
+                                     os.path.join(tmp, "c"), chaos),
+                    "d": pool.submit(standing_serve, torch, dev,
+                                     os.path.join(tmp, "d"), stored)}
+            for part, fut in futs.items():
+                try:
+                    out[part] = fut.result()
+                except BaseException:
+                    _log_tails(os.path.join(tmp, part))
+                    raise
+        out["bcd_s"] = time.perf_counter() - t0
+    finally:
+        left = _close_dir(tmp)
+    if left:
+        raise AssertionError(f"phase17: processes left running: {left}")
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"phase17: done in {out['wall_s']:.3f} s")
     return out
 
 
@@ -6045,7 +6752,14 @@ def main() -> int:
     stage("9")
     daemon_r = phase_daemon(torch)
     stage("10")
-    run_r = phase_run(torch)
+    import atexit
+    import shutil
+    import tempfile
+
+    # Phase 11's stores stay for phase 17d's `jepsen serve`.
+    run_root = tempfile.mkdtemp(prefix="phase11-")
+    atexit.register(shutil.rmtree, run_root, True)
+    run_r = phase_run(torch, root=run_root)
     stage("11")
     entry["launches_online"] = {
         "carry": online_r["carry"]["sweep_launches"],
@@ -6139,14 +6853,33 @@ def main() -> int:
     search_r = phase_search(torch)
     entry["launches_search"] = search_r["a"]["sweeps"]
     stage("15")
-    remote_r = phase_remote(torch)
-    entry["launches_remote"] = {
-        "ssh": remote_r["a"]["sweeps"],
-        "failover_survivor": remote_r["c"]["failover"]["survivor_sweeps"],
-        "journal_restart": remote_r["c"]["restart"]["sweeps"],
-        "stream": remote_r["c"]["stream"]["sweeps"],
-        "chaos": remote_r["d"]["sweeps_by_daemon"]}
-    stage("16")
+    from jepsen_tpu_torch.nemesis.selfchaos import ChaosFleet
+
+    # 16d's router and daemons, kept up for phase 17c.
+    chaos_dir = tempfile.mkdtemp(prefix="chaos-")
+    chaos = ChaosFleet(2, chaos_dir, metrics=True, device="cuda")
+    try:
+        remote_r = phase_remote(torch, fleet=chaos)
+        entry["launches_remote"] = {
+            "ssh": remote_r["a"]["sweeps"],
+            "failover_survivor": remote_r["c"]["failover"]["survivor_sweeps"],
+            "journal_restart": remote_r["c"]["restart"]["sweeps"],
+            "stream": remote_r["c"]["stream"]["sweeps"],
+            "chaos": remote_r["d"]["sweeps_by_daemon"]}
+        stage("16")
+        standing_r = phase_standing(torch, run_r["stored"], chaos=chaos)
+    finally:
+        chaos.stop()
+        left = _close_dir(chaos_dir)
+    if left:
+        raise AssertionError(f"phases 16-17: processes left running: {left}")
+    entry["launches_standing"] = {
+        "monitor": standing_r["a"]["sweeps"],
+        "live_resumed": standing_r["b"]["sweeps"],
+        "tenants": {t: r["sweeps"]
+                    for t, r in standing_r["c"]["tenants"].items()},
+        "surviving_daemon": standing_r["c"]["daemon1_sweeps"]}
+    stage("17")
 
     log(f"phase4 done; main path {main_r['ops_per_s']:.1f} ops/s, "
         f"invalid path {bad_r['wall_s']:.3f} s; many-key mixed "
@@ -6173,8 +6906,12 @@ def main() -> int:
         f"{workloads_r['d']['route']}); suites phase 14 "
         f"{suites_r['wall_s']:.3f} s; search phase 15 "
         f"{search_r['wall_s']:.3f} s; remote phase 16 "
-        f"{remote_r['wall_s']:.3f} s")
+        f"{remote_r['wall_s']:.3f} s; standing phase 17 "
+        f"{standing_r['wall_s']:.3f} s (17a "
+        f"{standing_r['a']['rate_measured']:.1f} ops/s, verdict lag p95 "
+        f"{standing_r['a']['verdict_lag_s']['p95']})")
     print(json.dumps({"stages_s": stage.seconds}))
+    print(json.dumps({"standing": standing_r}))
     print(json.dumps({"federation": remote_r}))
     print(json.dumps({"search": search_r}))
     print(json.dumps({"suites": suites_r}))

@@ -18,9 +18,15 @@ never 2 or 0.  `search` keeps the suite's `--device` in every
 iteration's test map, so each iteration is checked on the card; a
 device fault ends the search with 254.  `checkerd` runs the checker
 daemon on `--device` (cuda by default; no card exits 254) and
-`checkerd-router` the federation router in front of daemons.  `serve`,
-`monitor`, `fleet` and `lint` are not ported: `run` answers each with
-the usage exit and the ROADMAP item that brings it
+`checkerd-router` the federation router in front of daemons.  `serve`
+browses a store over HTTP (web.py; host code, no device).  `monitor`
+runs the standing loop (monitor/) with its rolling checker on
+`--device`, and `fleet run` supervises tenant monitors, each given the
+supervisor's resolved `--device`; both exit 254 without the card they
+ask for, before the first op or child.  `monitor` exits 0 when every
+key is proven, 2 when an epoch ended unknown, 254 on a device fault
+(its summary written first).  `lint` is not ported: `run` answers it
+with the usage exit and the ROADMAP item that brings it
 (`NOT_PORTED_COMMANDS`).
 
 Usage from a test suite:
@@ -197,9 +203,6 @@ def localize_test(t: dict) -> dict:
 #: The reference's subcommands the port does not have yet, by the
 #: ROADMAP.md Queue A item that brings them.
 NOT_PORTED_COMMANDS = {
-    "serve": 7,
-    "monitor": 7,
-    "fleet": 7,
     "lint": 8,
 }
 
@@ -211,7 +214,8 @@ def single_test_cmd(
     extra_opts: Optional[Callable[[argparse.ArgumentParser], None]] = None,
     tests_fn: Optional[Callable[[dict], Sequence[dict]]] = None,
 ) -> argparse.ArgumentParser:
-    """Builds the parser with `test`, `analyze`, `repair` and `search`
+    """Builds the parser with `test`, `analyze`, `repair`, `search`,
+    `serve`, `checkerd`, `checkerd-router`, `monitor` and `fleet`
     subcommands (cli.clj:355-441).  `test_fn` maps the CLI option map to a test
     map.  When `tests_fn` (option map -> sequence of test maps) is
     given, a `test-all` subcommand runs the whole suite
@@ -294,6 +298,12 @@ def single_test_cmd(
     )
     se.set_defaults(_run=lambda opts: _run_search(test_fn, opts))
 
+    s = sub.add_parser("serve", help="browse stored tests over HTTP")
+    s.add_argument("--port", "-p", type=int, default=8080)
+    s.add_argument("--host", "-b", default="0.0.0.0")
+    s.add_argument("--store-dir", default="store")
+    s.set_defaults(_run=_run_serve)
+
     from .checkerd import DEFAULT_PORT as _CHECKERD_PORT
 
     cd = sub.add_parser(
@@ -363,6 +373,189 @@ def single_test_cmd(
         "answering polls for every journaled ticket",
     )
     rt.set_defaults(_run=_run_checkerd_router)
+
+    mo = sub.add_parser(
+        "monitor",
+        help="standing continuous verification: paced workload, "
+        "rolling-window online checking, durable time-series history, "
+        "SLO alert routing",
+    )
+    mo.add_argument("--store-dir", default="store/monitor",
+                    help="durable state root (series files, slo.jsonl, "
+                    "forensics, postmortems)")
+    mo.add_argument("--rate", type=float, default=1000.0, metavar="OPS",
+                    help="target completed ops per second (default 1000)")
+    mo.add_argument("--duration", type=float, default=0.0, metavar="S",
+                    help="seconds to run; 0 = until interrupted")
+    mo.add_argument("--keys", type=int, default=8,
+                    help="independent register keys (default 8)")
+    mo.add_argument("--procs-per-key", type=int, default=4,
+                    help="concurrent worker processes per key (default 4)")
+    mo.add_argument("--cadence", type=float, default=5.0, metavar="S",
+                    help="sample/evaluate/alert cadence (default 5)")
+    mo.add_argument("--sink", action="append", default=[],
+                    metavar="SPEC",
+                    help="alert sink: file:/path, webhook:URL, or "
+                    "exec:/script (repeatable)")
+    mo.add_argument("--endpoint", default=None, metavar="ADDR",
+                    help="checkerd/router address to tee op windows to "
+                    "for independent post-hoc verdicts")
+    mo.add_argument("--tenant", default=None, metavar="NAME",
+                    help="tenant identity on the checkerd tee (DRR "
+                    "fair-queue + shed accounting) and per-tenant "
+                    "SLO rules")
+    mo.add_argument("--tee-deadline", type=float, default=120.0,
+                    metavar="S",
+                    help="per-window verdict deadline on the tee; "
+                    "sheds back off and retry within it (default 120)")
+    mo.add_argument("--tee-window", type=int, default=4096,
+                    metavar="OPS",
+                    help="op events per teed window (default 4096)")
+    mo.add_argument("--serve-port", type=int, default=None, metavar="P",
+                    help="embed the web dashboard (/monitor) on this port")
+    mo.add_argument("--no-discard", action="store_true",
+                    help="retain full history (parity/debug mode; "
+                    "memory grows)")
+    mo.add_argument("--advance-rows", type=int, default=1024,
+                    help="rows between frontier advances (default 1024)")
+    mo.add_argument("--bars-per-block", type=int, default=64,
+                    help="barriers per frontier block (default 64)")
+    mo.add_argument("--inject-slo", type=float, default=0.0, metavar="S",
+                    help="fire a synthetic SLO for the first S seconds "
+                    "then clear it (smoke/drill)")
+    mo.add_argument("--max-ops", type=int, default=None,
+                    help="stop after this many completed ops")
+    mo.add_argument("--seed", type=int, default=45100)
+    mo.add_argument("--info-rate", type=float, default=0.0,
+                    help="fraction of ops completing indeterminate")
+    mo.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                    help="where the rolling checker runs (default cuda; "
+                    "the monitor exits 254 before its first op when "
+                    "there is no card)")
+    mo.add_argument("--suite", default=None,
+                    choices=["kvdb", "logd", "electd", "txnd", "repkv"],
+                    help="live-target mode: drive this suite's real "
+                    "daemons with a client pool instead of the "
+                    "in-process workload")
+    mo.add_argument("--node", action="append", default=[],
+                    metavar="NAME", dest="nodes",
+                    help="cluster node for --suite (repeatable; "
+                    "default: the suite's own node list)")
+    mo.add_argument("--live-faults", default=None, metavar="FAMS",
+                    help="comma-separated fault families for the live "
+                    "nemesis driver (e.g. kill,pause,partition; "
+                    "'none' disables; default: suite-safe set)")
+    mo.add_argument("--search-dir", default=None, metavar="DIR",
+                    help="coverage-search checkpoint dir (search.json; "
+                    "default <store-dir>/live/search)")
+    mo.add_argument("--window-gap", type=float, default=0.75,
+                    metavar="S",
+                    help="quiet seconds between fault windows "
+                    "(default 0.75)")
+    mo.add_argument("--no-supervise", action="store_true",
+                    help="don't restart daemons that die outside a "
+                    "fault window")
+    mo.set_defaults(_run=_run_monitor)
+
+    fl = sub.add_parser(
+        "fleet",
+        help="supervised multi-tenant standing-verification fleet: "
+        "N tenants' live monitors against one checkerd federation, "
+        "with crash-safe registry, per-tenant isolation, quotas, "
+        "SLOs, and disk retention",
+    )
+    flsub = fl.add_subparsers(dest="fleet_cmd", required=True)
+
+    def _fleet_common(p: argparse.ArgumentParser) -> None:
+        p.add_argument("--dir", default="store/fleet", dest="fleet_dir",
+                       help="fleet root (fleet.json registry, "
+                       "fleet-status.json, tenants/<name>/store)")
+
+    fr = flsub.add_parser("run", help="run the supervisor")
+    _fleet_common(fr)
+    fr.add_argument("--endpoint", default=None, metavar="ADDR",
+                    help="fleet-wide checkerd/router tee address "
+                    "(per-tenant --endpoint overrides)")
+    fr.add_argument("--tick", type=float, default=1.0, metavar="S",
+                    help="reconcile cadence (default 1)")
+    fr.add_argument("--park-after", type=int, default=3, metavar="K",
+                    help="crash-loops before a tenant is parked "
+                    "(default 3)")
+    fr.add_argument("--min-uptime", type=float, default=5.0,
+                    metavar="S",
+                    help="a child dying sooner counts as a crash-loop "
+                    "(default 5)")
+    fr.add_argument("--drain-timeout", type=float, default=20.0,
+                    metavar="S",
+                    help="SIGTERM drain grace before SIGKILL "
+                    "(default 20)")
+    fr.add_argument("--retention-interval", type=float, default=30.0,
+                    metavar="S",
+                    help="seconds between retention sweeps "
+                    "(default 30)")
+    fr.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                    help="the tenants' device, resolved here and passed "
+                    "to each monitor child (default cuda; exits 254 "
+                    "before any child when there is no card)")
+    fr.set_defaults(_run=_run_fleet)
+
+    fa = flsub.add_parser("add", help="register a tenant")
+    _fleet_common(fa)
+    fa.add_argument("--tenant", required=True, metavar="NAME")
+    fa.add_argument("--suite", default="kvdb",
+                    choices=["kvdb", "logd", "electd", "txnd", "repkv"])
+    fa.add_argument("--node", action="append", default=[],
+                    metavar="NAME", dest="nodes",
+                    help="cluster node owned by this tenant "
+                    "(repeatable; must not overlap another tenant's)")
+    fa.add_argument("--rate", type=float, default=50.0)
+    fa.add_argument("--duration", type=float, default=3600.0,
+                    metavar="S",
+                    help="epoch length; clean exits restart (default "
+                    "3600)")
+    fa.add_argument("--keys", type=int, default=2)
+    fa.add_argument("--procs-per-key", type=int, default=2)
+    fa.add_argument("--cadence", type=float, default=1.0, metavar="S")
+    fa.add_argument("--live-faults", default=None, metavar="FAMS")
+    fa.add_argument("--sink", action="append", default=[],
+                    metavar="SPEC")
+    fa.add_argument("--endpoint", default=None, metavar="ADDR",
+                    help="tenant-specific tee address")
+    fa.add_argument("--weight", type=float, default=1.0,
+                    help="DRR fair-queue weight (daemon-side "
+                    "--tenant-weight should match)")
+    fa.add_argument("--deadline", type=float, default=120.0,
+                    metavar="S", help="tee verdict deadline")
+    fa.add_argument("--tee-window", type=int, default=4096,
+                    metavar="OPS",
+                    help="op events per teed window (default 4096)")
+    fa.add_argument("--retain-dossiers", type=int, default=64,
+                    metavar="N",
+                    help="max dossiers kept per sweep (default 64)")
+    fa.add_argument("--retain-days", type=float, default=14.0,
+                    metavar="D",
+                    help="age ceiling for dossiers and rotated series "
+                    "(default 14)")
+    fa.add_argument("--retain-bytes", type=int, default=None,
+                    metavar="B",
+                    help="total dossier+series disk budget")
+    fa.set_defaults(_run=_run_fleet)
+
+    for verb, h in (("remove", "unregister a tenant"),
+                    ("drain", "gracefully stop a tenant (stays "
+                     "registered)"),
+                    ("resume", "restart a drained or parked tenant"),
+                    ("restart", "rolling restart through the SIGTERM "
+                     "drain path")):
+        fv = flsub.add_parser(verb, help=h)
+        _fleet_common(fv)
+        fv.add_argument("--tenant", required=True, metavar="NAME")
+        fv.set_defaults(_run=_run_fleet)
+
+    fs = flsub.add_parser("status", help="print registry + supervisor "
+                          "status")
+    _fleet_common(fs)
+    fs.set_defaults(_run=_run_fleet)
 
     return parser
 
@@ -607,6 +800,156 @@ def _run_checkerd_router(opts) -> int:
         metrics_port=opts.metrics_port,
         queue_path=opts.queue,
     )
+    return EXIT_VALID
+
+
+def _run_serve(opts) -> int:
+    from .web import serve
+
+    serve(opts.store_dir, host=opts.host, port=opts.port)
+    return EXIT_VALID
+
+
+def _run_monitor(opts) -> int:
+    """`jepsen monitor`: blocks until --duration / --max-ops / SIGINT.
+    Exit 0 when every key's verdict stayed proven, 2 when any epoch
+    ended unknown (an alert fired for it — unknown is a page, not a
+    pass); a device fault raises out of `run_monitor` (254), after the
+    summary is written."""
+    import threading
+
+    from .monitor import MonitorConfig, run_monitor
+
+    cfg = MonitorConfig(
+        store_dir=opts.store_dir,
+        device=opts.device,
+        rate=opts.rate,
+        duration_s=opts.duration,
+        keys=opts.keys,
+        procs_per_key=opts.procs_per_key,
+        cadence_s=opts.cadence,
+        seed=opts.seed,
+        info_rate=opts.info_rate,
+        max_ops=opts.max_ops,
+        bars_per_block=opts.bars_per_block,
+        advance_rows=opts.advance_rows,
+        discard=not opts.no_discard,
+        sinks=tuple(opts.sink),
+        inject_slo_s=opts.inject_slo,
+        endpoint=opts.endpoint,
+        tenant=opts.tenant,
+        tee_deadline_s=opts.tee_deadline,
+        tee_window_ops=opts.tee_window,
+        serve_port=opts.serve_port,
+        suite=opts.suite,
+        nodes=tuple(opts.nodes),
+        live_faults=tuple(
+            f.strip() for f in (opts.live_faults or "").split(",")
+            if f.strip()
+        ),
+        search_dir=opts.search_dir,
+        window_gap_s=opts.window_gap,
+        supervise=not opts.no_supervise,
+    )
+    stop = threading.Event()
+    try:
+        summary = run_monitor(cfg, stop)
+    except KeyboardInterrupt:
+        # run_monitor's finally already flushed + wrote the summary.
+        print("monitor interrupted; state flushed")
+        return EXIT_VALID
+    print(
+        f"==> monitor: {summary['ops']} ops over "
+        f"{summary['duration_s']}s "
+        f"({summary['rate_measured']} ops/s), "
+        f"{summary['ok_keys']} keys proven, "
+        f"{summary['unknown_keys']} unknown; "
+        f"series in {opts.store_dir}"
+    )
+    return EXIT_VALID if summary["unknown_keys"] == 0 else EXIT_UNKNOWN
+
+
+def _run_fleet(opts: argparse.Namespace) -> int:
+    """`jepsen fleet <verb>` — registry mutations are tiny CLI calls
+    (safe against a running supervisor via the registry lock); `run`
+    is the supervisor itself."""
+    import signal
+    import threading
+
+    from .monitor.fleet import (FleetRegistry, FleetSupervisor,
+                                TenantSpec, read_status)
+
+    root = os.path.abspath(opts.fleet_dir)
+    cmd = opts.fleet_cmd
+    if cmd == "run":
+        sup = FleetSupervisor(
+            root, device=opts.device, endpoint=opts.endpoint,
+            tick_s=opts.tick,
+            park_after=opts.park_after, min_uptime_s=opts.min_uptime,
+            drain_timeout_s=opts.drain_timeout,
+            retention_interval_s=opts.retention_interval,
+        )
+        stop = threading.Event()
+        for sig in (signal.SIGINT, signal.SIGTERM):
+            signal.signal(sig, lambda *_: stop.set())
+        print(f"==> fleet supervisor on {root} "
+              f"(endpoint {opts.endpoint or 'in-process'})")
+        return sup.run(stop)
+
+    reg = FleetRegistry(root)
+    if cmd == "add":
+        spec = TenantSpec(
+            name=opts.tenant, suite=opts.suite,
+            nodes=tuple(opts.nodes), rate=opts.rate,
+            duration_s=opts.duration, keys=opts.keys,
+            procs_per_key=opts.procs_per_key, cadence_s=opts.cadence,
+            live_faults=tuple(
+                f.strip() for f in (opts.live_faults or "").split(",")
+                if f.strip()),
+            sinks=tuple(opts.sink), endpoint=opts.endpoint,
+            weight=opts.weight, deadline_s=opts.deadline,
+            tee_window_ops=opts.tee_window,
+            retain_dossiers=opts.retain_dossiers,
+            retain_days=opts.retain_days,
+            retain_bytes=opts.retain_bytes,
+        )
+        try:
+            reg.add(spec)
+        except ValueError as e:
+            print(f"fleet add: {e}")
+            return EXIT_USAGE
+        print(f"==> tenant {opts.tenant} registered "
+              f"(suite {opts.suite}, weight {opts.weight})")
+        return EXIT_VALID
+    if cmd == "remove":
+        reg.remove(opts.tenant)
+        print(f"==> tenant {opts.tenant} removed")
+        return EXIT_VALID
+    if cmd in ("drain", "resume", "restart"):
+        try:
+            if cmd == "drain":
+                reg.set_state(opts.tenant, "drained")
+            elif cmd == "resume":
+                reg.set_state(opts.tenant, "running")
+            else:
+                reg.bump_generation(opts.tenant)
+        except ValueError as e:
+            print(f"fleet {cmd}: {e}")
+            return EXIT_USAGE
+        print(f"==> tenant {opts.tenant} {cmd} requested")
+        return EXIT_VALID
+    # status
+    tenants = reg.load()
+    st = read_status(root)
+    live = st.get("tenants") or {}
+    print(f"fleet {root}: {len(tenants)} tenant(s)")
+    for name, spec in sorted(tenants.items()):
+        row = live.get(name) or {}
+        print(f"  {name:16s} {spec.state:8s} suite={spec.suite} "
+              f"gen={spec.generation} alive={row.get('alive')} "
+              f"restarts={row.get('restarts', 0)} "
+              f"crash-loops={row.get('crash-loops', 0)} "
+              f"disk={row.get('disk-bytes', 0)}")
     return EXIT_VALID
 
 

@@ -141,6 +141,29 @@ def _ssh_probe(test: dict, node: Any) -> bool:
             pass
 
 
+def tcp_probe(port_of: Callable[[dict, Any], int],
+              host: str = "127.0.0.1") -> Callable[[dict, Any], bool]:
+    """A ``test["health-probe"]`` that dials the node's daemon port
+    instead of running SSH ``true`` — for the standing monitor, where
+    "healthy" means "the monitored daemon accepts connections", not
+    "the host answers".  `port_of(test, node)` resolves the port (the
+    suites' `node_port` signature)."""
+    import socket
+
+    def probe(test: dict, node: Any) -> bool:
+        try:
+            port = int(port_of(test, node))
+        except Exception:  # noqa: BLE001 — unresolvable port = down
+            return False
+        try:
+            with socket.create_connection((host, port), timeout=1.0):
+                return True
+        except OSError:
+            return False
+
+    return probe
+
+
 class _NodeState:
     __slots__ = (
         "state", "signals", "consec_fail", "consec_pass",

@@ -47,8 +47,6 @@ a kernel that did not build or launch, a CUDA error, CUDA asked for and
 missing), as the port's `core.analyze` does; only other errors are
 logged.  The shrink oracle is the exact host engine, so forensics takes
 no device: the verdict it documents came from the checkers' device.
-`window_fingerprint`, the live monitor's label, comes with the monitor
-(ROADMAP.md Queue A item 7).
 """
 
 from __future__ import annotations
@@ -325,6 +323,15 @@ def anomaly_signature(key: Any, result: dict,
         "crashed": crashed_desc,
         "screens": screens,
     }, sort_keys=True)
+    return hashlib.sha256(payload.encode()).hexdigest()[:12]
+
+
+def window_fingerprint(sig: Any) -> str:
+    """A short stable hash of a live fault window's coverage signature
+    (nemesis.search.signature's feature frozenset): the label the
+    monitor's fault-timeline panel and window dossiers carry, so two
+    windows with the same observable outcome share one name."""
+    payload = json.dumps(sorted(str(f) for f in sig or ()))
     return hashlib.sha256(payload.encode()).hexdigest()[:12]
 
 

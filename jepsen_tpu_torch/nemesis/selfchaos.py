@@ -391,7 +391,45 @@ class FlakyProxy:
 # ---------------------------------------------------------------------------
 
 
+#: The lowest port `_free_port` hands out.
+MIN_PORT = 10_000
+
+_ports_lock = threading.Lock()
+_ports_given: set[int] = set()
+
+
+def _ephemeral_low() -> int:
+    """The first port of the kernel's ephemeral range (Linux's default
+    where the host does not say)."""
+    try:
+        with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
+            return int(f.read().split()[0])
+    except (OSError, ValueError, IndexError):
+        return 32768
+
+
 def _free_port() -> int:
+    """A port nothing is bound to, below the kernel's ephemeral range.
+    A port from bind(0) lies inside that range, so while its child is
+    down (a killed daemon) the kernel may give it to any outgoing
+    connection on the host as its local port, and the restarted child's
+    bind then fails with EADDRINUSE for as long as that socket or its
+    TIME_WAIT lives.  Below the range the kernel never picks it.  A port
+    is handed out once per process."""
+    low = _ephemeral_low()
+    rng = random.SystemRandom()
+    for _ in range(256 if low > MIN_PORT + 1024 else 0):
+        port = rng.randrange(MIN_PORT, low)
+        with _ports_lock:
+            if port in _ports_given:
+                continue
+            with socket.socket() as s:
+                try:
+                    s.bind(("127.0.0.1", port))
+                except OSError:
+                    continue
+            _ports_given.add(port)
+            return port
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         return s.getsockname()[1]

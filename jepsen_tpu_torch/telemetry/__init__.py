@@ -34,9 +34,6 @@ daemon's pid.  `export` evaluates the SLO rules (telemetry/slo.py)
 before it writes, and `prometheus_text` renders the registry, the
 time-series quantiles (telemetry/timeseries.py) and the SLO firing
 gauges in Prometheus text format for the daemon's `/metrics`.
-
-Left out of the copy: `scoped_reset` and the fleet counter prefixes
-(the run scopes of the reference's CLI and monitor loop, not ported).
 """
 
 from __future__ import annotations

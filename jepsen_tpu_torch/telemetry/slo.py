@@ -2,10 +2,9 @@
 
 The port's copy of `jepsen_tpu/telemetry/slo.py` (the rules, the
 engine, the `slo.jsonl` journal, whose records either package reads,
-and the firing gauges), without the rule sets of the reference's live
-and per-tenant monitors, which are not ported.  A small set of
-declarative threshold/burn-rate rules evaluated against the live
-registry (gauge
+and the firing gauges, with every rule set the reference's monitors
+add).  A small set of declarative threshold/burn-rate rules evaluated
+against the live registry (gauge
 last-values, counter deltas, surface-local extras like checkerd queue
 depth, and the chip-health state) on every telemetry flush and on every
 /metrics scrape.
@@ -131,6 +130,40 @@ MONITOR_RULES: tuple[Rule, ...] = (
     Rule("checkerd-shed-rate", "counter-rate-above",
          "checkerd.overload.shed", 1.0, for_count=3),
 )
+
+#: Rules the live (suite-backed) monitor adds when a real cluster is
+#: under watch.  Daemon restarts outside fault windows at a sustained
+#: rate mean the target is crash-looping on its own; client
+#: reconnect-storms mean the op stream is mostly backoff; a fault
+#: window left outstanding for consecutive cadences means a heal
+#: failed and residue is accumulating on a live machine.
+LIVE_MONITOR_RULES: tuple[Rule, ...] = (
+    Rule("live-daemon-restart-rate", "counter-rate-above",
+         "monitor.live.daemon-restarts", 0.2, for_count=2),
+    Rule("live-reconnect-rate", "counter-rate-above",
+         "monitor.live.client-reconnects", 5.0, for_count=3),
+    Rule("live-unhealed-window", "gauge-above",
+         "monitor.live.outstanding", 0.5, for_count=3),
+)
+
+#: Per-tenant rules a fleet member (`jepsen monitor --tenant`) adds:
+#: each tenant's monitor evaluates these against its *own* counters
+#: into its *own* slo.jsonl, so one tenant's shed storm or epoch
+#: churn alerts that tenant's sinks without paging the fleet.  A
+#: sustained shed-backoff rate means the tenant's DRR share can't
+#: cover its offered load (weight or deadline needs attention); a
+#: deadline-unmet means verification work was actually dropped;
+#: epoch restarts at a sustained rate mean the rolling checker keeps
+#: losing its prefix-discard invariant.
+TENANT_RULES: tuple[Rule, ...] = (
+    Rule("tenant-shed-backoff-rate", "counter-rate-above",
+         "monitor.shed.backoffs", 2.0, for_count=3),
+    Rule("tenant-shed-deadline-unmet", "counter-above",
+         "monitor.shed.deadline-unmet", 0.0),
+    Rule("tenant-epoch-restart-rate", "counter-rate-above",
+         "monitor.epoch-restarts", 0.1, for_count=3),
+)
+
 
 class SLOEngine:
     """Evaluates a rule set against registry snapshots and journals

@@ -3,7 +3,9 @@
 The port's copy of `jepsen_tpu/telemetry/timeseries.py`.  Its files are
 the reference's block framing (store/format.py `BLOCK_SERIES`), byte
 for byte, so a series directory written by either package reads in the
-other.
+other.  What differs: `SeriesTail` reads unbuffered, so a tail opened
+on a torn file before a restarted writer truncates it follows the new
+blocks (the reference's buffered reader re-reads the torn bytes).
 
 The scrape surface (``prometheus_text``) is a point in
 time; a standing monitor run needs *history* — what was the
@@ -250,8 +252,11 @@ class SeriesTail:
             self.poll()
 
     def _open(self) -> bool:
+        # Unbuffered: a restarted writer truncates a torn tail and
+        # writes new blocks over it, and a buffered reader seeking back
+        # to the tear would keep reading the garbage from its buffer.
         try:
-            f = open(self.path, "rb")
+            f = open(self.path, "rb", buffering=0)
         except OSError:
             return False
         if f.read(len(MAGIC)) != MAGIC:

@@ -258,7 +258,10 @@ def test_import_guard_no_jax_no_reference_package():
             "report", "control.minissh", "control.minissh.transport",
             "control.minissh.scp", "control.minissh.client",
             "control.minissh.server", "control.netns", "streaming.remote",
-            "checkerd.router", "nemesis.selfchaos")}
+            "checkerd.router", "nemesis.selfchaos", "monitor",
+            "monitor.rolling", "monitor.alerts", "monitor.retention",
+            "monitor.loop", "monitor.live", "monitor.fleet", "web",
+            "repl")}
         assert want <= names, sorted(want - names)
         # The ssh and scp shims, loaded as modules (not run).
         import os, runpy

@@ -84,6 +84,23 @@ def test_fleet_children_get_the_resolved_device(tmp_path):
         fleet.stop()
 
 
+def test_free_ports_lie_below_the_ephemeral_range():
+    """A fleet's ports lie below the kernel's ephemeral range, so no
+    outgoing connection can be given a killed daemon's port before its
+    restart binds it again; none is handed out twice, and each is free."""
+    import socket
+
+    low = sc._ephemeral_low()
+    ports = [sc._free_port() for _ in range(64)]
+    assert len(set(ports)) == len(ports)
+    if low > sc.MIN_PORT + 1024:
+        assert all(sc.MIN_PORT <= p < low for p in ports)
+    for p in ports[:8]:
+        with socket.socket() as s:
+            s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+            s.bind(("127.0.0.1", p))
+
+
 def test_child_that_cannot_start_fails_fast(tmp_path):
     """A daemon child that exits before listening fails start_daemon at
     once with its log, instead of the listening timeout."""

@@ -134,13 +134,134 @@ def test_suite_needs_the_card_unless_asked_for_the_cpu(name, tmp_path,
     assert not store_dir.exists()
 
 
-@pytest.mark.parametrize("command", ["serve", "monitor", "fleet", "lint"])
+@pytest.mark.parametrize("command", ["lint"])
 def test_unported_subcommands_name_their_item(command, capsys):
     from jepsen_tpu_torch import cli
 
     assert pkvdb.main([command]) == cli.EXIT_USAGE
     item = cli.NOT_PORTED_COMMANDS[command]
     assert f"Queue A item {item}" in capsys.readouterr().err
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _wait(pred, proc, deadline_s: float, what: str):
+    import time
+
+    deadline = time.monotonic() + deadline_s
+    while True:
+        v = pred()
+        if v:
+            return v
+        assert proc is None or proc.poll() is None, f"{what}: exited"
+        assert time.monotonic() < deadline, f"timed out: {what}"
+        time.sleep(0.2)
+
+
+def _standing_serve(tmp_path):
+    """`logd serve` as a process: `/` and `/monitor` answer; SIGTERM
+    stops it."""
+    import subprocess
+    import sys
+    import urllib.request
+
+    port = _free_port()
+    (tmp_path / "store").mkdir()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "jepsen_tpu_torch.suites.logd", "serve",
+         "--store-dir", str(tmp_path / "store"), "--host", "127.0.0.1",
+         "--port", str(port)], cwd=ROOT, stdout=subprocess.DEVNULL,
+        stderr=subprocess.DEVNULL)
+
+    def get(path):
+        try:
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                        timeout=10) as r:
+                return r.status, r.read().decode()
+        except OSError:
+            return None
+
+    try:
+        code, body = _wait(lambda: get("/"), proc, 90, "serve listening")
+        assert code == 200 and "jepsen-tpu store" in body
+        code, body = get("/monitor")
+        assert code == 200 and "no series store found" in body
+    finally:
+        proc.terminate()
+        proc.wait(timeout=30)
+
+
+def _standing_monitor(tmp_path):
+    """`kvdb monitor --device cpu` with the dashboard embedded: exit 0,
+    every key proven, the summary and the series on disk."""
+    from jepsen_tpu_torch import cli
+    from jepsen_tpu_torch.telemetry import timeseries
+
+    d = tmp_path / "mon"
+    assert pkvdb.main(["monitor", "--device", "cpu", "--store-dir", str(d),
+                       "--duration", "1.5", "--rate", "2000", "--keys",
+                       "2", "--cadence", "0.3", "--advance-rows", "256",
+                       "--serve-port", "0"]) == cli.EXIT_VALID
+    summary = json.loads((d / "monitor-summary.json").read_text())
+    assert summary["ok_keys"] == 2 and summary["unknown_keys"] == 0
+    assert summary["device"] == "cpu"
+    assert timeseries.read_disk_series(str(d), "monitor.ops-per-s")
+
+
+def _standing_fleet(tmp_path):
+    """`kvdb fleet add` then `kvdb fleet run --device cpu` as a process:
+    the tenant's live kvdb monitor starts with `--device cpu`, completes
+    a fault window, and is drained into its summary on SIGTERM."""
+    import signal
+    import subprocess
+    import sys
+
+    from jepsen_tpu_torch import cli
+    from jepsen_tpu_torch.monitor import fleet
+
+    root = str(tmp_path / "fleet")
+    assert pkvdb.main(["fleet", "add", "--dir", root, "--tenant", "t1",
+                       "--rate", "40", "--cadence", "0.5"]) \
+        == cli.EXIT_VALID
+    store = pathlib.Path(fleet.tenant_store_dir(root, "t1"))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "jepsen_tpu_torch.suites.kvdb", "fleet",
+         "run", "--dir", root, "--device", "cpu", "--tick", "0.2",
+         "--drain-timeout", "60"], cwd=ROOT, stdout=subprocess.DEVNULL,
+        stderr=subprocess.DEVNULL)
+    try:
+        def windows():
+            try:
+                return json.loads((store / "live-status.json")
+                                  .read_text())["windows"] >= 1
+            except (OSError, ValueError, KeyError):
+                return False
+
+        _wait(windows, proc, 180, "a fault window")
+        status = fleet.read_status(root)
+        assert status["tenants"]["t1"]["alive"] is True
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=120) == 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+    summary = json.loads((store / "monitor-summary.json").read_text())
+    assert summary["device"] == "cpu" and summary["ops"] > 0
+    assert summary["live"]["residue"]["clean"] is True
+    assert fleet.read_status(root)["tenants"]["t1"]["alive"] is False
+
+
+@pytest.mark.parametrize("command", ["serve", "monitor", "fleet"])
+def test_standing_subcommands_through_the_suite_cli(command, tmp_path):
+    {"serve": _standing_serve, "monitor": _standing_monitor,
+     "fleet": _standing_fleet}[command](tmp_path)
 
 
 def test_search_needs_two_nodes_and_the_card(tmp_path, monkeypatch):
