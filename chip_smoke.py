@@ -6,9 +6,9 @@
 Needs one CUDA card and the CUDA toolkit (nvcc): the witness sweep
 kernel is built from jepsen_tpu_torch/csrc/ into build/jepsen_tpu_torch/
 at first use.  Exits non-zero, printing no result, when torch sees no
-CUDA device or the package is missing.  Eighteen phases, each raising
+CUDA device or the package is missing.  Nineteen phases, each raising
 on failure, run in the order 1, 2, 5, 6, 7, 8, 9, 10, 11, 1b, 12, 13, 14,
-3, 4, 15, 16, 17 (every CUDA-event timing before the profiler first
+18, 3, 4, 15, 16, 17 (every CUDA-event timing before the profiler first
 runs; phases 15-17, host-clock walls only, after it, since
 torch.profiler drops device operations from its windows in a process
 that has run a search).  The searches run with the packed member lanes at their default
@@ -302,8 +302,22 @@ it; phase 9 reads its own parts (JEPSEN_PLAN=0, memo, faults, records):
    launched in the surviving daemon and in each tenant; (17d) `kvdb
    serve` on phase 11's store: `/` (11a's row valid), 11a's run page,
    file and zip, and 11e's telemetry page answer 200.
+18. The witness's transfer modes and the port's jepsenlint.  (18a)
+   `check_wgl_witness(transfer=m)` for "full", "indices" and "device"
+   on phase 2's bench history: one warm run counted with telemetry on
+   (B1 launches, host syncs, `wgl.h2d-bytes`), then the median of 3
+   timed runs; valid in every mode with equal B1 launches.  Phase 4's
+   invalid history, at the default block shape and at 64 barriers x 2
+   blocks a chunk call, and a 20,000-op valid history at that shape:
+   equal verdicts and death ranks across the modes.  (18b) `python -m
+   jepsen_tpu_torch.analysis --json` as a subprocess: exit 0, clean
+   against jepsen_tpu_torch/lint_baseline.json, no stale entry, under
+   10 s by its own clock.
 
-The last lines are the stages line (`{"stages_s": ...}`), the phase-17
+The last lines are the stages line (`{"stages_s": ...}`), the phase-18
+JSON line (`{"transfer": ..., "lint": ...}`: per mode the seconds, H2D
+bytes, B1 launches and the gates' verdicts; the lint report's files,
+counts and seconds), the phase-17
 JSON line (`{"standing": ...}`: per sub-phase gates' readings, seconds
 and B1 launches), the phase-16 JSON line (`{"federation": ...}`: per
 sub-phase verdicts, seconds and the daemons' B1 launches), the phase-15
@@ -5636,8 +5650,12 @@ def federation(torch, dev, tmp: str) -> dict:
                                    for k in keys],
                                   algorithm=lin.algorithm,
                                   time_limit_s=lin.time_limit_s)
-        t_kill = time.perf_counter()
-        survivor.kill()
+            # Killed while the submitting connection is open: closing it
+            # first lets the daemon abandon the still-queued ticket
+            # (abandon-on-disconnect, journaled), which leaves nothing
+            # to replay.
+            t_kill = time.perf_counter()
+            survivor.kill()
         survivor.spawn().ready()
         victim.ready()
         with CheckerdClient(survivor.addr, io_timeout=FED_WAIT_S) as c:
@@ -6674,6 +6692,150 @@ def sass_instructions(lib_path: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: the witness's transfer modes, and the port's jepsenlint.
+# ---------------------------------------------------------------------------
+
+TRANSFER_MODES = ("full", "indices", "device")
+TRANSFER_REPS = 3
+#: The many-chunk gates' block shape: K = 64 x 2 blocks a chunk call
+#: puts phase 4's death (and the valid run's end) several calls in.
+TRANSFER_CHUNK = dict(bars_per_block=64, blocks_per_call=2)
+TRANSFER_MULTI_OPS = 20_000
+LINT_BUDGET_S = 10.0
+
+
+def transfer_run(torch, dev, check) -> dict:
+    """One witness call `check()` with telemetry on and the counts
+    reset: its verdict, death rank, B1 launches, host syncs and H2D
+    bytes."""
+    from jepsen_tpu_torch import device as D
+    from jepsen_tpu_torch import telemetry
+    from jepsen_tpu_torch.ops import kernels
+
+    kernels.launches.clear()
+    D.counters.clear()
+    prior = telemetry.enabled()
+    telemetry.enable(True)
+    telemetry.reset()
+    try:
+        info: dict = {}
+        r = check(info)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        return {"valid": None if r is None else r.valid,
+                "died_at_rank": info.get("died_at_rank"),
+                "launches": kernels.launches["witness_sweep"],
+                "host_syncs": D.counters.get("host_syncs", 0),
+                "h2d_bytes": int(telemetry.counter_value("wgl.h2d-bytes"))}
+    finally:
+        telemetry.reset()
+        telemetry.enable(prior)
+
+
+def phase_transfer(torch, packed, pm, dev=None, reps: int = TRANSFER_REPS,
+                   multi_ops: int = TRANSFER_MULTI_OPS) -> dict:
+    """18a: `check_wgl_witness(transfer=m)` for "full", "indices" and
+    "device" on the bench history (one counted warm run with telemetry
+    on, then `reps` timed runs with it off), on phase 4's invalid
+    history and on runs many chunk calls long.  Gates: valid in every
+    mode on the bench history with equal B1 launches, and equal
+    verdicts and death ranks across the modes on the others."""
+    from jepsen_tpu_torch.history.packed import pack_history
+    from jepsen_tpu_torch.ops.wgl_witness import check_wgl_witness
+    from jepsen_tpu_torch.utils.histgen import (random_register_history,
+                                                random_register_packed)
+
+    dev = torch.device(dev or "cuda")
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    bad = pack_history(random_register_history(
+        2000, procs=8, info_rate=0.0, seed=BENCH_SEED, bad=True), pm.encode)
+    multi = random_register_packed(multi_ops, procs=16, info_rate=0.05,
+                                   seed=9, model=pm)
+    out: dict = {"ops": packed.n, "modes": {}}
+    for mode in TRANSFER_MODES:
+        def check(info, p=packed, **kw):
+            return check_wgl_witness(p, pm, transfer=mode, out_info=info,
+                                     device=dev, **kw)
+
+        r = transfer_run(torch, dev, check)
+        walls = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            check({})
+            sync()
+            walls.append(time.perf_counter() - t0)
+        r["wall_s"] = walls
+        r["median_s"] = statistics.median(walls)
+        r["invalid"] = transfer_run(torch, dev, lambda i: check(i, bad))
+        r["invalid_chunked"] = transfer_run(
+            torch, dev, lambda i: check(i, bad, **TRANSFER_CHUNK))
+        r["multi_chunk"] = transfer_run(
+            torch, dev, lambda i: check(i, multi, **TRANSFER_CHUNK))
+        out["modes"][mode] = r
+        log(f"phase18a: {mode} " + json.dumps(r))
+    m = out["modes"]
+    full = m["full"]
+    for mode in TRANSFER_MODES:
+        r = m[mode]
+        if r["valid"] is not True or (dev.type == "cuda"
+                                      and r["launches"] <= 0):
+            raise AssertionError(f"phase18a: {mode}: bench verdict "
+                                 f"{r['valid']}, {r['launches']} launches")
+        if r["launches"] != full["launches"]:
+            raise AssertionError(
+                f"phase18a: B1 launches {mode} {r['launches']} != full "
+                f"{full['launches']}")
+        for key in ("invalid", "invalid_chunked", "multi_chunk"):
+            got = (r[key]["valid"], r[key]["died_at_rank"])
+            want = (full[key]["valid"], full[key]["died_at_rank"])
+            if got != want:
+                raise AssertionError(f"phase18a: {key}: {mode} gave {got}, "
+                                     f"full {want}")
+    if (full["invalid"]["valid"] is not None
+            or full["invalid"]["died_at_rank"] is None
+            or full["invalid_chunked"]["died_at_rank"] is None):
+        raise AssertionError(f"phase18a: the bad history's witness did not "
+                             f"die at a barrier: {full['invalid']}, "
+                             f"{full['invalid_chunked']}")
+    if full["multi_chunk"]["valid"] is not True:
+        raise AssertionError(f"phase18a: many-chunk verdict "
+                             f"{full['multi_chunk']}")
+    return out
+
+
+def phase_lint(root: str) -> dict:
+    """18b: `python -m jepsen_tpu_torch.analysis --json` over the port's
+    tree, as a subprocess.  Gates: exit 0, clean, no stale baseline
+    entry, under `LINT_BUDGET_S` seconds by the report's own clock."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="lint-") as store:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "jepsen_tpu_torch.analysis", "--json",
+             "--lint-store-dir", store],
+            cwd=root, capture_output=True, text=True, timeout=300)
+        wall = time.perf_counter() - t0
+    try:
+        rep = json.loads(proc.stdout)
+    except ValueError:
+        raise AssertionError(f"phase18b: exit {proc.returncode}, no JSON "
+                             f"report: {proc.stderr[-2000:]}")
+    r = {"exit": proc.returncode, "clean": rep["clean"],
+         "files": rep["files"], "counts": rep["counts"],
+         "baselined": len(rep["baselined"]),
+         "unbaselined": len(rep["unbaselined"]),
+         "stale": len(rep["stale_baseline"]),
+         "duration_s": rep["duration_s"], "wall_s": wall}
+    log("phase18b: " + json.dumps(r))
+    if (proc.returncode != 0 or not r["clean"] or r["stale"]
+            or r["duration_s"] >= LINT_BUDGET_S):
+        raise AssertionError(f"phase18b: lint {r}: "
+                             f"{rep['unbaselined'][:5]}")
+    return r
+
+
 class Stages:
     """The script's wall seconds by stage, for its time budget: each
     call closes the stage it names, logs it and keeps it in
@@ -6782,6 +6944,12 @@ def main() -> int:
     stage("13")
     suites_r = phase_suites(torch)
     stage("14")
+    transfer_r = phase_transfer(torch, packed, pm)
+    entry["launches_transfer"] = {
+        m: r["launches"] for m, r in transfer_r["modes"].items()}
+    stage("18a")
+    lint_r = phase_lint(os.path.dirname(os.path.abspath(__file__)))
+    stage("18b")
     ptxas = ptxas_report(kernels.build_log)
     for key, n in sass_instructions(kernels.sweep_lib()._name).items():
         ptxas.setdefault(key, {})["sass_instructions"] = n
@@ -6909,8 +7077,14 @@ def main() -> int:
         f"{remote_r['wall_s']:.3f} s; standing phase 17 "
         f"{standing_r['wall_s']:.3f} s (17a "
         f"{standing_r['a']['rate_measured']:.1f} ops/s, verdict lag p95 "
-        f"{standing_r['a']['verdict_lag_s']['p95']})")
+        f"{standing_r['a']['verdict_lag_s']['p95']}); transfer phase 18a "
+        f"median s " + ", ".join(
+            f"{m} {r['median_s']:.4f}"
+            for m, r in transfer_r["modes"].items())
+        + f"; lint phase 18b {lint_r['duration_s']} s over "
+        f"{lint_r['files']} files")
     print(json.dumps({"stages_s": stage.seconds}))
+    print(json.dumps({"transfer": transfer_r, "lint": lint_r}))
     print(json.dumps({"standing": standing_r}))
     print(json.dumps({"federation": remote_r}))
     print(json.dumps({"search": search_r}))

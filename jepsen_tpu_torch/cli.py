@@ -25,9 +25,9 @@ runs the standing loop (monitor/) with its rolling checker on
 supervisor's resolved `--device`; both exit 254 without the card they
 ask for, before the first op or child.  `monitor` exits 0 when every
 key is proven, 2 when an epoch ended unknown, 254 on a device fault
-(its summary written first).  `lint` is not ported: `run` answers it
-with the usage exit and the ROADMAP item that brings it
-(`NOT_PORTED_COMMANDS`).
+(its summary written first).  `lint` runs the port's jepsenlint
+(analysis/) over `jepsen_tpu_torch/` and `chip_smoke.py`: exit 0 when
+no finding is left outside the baseline, 1 otherwise.
 
 Usage from a test suite:
 
@@ -200,13 +200,6 @@ def localize_test(t: dict) -> dict:
     return t
 
 
-#: The reference's subcommands the port does not have yet, by the
-#: ROADMAP.md Queue A item that brings them.
-NOT_PORTED_COMMANDS = {
-    "lint": 8,
-}
-
-
 def single_test_cmd(
     test_fn: Callable[[dict], dict],
     *,
@@ -215,9 +208,9 @@ def single_test_cmd(
     tests_fn: Optional[Callable[[dict], Sequence[dict]]] = None,
 ) -> argparse.ArgumentParser:
     """Builds the parser with `test`, `analyze`, `repair`, `search`,
-    `serve`, `checkerd`, `checkerd-router`, `monitor` and `fleet`
-    subcommands (cli.clj:355-441).  `test_fn` maps the CLI option map to a test
-    map.  When `tests_fn` (option map -> sequence of test maps) is
+    `serve`, `checkerd`, `checkerd-router`, `lint`, `monitor` and
+    `fleet` subcommands (cli.clj:355-441).  `test_fn` maps the CLI
+    option map to a test map.  When `tests_fn` (option map -> sequence of test maps) is
     given, a `test-all` subcommand runs the whole suite
     (cli.clj:501-529)."""
     parser = argparse.ArgumentParser(prog=name)
@@ -373,6 +366,15 @@ def single_test_cmd(
         "answering polls for every journaled ticket",
     )
     rt.set_defaults(_run=_run_checkerd_router)
+
+    ln = sub.add_parser(
+        "lint",
+        help="run jepsenlint (AST invariant analysis) over the port",
+    )
+    from .analysis.core import add_lint_args
+
+    add_lint_args(ln)
+    ln.set_defaults(_run=_run_lint)
 
     mo = sub.add_parser(
         "monitor",
@@ -810,6 +812,14 @@ def _run_serve(opts) -> int:
     return EXIT_VALID
 
 
+def _run_lint(opts) -> int:
+    """`jepsen lint`: AST invariant analysis (jepsen_tpu_torch/analysis/).
+    Exit 0 = no unbaselined findings, 1 = findings — the tier-1 gate."""
+    from .analysis.core import main as lint_main
+
+    return lint_main(opts)
+
+
 def _run_monitor(opts) -> int:
     """`jepsen monitor`: blocks until --duration / --max-ops / SIGINT.
     Exit 0 when every key's verdict stayed proven, 2 when any epoch
@@ -964,11 +974,6 @@ def run(parser: argparse.ArgumentParser,
                "%(message)s",
     )
     args = list(sys.argv[1:] if argv is None else argv)
-    if args and args[0] in NOT_PORTED_COMMANDS:
-        print(f"{parser.prog}: `{args[0]}` is not ported yet (ROADMAP.md "
-              f"Queue A item {NOT_PORTED_COMMANDS[args[0]]})",
-              file=sys.stderr)
-        return EXIT_USAGE
     try:
         opts = parser.parse_args(args)
     except SystemExit as e:

@@ -1,8 +1,8 @@
 """Device witness search for linearizability — the valid-verdict fast
 path, in PyTorch with a CUDA barrier sweep.
 
-The port of `jepsen_tpu/ops/wgl_witness.py` (`transfer="full"`).  It is
-an event-walk form of Wing–Gong:
+The port of `jepsen_tpu/ops/wgl_witness.py`.  It is an event-walk form
+of Wing–Gong:
 
 * Walk :ok operations ("barriers") in completion order.  By induction
   every :ok op returning before the current barrier is linearized in
@@ -19,10 +19,18 @@ an event-walk form of Wing–Gong:
   model state, and the sweep resumes after the barrier.
 
 Execution is a host loop (`run_chunks`): blocks of `bars_per_block`
-barriers, their tables built on the host and uploaded `blocks_per_call`
-blocks at a time; inside a block, sweep -> read the death barrier ->
-chain search -> resume.  The loop takes and returns the search's carry
-between blocks (`WitnessCarry`), so the online frontier
+barriers, taken `blocks_per_call` at a time (a chunk); inside a block,
+sweep -> read the death barrier -> chain search -> resume.  Where a
+block's (6, K) barrier table and (5, W) window table come from is the
+transfer mode (`check_wgl_witness(transfer=...)`, the reference's):
+"full" builds them on the host and uploads them a chunk at a time;
+"indices" uploads six per-row int32 tables once per check and then,
+per chunk, only the blocks' row indices, from which each block gathers
+its tables on the card; "device" also plans each block's window on the
+card from the host's per-block scalars, so a chunk uploads nothing.
+All three feed the same sweep and chain search with equal tables.  The
+loop takes and returns the search's carry between blocks
+(`WitnessCarry`), so the online frontier
 (streaming/frontier.py) continues it as the history grows.  By default
 (`JEPSEN_WGL_PACKED`) the carry's (W, B) member window rides between
 blocks as (W, ceil(B/32)) 32-bit words (ops/packing.py), re-gathered
@@ -360,20 +368,28 @@ class _Block:
 
     def run(self, member, states, alive, bars_d, bars_h, k0: int):
         """Sweeps the block's barriers, running the chain search at each
-        death point and resuming after it.  Returns (member, states,
-        alive, failed, died_rank)."""
-        K = bars_h.shape[1]
+        death point and resuming after it.  `bars_h` is the host copy of
+        `bars_d`, or None when the table was built on the card: the
+        death barrier's column is then read from there (one host read
+        per death).  Returns (member, states, alive, failed,
+        died_rank)."""
+        K = bars_d.shape[1]
+        cols = None if bars_h is None else bars_h[0]
         k = 0
         while k < K:
             s2, al2, dk = sweep(self.pm, k, bars_d, member, states, alive,
                                 self.init)
             if profile.cost_hooked():
+                if cols is None:
+                    cols = _device.host(bars_d[0])
                 profile.note_cost(roofline.sweep_cost(
-                    k, dk, K, bars_h[0], self.B, states.shape[1],
+                    k, dk, K, cols, self.B, states.shape[1],
                     self.init is not None))
             if dk >= K:
                 return member, s2, al2, False, NO_BAR
-            a, r, _, bf, ba0, ba1 = (int(x) for x in bars_h[:, dk])
+            col = (bars_h[:, dk] if bars_h is not None
+                   else _device.host(bars_d[:, dk]))
+            a, r, _, bf, ba0, ba1 = (int(x) for x in col)
             member, states, alive, done = self.heavy(
                 member, s2, al2, a, r, bf, ba0, ba1, k0 + dk)
             if not done:
@@ -567,50 +583,250 @@ def _chunk_tables(packed: PackedOps, plan, chunk: list,
     return bars_np, tab_np, perm_np, present_np, prev_active
 
 
+#: The transfer modes `check_wgl_witness` takes besides "auto".
+TRANSFER_MODES = ("full", "indices", "device")
+
+#: The info cut of a block under no info window: keeps every info row.
+NO_CUT = -(2**31)
+
+
+def resolve_transfer(transfer: str, rank_override=None) -> str:
+    """The transfer mode a search runs: "auto" is "full" on every
+    device (the reference picks "device" only on a TPU, for its
+    tunnelled uplink), and "device" under a `rank_override` is
+    "indices", since the card's planner tells info rows by a rank of
+    NO_BAR, which an override breaks.  Raises ValueError on an unknown
+    mode."""
+    if transfer not in ("auto",) + TRANSFER_MODES:
+        raise ValueError(f"unknown transfer mode {transfer!r}")
+    if transfer == "auto":
+        transfer = "full"
+    if transfer == "device" and rank_override is not None:
+        transfer = "indices"
+    return transfer
+
+
+class RowTables(NamedTuple):
+    """The per-row tables "indices" and "device" upload once per check,
+    (n,) int32 each on the card: the op's f, a0, a1, its return and
+    invocation index and min(barrier rank, NO_BAR); "device" adds the
+    inclusive count of info rows (`icum`) and the barrier rows in rank
+    order padded so any K-slice from a block's first rank is in bounds
+    (`bars`)."""
+
+    f: torch.Tensor
+    a0: torch.Tensor
+    a1: torch.Tensor
+    ret: torch.Tensor
+    inv: torch.Tensor
+    rank: torch.Tensor
+    icum: Optional[torch.Tensor]
+    bars: Optional[torch.Tensor]
+
+
+def _upload_rows(packed: PackedOps, plan, K: int, on_card_plan: bool,
+                 dev: torch.device) -> tuple[RowTables, int]:
+    """The check's `RowTables` on `dev` and the bytes they took up."""
+    bars, bar_rank, inv32, ret32 = plan[:4]
+    host = [packed.f, packed.a0, packed.a1, ret32, inv32,
+            np.minimum(bar_rank, NO_BAR)]
+    if on_card_plan:
+        host.append(np.cumsum(packed.status != ST_OK))
+        bars_pad = np.zeros(_bucket(len(bars) + K, lo=K), dtype=np.int64)
+        bars_pad[:len(bars)] = bars
+        host.append(bars_pad)
+    # Every column is an op index, a timeline index below INF
+    # (_plan_blocks raised otherwise) or a packed value.
+    up = [torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(dev)
+          for a in host]
+    nbytes = sum(4 * int(a.shape[0]) for a in up)
+    if not on_card_plan:
+        up += [None, None]
+    return RowTables(*up), nbytes
+
+
+def _card_tables(rows: RowTables, bar_b: torch.Tensor, act: torch.Tensor,
+                 nb: int, nw, K: int, W: int):
+    """One block's (6, K) barrier table and (5, W) window table, built
+    on the card from its barrier rows `bar_b` (K,) and its ascending
+    window rows `act` (W,), int32, padded past `nb` and `nw` (act with
+    n, above every row).  Padding reads row n - 1 and is masked to the
+    host tables' fills, so both equal what "full" uploads."""
+    n = rows.f.shape[0]
+    jcol = torch.arange(K, device=bar_b.device)
+    real = jcol < nb
+    valid = torch.arange(W, device=act.device) < nw
+    act_c = act.clamp(max=n - 1)
+    col = torch.searchsorted(act, bar_b, out_int32=True)
+    bars_b = torch.stack([
+        torch.where(real, col, 0),
+        torch.where(real, rows.ret[bar_b], INF),
+        (jcol < nb).to(torch.int32),
+        torch.where(real, rows.f[bar_b], 0),
+        torch.where(real, rows.a0[bar_b], 0),
+        torch.where(real, rows.a1[bar_b], 0),
+    ])
+    tab_b = torch.stack([
+        torch.where(valid, rows.inv[act_c], INF),
+        torch.where(valid, rows.f[act_c], 0),
+        torch.where(valid, rows.a0[act_c], 0),
+        torch.where(valid, rows.a1[act_c], 0),
+        torch.where(valid, rows.rank[act_c], NO_BAR),
+    ])
+    return bars_b, tab_b
+
+
+def _block_scalars(plan, block, info_window: Optional[int],
+                   icum: np.ndarray) -> tuple[int, ...]:
+    """The host's scalars for planning `block` on the card: (k0,
+    end_ret, lo, nb, cut, hi).  Rows [lo, hi) hold the window, hi being
+    the first row not invoked by the block's last barrier; an info row
+    stays while its info count exceeds `cut`: the newest
+    `info_window`."""
+    _, _, inv32, ret32 = plan[:4]
+    k0, block_bars, active = block
+    er = int(ret32[block_bars[-1]])
+    hi = int(np.searchsorted(inv32, np.int32(er), side="left"))
+    lo = int(active[0]) if len(active) else hi
+    cut = (int(icum[hi - 1]) - info_window
+           if info_window is not None and hi > 0 else NO_CUT)
+    return k0, er, lo, len(block_bars), cut, hi
+
+
+def _card_window(rows: RowTables, prev_act: torch.Tensor, k0: int,
+                 er: int, lo: int, cut: int, S: int, W: int):
+    """A block's window rows planned on the card, and the re-gather of
+    the member window from the previous block's rows `prev_act`: the
+    rows r in [lo, lo + S) invoked before `er` whose barrier has not
+    passed (rank >= k0), info rows only past the info `cut` — the host
+    plan's row set.  Returns (act (W,) int32 padded with n, nw, perm,
+    present)."""
+    n = rows.f.shape[0]
+    d = prev_act.device
+    r = lo + torch.arange(S, device=d)
+    rc = r.clamp(max=n - 1)
+    rank = rows.rank[rc]
+    mask = ((r < n) & (rows.inv[rc] < er) & (rank >= k0)
+            & ((rank != NO_BAR) | (rows.icum[rc] > cut)))
+    nw = mask.sum()
+    wcol = torch.arange(W, device=d)
+    local = nonzero_static(mask, W, S)
+    act = torch.where(wcol < nw, lo + local.clamp(max=S - 1),
+                      n).to(torch.int32)
+    pos = torch.searchsorted(prev_act, act)
+    pos_c = pos.clamp(0, W - 1)
+    present = (pos < W) & (prev_act[pos_c] == act) & (act < n)
+    perm = torch.where(present, pos_c, 0)
+    return act, nw, perm, present
+
+
+def _device_plan(packed: PackedOps, plan, blocks: list,
+                 info_window: Optional[int], W: int):
+    """Every block's `_block_scalars` and the slice width S: the widest
+    [lo, hi) span bucketed up from min(W, 1024)."""
+    icum = np.cumsum(packed.status != ST_OK)
+    scal = [_block_scalars(plan, b, info_window, icum) for b in blocks]
+    span = max([1] + [hi - lo for _, _, lo, _, _, hi in scal])
+    return scal, _bucket(span, lo=min(W, 1024))
+
+
 def run_chunks(pm: PackedModel, packed: PackedOps, plan, blocks: list,
                carry: WitnessCarry, *, K: int, NB: int, D: int,
-               compact: int, dev: torch.device
+               compact: int, dev: torch.device, transfer: str = "full",
+               info_window: Optional[int] = None
                ) -> Iterator[tuple[WitnessCarry, int, bool, int]]:
     """Runs `blocks` (entries of `_plan_blocks`'s block list, in order,
-    the first one following `carry`) from `carry`, NB blocks per table
-    upload.  The beam width B and window width W are the carry's, and
-    so is the layout: a packed carry's words are re-gathered as words
-    and unpacked for each block.  Yields after each chunk (carry,
-    blocks in the chunk, failed, died_rank): `failed` when a block's
-    chain search could not linearize a barrier (died_rank its global
-    rank), after which it stops.  The one-shot search
-    (`check_wgl_witness`) and the online frontier (streaming/frontier.py)
-    both run their blocks here."""
+    the first one following `carry`) from `carry`, NB blocks per chunk.
+    The beam width B and window width W are the carry's, and so is the
+    layout: a packed carry's words are re-gathered as words and
+    unpacked for each block.  Yields after each chunk (carry, blocks in
+    the chunk, failed, died_rank): `failed` when a block's chain search
+    could not linearize a barrier (died_rank its global rank), after
+    which it stops.  The one-shot search (`check_wgl_witness`) and the
+    online frontier (streaming/frontier.py) both run their blocks here.
+
+    `transfer` ("full", "indices" or "device"; see the module's
+    docstring) says where the block tables are built.  "device" needs
+    `info_window`, the plan's, and keeps the previous block's window
+    rows on the card across blocks and chunks; the yielded carry's
+    `prev_active` is the host plan's copy of them either way.  With
+    telemetry on, each upload adds its bytes to `wgl.h2d-bytes`."""
+    if transfer not in TRANSFER_MODES:
+        raise ValueError(f"unknown transfer mode {transfer!r}")
     member, states, alive, prev_active = carry
     W, B = member.shape[0], states.shape[0]
     packed_on = member.dtype != torch.bool
     hv = torch.from_numpy(_state_hash_vec(pm.state_width)).to(dev)
     init = (torch.tensor(pm.init_state, dtype=torch.int32, device=dev)
             if pm.stream else None)
+
+    def count_h2d(nbytes: int) -> None:
+        if telemetry.enabled() and nbytes:
+            telemetry.count("wgl.h2d-bytes", nbytes)
+
+    rows = None
+    if transfer != "full":
+        rows, nbytes = _upload_rows(packed, plan, K, transfer == "device",
+                                    dev)
+        count_h2d(nbytes)
+    if transfer == "device":
+        scal, S = _device_plan(packed, plan, blocks, info_window, W)
+        pa = np.full(W, packed.n, dtype=np.int32)
+        if prev_active is not None:  # a resume: the rows before it
+            pa[:len(prev_active)] = prev_active
+        prev_act = torch.from_numpy(pa).to(dev)
+        count_h2d(pa.nbytes)
     for c0 in range(0, len(blocks), NB):
         chunk = blocks[c0 : c0 + NB]
         nblk = len(chunk)
-        bars_np, tab_np, perm_np, present_np, prev_active = _chunk_tables(
-            packed, plan, chunk, prev_active, K, W)
-        bars_d = torch.from_numpy(bars_np).to(dev)
-        tab_d = torch.from_numpy(tab_np).to(dev)
-        perm_d = torch.from_numpy(perm_np).to(dev)
-        present_d = torch.from_numpy(present_np).to(dev)
-
-        # Rows absent from the previous window are cleared: a bool AND,
-        # or a word AND with all-ones (present) or zero.
-        keep = present_d[:, :, None]
-        if packed_on:
-            keep = -keep.to(torch.int32)
+        bars_np = None
+        if transfer == "full":
+            bars_np, tab_np, perm_np, present_np, prev_active = \
+                _chunk_tables(packed, plan, chunk, prev_active, K, W)
+            up = [bars_np, tab_np, perm_np, present_np]
+        elif transfer == "indices":
+            bar_np, act_np, perm_np, present_np, prev_active = \
+                _chunk_indices(packed, chunk, prev_active, K, W)
+            up = [bar_np, act_np, perm_np, present_np]
+        else:
+            prev_active = chunk[-1][2]
+            up = []
+        count_h2d(sum(int(a.nbytes) for a in up))
+        up_d = [torch.from_numpy(a).to(dev) for a in up]
+        if transfer != "device":
+            perm_d, present_d = up_d[2], up_d[3]
 
         failed, died = False, NO_BAR
         for bi, (k0, _, _) in enumerate(chunk):
-            # Re-lay the member window onto this block's rows.
-            member = member[perm_d[bi]] & keep[bi]
-            blk = _Block(pm, tab_d[bi], B, compact, hv, init, D)
+            if transfer == "full":
+                bars_b, tab_b = up_d[0][bi], up_d[1][bi]
+            elif transfer == "indices":
+                bars_b, tab_b = _card_tables(
+                    rows, up_d[0][bi], up_d[1][bi], len(chunk[bi][1]),
+                    len(chunk[bi][2]), K, W)
+            else:
+                # Every block here is real (nb > 0): nothing pads the
+                # carried window rows away.
+                k0, er, lo, nb, cut, _ = scal[c0 + bi]
+                act, nw, perm_b, present_b = _card_window(
+                    rows, prev_act, k0, er, lo, cut, S, W)
+                bars_b, tab_b = _card_tables(
+                    rows, rows.bars[k0:k0 + K], act, nb, nw, K, W)
+                prev_act = act
+            if transfer != "device":
+                perm_b, present_b = perm_d[bi], present_d[bi]
+            # Re-lay the member window onto this block's rows; rows
+            # absent from the previous window are cleared: a bool AND,
+            # or a word AND with all-ones (present) or zero.
+            keep = present_b[:, None]
+            if packed_on:
+                keep = -keep.to(torch.int32)
+            member = member[perm_b] & keep
+            blk = _Block(pm, tab_b, B, compact, hv, init, D)
             window = packing.unpack_bits(member, B) if packed_on else member
             window, states, alive, failed, died = blk.run(
-                window, states, alive, bars_d[bi], bars_np[bi], k0)
+                window, states, alive, bars_b,
+                None if bars_np is None else bars_np[bi], k0)
             member = packing.pack_bits(window) if packed_on else window
             if failed:
                 break
@@ -618,6 +834,28 @@ def run_chunks(pm: PackedModel, packed: PackedOps, plan, blocks: list,
                failed, died)
         if failed:
             return
+
+
+def _chunk_indices(packed: PackedOps, chunk: list,
+                   prev_active: Optional[np.ndarray], K: int, W: int):
+    """One chunk's "indices" upload: each block's barrier rows (nblk, K)
+    and window rows (nblk, W) as int32, padded with 0 and with n, and
+    the member re-gather as `_chunk_tables` builds it (perm as int32).
+    Returns them and the chunk's last window rows."""
+    nblk = len(chunk)
+    bar_np = np.zeros((nblk, K), dtype=np.int32)
+    act_np = np.full((nblk, W), packed.n, dtype=np.int32)
+    perm_np = np.zeros((nblk, W), dtype=np.int32)
+    present_np = np.zeros((nblk, W), dtype=bool)
+    for bi, (_, block_bars, active) in enumerate(chunk):
+        bar_np[bi, :len(block_bars)] = block_bars
+        act_np[bi, :len(active)] = active
+        if prev_active is not None:
+            perm, present = window_regather(prev_active, active)
+            perm_np[bi, :len(active)] = perm
+            present_np[bi, :len(active)] = present
+        prev_active = active
+    return bar_np, act_np, perm_np, present_np, prev_active
 
 
 def check_wgl_witness(
@@ -632,6 +870,7 @@ def check_wgl_witness(
     width_hint: int = 0,
     time_limit_s: Optional[float] = None,
     checkpoint_dir: Optional[str] = None,
+    transfer: str = "auto",
     rank_override: Optional[np.ndarray] = None,
     out_info: Optional[dict] = None,
     packed_lanes: Optional[bool] = None,
@@ -663,6 +902,13 @@ def check_wgl_witness(
     `packed_lanes` (None: `JEPSEN_WGL_PACKED`, default on) carries the
     member window between blocks as 32-bit words.
 
+    `transfer` ("auto", "full", "indices" or "device", the reference's
+    modes; the module docstring says what each uploads) decides where
+    the block tables are built; every mode gives the same tables, so
+    the same verdict and death rank.  "auto" is "full" on every device,
+    and "device" under a `rank_override` runs as "indices"
+    (`resolve_transfer`); an unknown mode raises ValueError.
+
     `checkpoint_dir`: when set, the carry between chunks (the member
     window, unpacked, the beam states, the alive mask and the next
     block) is saved there after every chunk once the search has run
@@ -680,6 +926,7 @@ def check_wgl_witness(
     once with half the block shape on the same device, then returns
     None for the next tier ("retry-halved", "fall-through"); any other
     error raises."""
+    transfer = resolve_transfer(transfer, rank_override)
     dev = _device.resolve(device)
     t0 = time.monotonic()
     n = packed.n
@@ -732,7 +979,7 @@ def check_wgl_witness(
         args = dict(beam=beam, bars_per_block=bars_per_block,
                     blocks_per_call=blocks_per_call, depth=depth,
                     info_window=info_window, width_hint=width_hint,
-                    checkpoint_dir=checkpoint_dir,
+                    checkpoint_dir=checkpoint_dir, transfer=transfer,
                     rank_override=rank_override, out_info=out_info,
                     packed_lanes=packed_on, _degraded=_degraded)
         args.update(kw)
@@ -774,7 +1021,8 @@ def check_wgl_witness(
 
     chunks = run_chunks(pm, packed, plan, blocks[c0:], carry,
                         K=bars_per_block, NB=blocks_per_call, D=depth,
-                        compact=compact_width(W, info_window), dev=dev)
+                        compact=compact_width(W, info_window), dev=dev,
+                        transfer=transfer, info_window=info_window)
     for _ in range(-(-(len(blocks) - c0) // blocks_per_call)):
         try:
             degrade.maybe_fault("witness")

@@ -23,20 +23,6 @@ from . import store
 
 log = logging.getLogger(__name__)
 
-#: The store-level summary `jepsen lint` writes (read for /metrics).
-LINT_SUMMARY_FILE = "lint.json"
-
-
-def read_store_summary(store_dir: str) -> Optional[dict]:
-    """The store's lint summary, or None when there is none."""
-    try:
-        with open(os.path.join(store_dir, LINT_SUMMARY_FILE),
-                  encoding="utf-8") as f:
-            data = json.load(f)
-        return data if isinstance(data, dict) else None
-    except (OSError, ValueError):
-        return None
-
 _STYLE = """
 body { font-family: sans-serif; margin: 2em; }
 table { border-collapse: collapse; }
@@ -505,6 +491,8 @@ class Handler(http.server.BaseHTTPRequestHandler):
         )
         lint_tbl = ""
         try:
+            from .analysis.core import read_store_summary
+
             summary = read_store_summary(self.store_dir)
         except Exception:  # noqa: BLE001 — render, don't 500
             summary = None
@@ -768,6 +756,8 @@ class Handler(http.server.BaseHTTPRequestHandler):
             pass
         lint_counts = None
         try:
+            from .analysis.core import read_store_summary
+
             summary = read_store_summary(self.store_dir)
             if summary:
                 # Prefer the per-family breakdown (adds the `family`

@@ -134,13 +134,20 @@ def test_suite_needs_the_card_unless_asked_for_the_cpu(name, tmp_path,
     assert not store_dir.exists()
 
 
-@pytest.mark.parametrize("command", ["lint"])
-def test_unported_subcommands_name_their_item(command, capsys):
-    from jepsen_tpu_torch import cli
-
-    assert pkvdb.main([command]) == cli.EXIT_USAGE
-    item = cli.NOT_PORTED_COMMANDS[command]
-    assert f"Queue A item {item}" in capsys.readouterr().err
+@pytest.mark.parametrize("dirty", [False, True])
+def test_lint_subcommand(dirty, tmp_path, capsys):
+    """`kvdb lint --root <fixture>`: the port's jepsenlint over a tree
+    holding one module, exit 0 when it is clean and 1 when it narrows a
+    value with no range guard."""
+    pkg = tmp_path / "jepsen_tpu_torch"
+    pkg.mkdir()
+    cast = "torch.int32" if dirty else "torch.int64"
+    (pkg / "fixture.py").write_text(
+        f"import torch\n\n\ndef f(x):\n    return x.to({cast})\n")
+    assert pkvdb.main(["lint", "--root", str(tmp_path)]) == int(dirty)
+    out = capsys.readouterr().out
+    assert "jepsenlint: 1 files" in out
+    assert ("device.unguarded-narrowing" in out) == dirty
 
 
 def _free_port() -> int:
