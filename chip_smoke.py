@@ -58,7 +58,7 @@ it; phase 9 reads its own parts (JEPSEN_PLAN=0, memo, faults, records):
    the keys each tier settled, and per check the stream passes and
    restarts, sweep launches, BFS levels and host syncs.  Then the same
    readings for an all-valid 2,000-key (200k-op) check.
-6. The other models: a 200-key x 100-op history each of the mutex, a
+6. The other models: a 120-key x 100-op history each of the mutex, a
    5-register multi-register, the FIFO and the unordered queue (every
    7th key bad, one long key past the ladder's 2,000-op bound), once
    recorded, once counted.  Every per-key verdict equals the exact CPU
@@ -67,19 +67,19 @@ it; phase 9 reads its own parts (JEPSEN_PLAN=0, memo, faults, records):
 1b. Every other sweep instantiation (each model plain and stream, the
    multi-register at 3 and 5 registers) against the plain version,
    exactly, on the calls recorded in phases 5 and 6 and on random tables
-   at B = 1, 8 and 32 with RESET barriers and batch-edge starts and
+   at B = 1 and 32 with RESET barriers and batch-edge starts and
    deaths; then the instantiations of phases 5 and 6 timed on their
    longest recorded call.  Their device time is read in phase 3, and
    each one's registers and spills from the build's -Xptxas -v output.
    Also the batched BFS on each model's cohort recorded in phases 5
-   and 6: levels, host syncs and wall time; the FIFO cohort's device
+   and 6: levels, host syncs and wall time; the mutex cohort's device
    time in phase 3.
    Then the wide cases (`phase_wide`): every instantiation at beams of
-   33, 48 and 64 lanes (two 32-lane blocks joined), and the wide
+   33 and 64 lanes (two 32-lane blocks joined), and the wide
    multi-register (33, 40 and 64 registers, state rows in shared
-   memory) plain and stream at B = 1, 8, 32, 33, 48 and 64, on random
+   memory) plain and stream at B = 1, 8, 32, 33 and 64, on random
    blocks of 2,048 barriers with batch edges and one lane group dead
-   from the start, exactly as the plain version; a 200-key history of a
+   from the start, exactly as the plain version; a 120-key history of a
    40-register multi-register through IndependentChecker, every verdict
    the exact CPU engine's; the bench history through the witness at
    beam 64 (valid), and 40 of phase 5's keys at beam 64 against the
@@ -160,7 +160,7 @@ it; phase 9 reads its own parts (JEPSEN_PLAN=0, memo, faults, records):
 
 11. A Jepsen test run through the port's CLI (`phase_run`): (11a)
    `cli test --dummy-ssh` of the north-star workload
-   (linearizable_register, in-memory client) at 1,000 keys x 100 ops,
+   (linearizable_register, in-memory client) at 600 keys x 100 ops,
    threads-per-key 4, concurrency 32, noop nemesis: valid, every
    per-key verdict the exact CPU engine's on the stored history;
    (11b) 200 keys with a stale-read client on keys 0-29: invalid on
@@ -233,8 +233,8 @@ it; phase 9 reads its own parts (JEPSEN_PLAN=0, memo, faults, records):
    analysis alone (`AnalysisClock`).
 15. Anomaly forensics and `jepsen search` (`phase_search`), the checks
    on the card: (15a) the JAX package's planted-bug search smoke on the
-   port: `run_search` (seed 3, partition and kill, 8 shrink runs, a 60 s
-   budget) over a register that loses acknowledged writes only when a
+   port: `run_search` (seed 3, partition and kill, 8 shrink runs, a 35 s
+   budget, the smoke's 60 cut to pay for phase 19) over a register that loses acknowledged writes only when a
    kill lands inside a partition, each iteration checked by
    `linearizable(cas_register(), "wgl-tpu")` beside the lost-write
    checker: coverage grows over the seed round, the anomaly is found and
@@ -313,8 +313,32 @@ it; phase 9 reads its own parts (JEPSEN_PLAN=0, memo, faults, records):
    jepsen_tpu_torch.analysis --json` as a subprocess: exit 0, clean
    against jepsen_tpu_torch/lint_baseline.json, no stale entry, under
    10 s by its own clock.
+19. The mesh (parallel/mesh.py) on the one card, after every other
+   phase, in one process with no process group.  (19a) `checker_mesh
+   ({})` is None and `default_mesh()` spans `torch.cuda.device_count()`
+   entries: the earlier phases' launch gates stand for the one-card
+   path being today's.  (19b) Keys split over a two-entry mesh that
+   names the card twice: phase 5's mixed history and a 40-key mutex
+   history of phase 6's generator (whose bad keys reach the batched
+   BFS) through `IndependentChecker` with the test map's "mesh",
+   every per-key verdict the run's without it; phase 5's packed keys
+   26-89 (4 bad) through `check_wgl_batched(mesh=)`, verdicts and
+   explored counts the unsplit run's; phase 8d's graphs and the four 1,024-vertex
+   graphs of 8a-8c (with one more, so the mesh pads) through
+   `screen_cycles(mesh=)`, flags the unsplit screen's.  Each shard's
+   device, keys and batched levels are printed, with the checks' B1
+   launches (the stream tier, before the split).  (19c) The
+   frontier-sharded BFS (B5) on the same mesh: phase 4's invalid
+   2,000-op history and a valid one through `linearizable()` with
+   "search-mesh" (the screen and the witness decide them first), then a
+   500-op history of phase 4's generator through `check_wgl_device
+   (mesh=)` itself and without the mesh: the verdicts, explored counts
+   and BFS levels equal.
+   No scaling is measured: both entries are one card.
 
-The last lines are the stages line (`{"stages_s": ...}`), the phase-18
+The last lines are the stages line (`{"stages_s": ...}`), the phase-19
+JSON line (`{"mesh": ...}`: each sub-phase's verdict gates, shards and
+seconds), the phase-18
 JSON line (`{"transfer": ..., "lint": ...}`: per mode the seconds, H2D
 bytes, B1 launches and the gates' verdicts; the lint report's files,
 counts and seconds), the phase-17
@@ -1073,7 +1097,8 @@ def packed_bfs_bound(torch, packed, pm, dev) -> dict:
 
 MIXED_KEYS, MIXED_OPS, MIXED_BAD = 200, 100, 30  # bench.py run_mixed
 BIG_KEYS = 2000  # the all-valid check: 200k ops
-MODEL_KEYS, MODEL_OPS = 200, 100
+#: Phase 6's keys a model (200 until phase 19's time was paid for).
+MODEL_KEYS, MODEL_OPS = 120, 100
 
 
 def instantiation(pm, beam: int = 1) -> str:
@@ -1248,7 +1273,7 @@ def phase_mixed(torch, recorder: SweepRecorder) -> dict:
 
 
 def phase_models(torch, recorder: SweepRecorder) -> dict:
-    """Phase 6: a 200-key history of each other model (every 7th key
+    """Phase 6: a 120-key history of each other model (every 7th key
     bad, plus one long key), once recorded, then once counted; every
     per-key verdict equals the exact CPU engine's, and both of the
     model's instantiations ran."""
@@ -1433,8 +1458,9 @@ def phase_instantiations(torch, recorder: SweepRecorder, seed: int) -> list:
     version (run on host copies of the inputs), exactly (states, alive,
     death): the calls recorded in
     phases 5 and 6 (and the first of each restarted at 31 and 33 and cut
-    to lane 0), and random tables at B = 1, 8 and 32 with RESET barriers
-    for the stream models, deaths mid-block and at batch offsets 0 and
+    to lane 0), and random tables at B = 1 and 32 (the recorded calls
+    run at the witness's beam of 8) with RESET barriers for the stream
+    models, deaths mid-block and at batch offsets 0 and
     31 from starts 31 and 33, starts after a death and in a padding
     tail.  Then times each instantiation on its longest recorded call ->
     the kernels-line entries of the instantiations phases 5 and 6
@@ -1458,7 +1484,7 @@ def phase_instantiations(torch, recorder: SweepRecorder, seed: int) -> list:
     # (label, pm, start_k, (bars, member, states, alive), init)
     cases = recorded_cases(recorder)
     for label, pm in instance_models():
-        for B in (1, 8, 32):
+        for B in (1, 32):
             def tables(kind, planted=None):
                 return to_dev(random_model_tables(pm, rng, B, W, K, kind,
                                                   planted))
@@ -1488,10 +1514,11 @@ def phase_instantiations(torch, recorder: SweepRecorder, seed: int) -> list:
 #: time budget), and INSTANCE_REPS profiled launches for its device time
 #: in phase 3 (200 until the script outgrew its time budget).
 INSTANCE_PLAIN_REPS, INSTANCE_REPS = 1, 50
-#: Phase 3 profiles the batched BFS of the FIFO cohort alone (the
-#: cohort ROADMAP's B6 record reads; each profiled call records up to
-#: ~200,000 launches, and profiling every model's took most of 60-110 s).
-BATCHED_PROFILED = "fifo"
+#: Phase 3 profiles the batched BFS of the mutex cohort alone (54
+#: levels; the FIFO cohort's 808 levels, ~200,000 launches, made the
+#: profiler take ~30 s, cut to pay for phase 19, and profiling every
+#: model's took most of 60-110 s).
+BATCHED_PROFILED = "mutex"
 
 
 def timing_entries(torch, longest: dict, max_err: dict) -> list:
@@ -1552,7 +1579,7 @@ def timing_entries(torch, longest: dict, max_err: dict) -> list:
 #: Phase 1b's wide cases: beams past one 32-lane block, multi-register
 #: widths past the register-resident instantiations, and the registers
 #: of the wide keyed check.
-WIDE_BEAMS = (33, 48, 64)
+WIDE_BEAMS = (33, 64)
 WIDE_WIDTHS = (33, 40, 64)
 WIDE_REGS = 40
 #: The beam of the wide-beam witness checks, and the keys (phase 5's
@@ -1580,8 +1607,8 @@ def wide_cases(torch, seed: int, dev) -> list:
     """Random sweep inputs of phase 1b's wide cases, on `dev`, over
     blocks of the witness's BARS_PER_BLOCK barriers: every
     instantiation of `instance_models` (and the plain register) at
-    B = 33, 48 and 64, and the wide multi-register at B = 1, 8 (the
-    witness's beam), 32, 33, 48 and 64, with deaths mid-block and at
+    B = 33 and 64, and the wide multi-register at B = 1, 8 (the
+    witness's beam), 32, 33 and 64, with deaths mid-block and at
     batch offsets 0 and 31 from starts 31 and 33, starts after a death
     and in a padding tail; past 32 lanes also one lane group dead from
     the start ("high-dead": lanes 32.. dead; "low-dead": lanes 0-31
@@ -1647,7 +1674,7 @@ def wide_cases(torch, seed: int, dev) -> list:
 
 def phase_wide(torch, packed, dev=None) -> tuple:
     """Phase 1b's wide part: the wide cases (`wide_cases`) against the
-    plain version, exactly; a 200-key history of a 40-register
+    plain version, exactly; a 120-key history of a 40-register
     multi-register (every 7th key bad, one long key) through
     IndependentChecker, every per-key verdict the exact CPU engine's,
     both wide instantiations launched; the bench history through the
@@ -3449,12 +3476,12 @@ def phase_daemon(torch, dev=None, keys: int = MIXED_KEYS,
 
 #: Phase 11: a Jepsen test run through the port's CLI.  The north-star
 #: workload (linearizable_register, in-memory client, noop nemesis,
-#: dummy remote) at 1,000 keys x 100 ops (threads-per-key 4,
-#: concurrency 32: phase 5's shape at half its 2,000 keys, to pay for
-#: phase 17's time), at 200 keys with a
+#: dummy remote) at 600 keys x 100 ops (threads-per-key 4,
+#: concurrency 32: phase 5's shape at 600 of its 2,000 keys, cut to pay
+#: for phases 17 and 19), at 200 keys with a
 #: stale-read client on keys 0-29, and at 200 keys with the online
 #: session; list-append at 1,000 transactions.
-RUN_KEYS, RUN_KEYS_SMALL, RUN_PER_KEY = 1000, 200, 100
+RUN_KEYS, RUN_KEYS_SMALL, RUN_PER_KEY = 600, 200, 100
 RUN_THREADS_PER_KEY, RUN_CONCURRENCY, RUN_TIME_LIMIT = 4, 32, 300
 RUN_STALE_KEYS = 30
 RUN_APPEND_TXNS = 1000
@@ -4563,7 +4590,7 @@ def phase_suites(torch, dev=None) -> dict:
 SEARCH_NODES = ["n1", "n2", "n3"]
 SEARCH_FAMILIES = ("partition", "kill")
 SEARCH_SEED = 3
-SEARCH_BUDGET_S = 60.0
+SEARCH_BUDGET_S = 35.0
 SEARCH_SHRINK = 8
 #: 15b: phase 11b's shape has 30 bad keys; forensics documents
 #: MAX_DOSSIERS (16) of them and counts the rest as skipped.
@@ -6836,6 +6863,252 @@ def phase_lint(root: str) -> dict:
     return r
 
 
+#: Phase 19's mesh: the one card named twice.
+MESH_ENTRIES = 2
+#: Keys of phase 19b's mutex history (phase 6's generator, every 7th
+#: key bad: those reach the batched BFS).
+MESH_MUTEX_KEYS = 40
+#: Phase 5's keys that phase 19b's direct `check_wgl_batched` splits
+#: over the mesh: its last 4 bad keys (their beams climb to 512) and 60
+#: valid ones.
+MESH_BATCHED_KEYS = range(26, 90)
+#: Phase 19c's direct sharded BFS: phase 4's history generator at this
+#: many ops (~370 BFS levels; phase 4's 2,000 take 1,477, and its
+#: sharded run took most of the phase's 20 s).
+MESH_BFS_OPS = 500
+
+
+class ShardSpy:
+    """Inside `with`: each keys-split round of ops/wgl_batched.py
+    (`_search_shards`), as one list of {device, keys, levels} per shard,
+    the levels counted by wrapping `_advance`."""
+
+    def __init__(self):
+        self.rounds: list = []
+
+    def __enter__(self):
+        from jepsen_tpu_torch.ops import wgl_batched as wb
+
+        self._wb = wb
+        self._saved = (wb._advance, wb._search_shards)
+        advance, search_shards = self._saved
+        levels: dict = {}
+
+        def spy_advance(carry, live, t, *a):
+            levels[id(t)] = levels.get(id(t), 0) + 1
+            return advance(carry, live, t, *a)
+
+        def spy_search(ts, *a):
+            out = search_shards(ts, *a)
+            self.rounds.append([{"device": str(t.ret.device),
+                                 "keys": int(t.ret.shape[0]),
+                                 "levels": levels.pop(id(t), 0)}
+                                for t in ts])
+            return out
+
+        wb._advance, wb._search_shards = spy_advance, spy_search
+        return self
+
+    def __exit__(self, *exc):
+        self._wb._advance, self._wb._search_shards = self._saved
+        return False
+
+    def shards(self) -> list:
+        """Per shard: its device, and its keys and levels summed over
+        the rounds."""
+        out: list = []
+        for rnd in self.rounds:
+            for i, sh in enumerate(rnd):
+                if i == len(out):
+                    out.append({"device": sh["device"], "keys": 0,
+                                "levels": 0})
+                out[i]["keys"] += sh["keys"]
+                out[i]["levels"] += sh["levels"]
+        return out
+
+
+def _verdicts(res: dict) -> dict:
+    return {str(k): r["valid"] for k, r in res["results"].items()}
+
+
+def phase_mesh(torch, elle_graphs: list, dev=None) -> dict:
+    """Phase 19 (module doc): 19a the one card's mesh, 19b keys split
+    and 19c the frontier-sharded BFS on a mesh that names `dev` (the
+    card by default) twice, each verdict held against the same run
+    without the mesh.  `elle_graphs` are phase 8's 1,024-vertex graphs.
+    Raises on any failed gate."""
+    from jepsen_tpu_torch import device as D
+    from jepsen_tpu_torch.checker import Linearizable, linearizable
+    from jepsen_tpu_torch.checker.elle import DepGraph
+    from jepsen_tpu_torch.history.core import Op, history
+    from jepsen_tpu_torch.history.packed import pack_history
+    from jepsen_tpu_torch.models import cas_register, mutex
+    from jepsen_tpu_torch.ops.scc import screen_cycles
+    from jepsen_tpu_torch.ops.wgl import check_wgl_device
+    from jepsen_tpu_torch.ops.wgl_batched import check_wgl_batched
+    from jepsen_tpu_torch.parallel import (IndependentChecker, Mesh,
+                                           checker_mesh, clear_settle_memo,
+                                           default_mesh, kv, subhistories)
+    from jepsen_tpu_torch.utils.histgen import random_register_history
+
+    dev = torch.device("cuda") if dev is None else torch.device(dev)
+    t_phase = time.perf_counter()
+    out: dict = {}
+
+    # 19a: one card, no mesh.
+    if dev.type == "cuda":
+        a = {"checker_mesh": repr(checker_mesh({})),
+             "default_mesh_size": default_mesh().devices.size,
+             "device_count": torch.cuda.device_count()}
+        if (checker_mesh({}) is not None and a["device_count"] == 1) or \
+                a["default_mesh_size"] != a["device_count"]:
+            raise AssertionError(f"phase19a: {a}")
+        out["a"] = a
+        log("phase19a: " + json.dumps(a))
+
+    keys_mesh = Mesh([dev] * MESH_ENTRIES, ("keys",))
+    beam_mesh = Mesh([dev] * MESH_ENTRIES, ("beam",))
+
+    # 19b: keys split over the mesh.
+    t0 = time.perf_counter()
+    b: dict = {}
+    cases = [("mixed", cas_register,
+              mixed_history(MIXED_KEYS, MIXED_BAD)),
+             ("mutex", mutex,
+              keyed_history(mutex_ops, MESH_MUTEX_KEYS, MODEL_OPS,
+                            set(range(0, MESH_MUTEX_KEYS, 7)), Op=Op, kv=kv,
+                            history=history))]
+    for name, make, h in cases:
+        chk = IndependentChecker(Linearizable(make(), time_limit_s=120,
+                                              device=dev), device=dev)
+        runs = {}
+        for label, test in (("alone", {}), ("split", {"mesh": keys_mesh})):
+            clear_settle_memo()
+            with ShardSpy() as spy:
+                t1 = time.perf_counter()
+                res, launches, _ = counted(torch, dev,
+                                           lambda: chk.check(test, h, {}))
+                runs[label] = {"wall_s": time.perf_counter() - t1,
+                               "valid": res["valid"],
+                               "failures": res["failure-count"],
+                               "tiers": res.get("tiers"),
+                               "b1_launches": launches.get("witness_sweep",
+                                                           0),
+                               "shards": spy.shards(),
+                               "verdicts": _verdicts(res)}
+            need_launches(f"phase19b {name} {label}", dev, launches)
+        if runs["split"]["verdicts"] != runs["alone"]["verdicts"]:
+            raise AssertionError(f"phase19b {name}: per-key verdicts differ "
+                                 f"on the mesh")
+        if runs["split"]["b1_launches"] != runs["alone"]["b1_launches"]:
+            raise AssertionError(f"phase19b {name}: B1 launches "
+                                 f"{runs['split']['b1_launches']} on the "
+                                 f"mesh, {runs['alone']['b1_launches']} "
+                                 f"without")
+        for r in runs.values():
+            del r["verdicts"]
+        b[name] = runs
+    if len(b["mutex"]["split"]["shards"]) != MESH_ENTRIES:
+        raise AssertionError(f"phase19b: the mutex keys never reached the "
+                             f"split batched BFS: {b['mutex']['split']}")
+
+    pm = cas_register().packed()
+    subs = subhistories(cases[0][2])
+    packs = [pack_history(subs[f"k{i}"], pm.encode)
+             for i in MESH_BATCHED_KEYS]
+    batched = {}
+    for label, mesh in (("alone", None), ("split", keys_mesh)):
+        with ShardSpy() as spy:
+            t1 = time.perf_counter()
+            res, _, counts = counted(torch, dev, lambda: check_wgl_batched(
+                packs, pm, beam=32, mesh=mesh, device=dev))
+            batched[label] = {"wall_s": time.perf_counter() - t1,
+                              "valid": res.valid,
+                              "explored": res.explored.tolist(),
+                              "levels": counts.get("bfs_levels", 0),
+                              "host_syncs": counts.get("host_syncs", 0),
+                              "shards": spy.shards()}
+    if (batched["split"]["valid"] != batched["alone"]["valid"]
+            or batched["split"]["explored"] != batched["alone"]["explored"]
+            or batched["split"]["valid"].count(False) != sum(
+                1 for i in MESH_BATCHED_KEYS if i < MIXED_BAD)):
+        raise AssertionError("phase19b: the split batched BFS differs from "
+                             "the unsplit one")
+    for r in batched.values():
+        r["valid"] = {str(v): r["valid"].count(v)
+                      for v in (True, False, "unknown")}
+        r["explored"] = sum(r["explored"])
+    b["batched"] = batched
+
+    small = random_dep_graphs(SCREEN_GRAPHS, ELLE_SEED, DepGraph)
+    screens = {}
+    for name, graphs in (("8d", small), ("8a-8c", list(elle_graphs)
+                                         + small[:1])):
+        flags = {}
+        for label, mesh in (("alone", None), ("split", keys_mesh)):
+            t1 = time.perf_counter()
+            got, _, counts = counted(torch, dev, lambda: screen_cycles(
+                graphs, mesh=mesh, device=dev))
+            flags[label] = (got.tolist(), time.perf_counter() - t1,
+                            counts.get("scc_screens", 0))
+        if flags["split"][0] != flags["alone"][0]:
+            raise AssertionError(f"phase19b {name}: screen flags differ on "
+                                 f"the mesh")
+        screens[name] = {"graphs": len(graphs),
+                         "cyclic": sum(flags["alone"][0]),
+                         "wall_s": {k: v[1] for k, v in flags.items()},
+                         "screens": {k: v[2] for k, v in flags.items()}}
+    b["screen"] = screens
+    b["wall_s"] = time.perf_counter() - t0
+    log("phase19b: " + json.dumps(b))
+    out["b"] = b
+
+    # 19c: the frontier-sharded BFS (B5).
+    t0 = time.perf_counter()
+    c: dict = {}
+    for name, bad in (("invalid", True), ("valid", False)):
+        h = random_register_history(2000, procs=8, info_rate=0.0,
+                                    seed=BENCH_SEED, bad=bad)
+        got = {}
+        for label, test in (("alone", {}), ("sharded",
+                                             {"search-mesh": beam_mesh})):
+            res = linearizable(cas_register(), device=dev).check(test, h, {})
+            got[label] = {"valid": res["valid"],
+                          "algorithm": res.get("algorithm"),
+                          "explored": res.get("configs-explored")}
+        if got["sharded"] != got["alone"] or got["alone"]["valid"] is bad \
+                or not got["sharded"]["explored"]:
+            raise AssertionError(f"phase19c {name}: {got}")
+        c[name] = got
+    packed = pack_history(random_register_history(
+        MESH_BFS_OPS, procs=8, info_rate=0.0, seed=BENCH_SEED, bad=True),
+        pm.encode)
+    bfs = {}
+    for label, mesh in (("alone", None), ("sharded", beam_mesh)):
+        t1 = time.perf_counter()
+        res, launches, counts = counted(torch, dev, lambda: check_wgl_device(
+            packed, pm, time_limit_s=300, mesh=mesh, device=dev))
+        bfs[label] = {"valid": res.valid, "explored": res.configs_explored,
+                      "levels": counts.get("bfs_levels", 0),
+                      "host_syncs": counts.get("host_syncs", 0),
+                      "b1_launches": launches.get("witness_sweep", 0),
+                      "wall_s": time.perf_counter() - t1}
+        need_launches(f"phase19c {label}", dev, launches)
+    if (bfs["sharded"]["valid"] is not False or not bfs["sharded"]["levels"]
+            or any(bfs["sharded"][k] != bfs["alone"][k]
+                   for k in ("valid", "explored", "levels"))):
+        raise AssertionError(f"phase19c: sharded BFS {bfs}")
+    c["bfs"] = bfs
+    c["wall_s"] = time.perf_counter() - t0
+    log("phase19c: " + json.dumps(c))
+    out["c"] = c
+    if torch.distributed.is_available() and torch.distributed.is_initialized():
+        raise AssertionError("phase19: a process group is up")
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"phase19: {out['wall_s']:.3f} s")
+    return out
+
+
 class Stages:
     """The script's wall seconds by stage, for its time budget: each
     call closes the stage it names, logs it and keeps it in
@@ -7048,6 +7321,8 @@ def main() -> int:
                     for t, r in standing_r["c"]["tenants"].items()},
         "surviving_daemon": standing_r["c"]["daemon1_sweeps"]}
     stage("17")
+    mesh_r = phase_mesh(torch, list(elle_r["graphs"].values()))
+    stage("19")
 
     log(f"phase4 done; main path {main_r['ops_per_s']:.1f} ops/s, "
         f"invalid path {bad_r['wall_s']:.3f} s; many-key mixed "
@@ -7082,8 +7357,10 @@ def main() -> int:
             f"{m} {r['median_s']:.4f}"
             for m, r in transfer_r["modes"].items())
         + f"; lint phase 18b {lint_r['duration_s']} s over "
-        f"{lint_r['files']} files")
+        f"{lint_r['files']} files; mesh phase 19 "
+        f"{mesh_r['wall_s']:.3f} s")
     print(json.dumps({"stages_s": stage.seconds}))
+    print(json.dumps({"mesh": mesh_r}))
     print(json.dumps({"transfer": transfer_r, "lint": lint_r}))
     print(json.dumps({"standing": standing_r}))
     print(json.dumps({"federation": remote_r}))

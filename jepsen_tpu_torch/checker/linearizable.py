@@ -24,6 +24,9 @@ Before any engine runs, a verdict an online session
 still going is taken ("wgl-online"), when the packed history's digest
 equals the one the proof covered; `streaming=False` ignores sessions.
 
+A test map's "search-mesh" (a `parallel.mesh.Mesh`) splits the device
+search's BFS frontier over its devices (ops/wgl.py).
+
 The port of `jepsen_tpu/checker/linearizable.py`.  The device paths
 run as a compiled plan (plan/compiler.py `run_single`): the
 device-first ladder as one pass, fronted by the persistent plan memo
@@ -42,7 +45,7 @@ from __future__ import annotations
 
 import os
 import time
-from typing import Optional, Union
+from typing import Any, Optional, Union
 
 import torch
 
@@ -169,12 +172,15 @@ class Linearizable(Checker):
         return out
 
     def _device_first(self, packed, pm: PackedModel, dev: torch.device,
-                      opts: Optional[dict] = None) -> dict:
+                      opts: Optional[dict] = None, mesh: Any = None) -> dict:
         """Sound refutation screens, the device search, and the exact
         CPU settling passes — one budget for the whole chain.  When the
         store gives the check a directory (`opts["dir"]`), the witness
         saves its carry there and a later check of the same history
-        (an `analyze` after a kill or a blown budget) resumes from it."""
+        (an `analyze` after a kill or a blown budget) resumes from it.
+        `mesh` (the test map's "search-mesh") splits this one search's
+        BFS frontier over its devices; it is not the test map's "mesh",
+        which splits keys."""
         from ..ops.wgl import check_wgl_device
 
         t_start = time.monotonic()
@@ -194,6 +200,7 @@ class Linearizable(Checker):
         def _device_search(beam, max_beam, block, budget):
             return check_wgl_device(packed, pm, beam=beam, max_beam=max_beam,
                                     block=block, time_limit_s=budget,
+                                    mesh=mesh,
                                     checkpoint_dir=(opts or {}).get("dir"),
                                     device=dev)
 

@@ -5,6 +5,8 @@
 for CUDA where there is none raises, so a run that was meant for the
 card cannot silently measure the CPU.
 
+`local_devices` lists this process's cards for the mesh.
+
 `host` is the one place device values come back to Python in the
 search loops; it counts the reads that had to wait for the card
 (`counters["host_syncs"]`), so a run can report what its host-driven
@@ -55,6 +57,12 @@ def resolve(device: Union[str, torch.device, None] = "cuda") -> torch.device:
             "pass device='cpu' to run on the CPU"
         )
     return dev
+
+
+def local_devices() -> list[torch.device]:
+    """This process's cards, `cuda:0` .. `cuda:n-1` (empty without
+    one): the one device list the mesh (parallel/mesh.py) reads."""
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
 
 
 _tf32_lock = threading.Lock()

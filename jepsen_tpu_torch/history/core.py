@@ -96,6 +96,12 @@ class Op:
                             value=self.value if value is _KEEP else value,
                             time=-1, index=-1, ext=new_ext)
 
+    def with_ext(self, **kw: Any) -> "Op":
+        """This op with extra keys added to (or replacing) its ext."""
+        ext = dict(self.ext)
+        ext.update(kw)
+        return self.replace(ext=ext)
+
     def to_dict(self) -> dict[str, Any]:
         """The op as a flat dict, extra keys beside the fields."""
         d = {"index": self.index, "time": self.time, "type": self.type,
@@ -212,6 +218,11 @@ class History(Sequence[Op]):
     def pair_index(self, i: int) -> int:
         return self._index()[0].get(i, -1)
 
+    def get_index(self, i: int) -> Optional[Op]:
+        """The op with Op.index == i, or None."""
+        pos = self._index()[1].get(i)
+        return self.ops[pos] if pos is not None else None
+
     # -- filtered views ----------------------------------------------------
 
     def filter(self, pred: Callable[[Op], bool]) -> "History":
@@ -219,8 +230,46 @@ class History(Sequence[Op]):
         so pairing against the original stays meaningful via .index."""
         return History([o for o in self.ops if pred(o)], reindex=False)
 
+    def remove(self, pred: Callable[[Op], bool]) -> "History":
+        return self.filter(lambda o: not pred(o))
+
+    def map(self, f: Callable[[Op], Op]) -> "History":
+        return History([f(o) for o in self.ops], reindex=False)
+
     def client_ops(self) -> "History":
         return self.filter(lambda o: o.is_client_op)
+
+    def invokes(self) -> "History":
+        return self.filter(lambda o: o.is_invoke)
+
+    def oks(self) -> "History":
+        return self.filter(lambda o: o.is_ok)
+
+    def fails(self) -> "History":
+        return self.filter(lambda o: o.is_fail)
+
+    def infos(self) -> "History":
+        return self.filter(lambda o: o.is_info)
+
+    def nemesis_ops(self) -> "History":
+        return self.filter(lambda o: o.process == NEMESIS)
+
+    def has_f(self, fs) -> "History":
+        """The ops whose f is `fs` (a name), in `fs` (a collection), or
+        satisfies `fs` (a predicate)."""
+        if callable(fs):
+            return self.filter(lambda o: fs(o.f))
+        fset = {fs} if isinstance(fs, str) else set(fs)
+        return self.filter(lambda o: o.f in fset)
+
+    def possible(self) -> "History":
+        """Ops that may have happened: everything but :fail completions
+        and their invocations."""
+        pair = self._index()[0]
+        failed_invokes = {pair[o.index] for o in self.ops
+                          if o.is_fail and o.index in pair}
+        return self.filter(
+            lambda o: not (o.is_fail or o.index in failed_invokes))
 
     def fold(self, f: "Any", chunk_size: "int | None" = None) -> Any:
         """Runs a history.fold.Fold over this history (h/fold)."""
@@ -244,6 +293,10 @@ class History(Sequence[Op]):
 
     def __iter__(self) -> Iterator[Op]:
         return iter(self.ops)
+
+    def strip_indices(self) -> list[Op]:
+        """The ops with their indices removed."""
+        return [o.replace(index=-1) for o in self.ops]
 
     def to_dicts(self) -> list[dict[str, Any]]:
         return [o.to_dict() for o in self.ops]

@@ -103,6 +103,14 @@ class PackedOps:
     def n_ok(self) -> int:
         return int((self.status == ST_OK).sum())
 
+    def op_row(self, a: int) -> dict[str, int]:
+        """Row `a`'s columns (all but preds and horizon) as ints."""
+        return {"inv": int(self.inv[a]), "ret": int(self.ret[a]),
+                "process": int(self.process[a]),
+                "status": int(self.status[a]), "f": int(self.f[a]),
+                "a0": int(self.a0[a]), "a1": int(self.a1[a]),
+                "src_index": int(self.src_index[a])}
+
 
 #: Column names and dtypes, in the reference's serialization order.
 PACKED_COLUMNS: tuple[tuple[str, Any], ...] = (
@@ -262,6 +270,11 @@ class PackedBuilder:
         self._finished = False
 
     @property
+    def n_events(self) -> int:
+        """Client events consumed so far."""
+        return self._e
+
+    @property
     def n_rows(self) -> int:
         """Rows emitted so far (more may follow until finish())."""
         return len(self._rows) + len(self._stable)
@@ -322,6 +335,10 @@ class PackedBuilder:
             inv = self._pending.pop(o.process, None)
             if inv is not None:
                 self._emit(inv[0], inv[1], e, o)
+
+    def extend(self, ops) -> None:
+        """Feeds a chunk of ops (may be empty)."""
+        self.append_many(ops)
 
     def append_many(self, ops) -> None:
         """Feeds a chunk of ops in journal order — the same rows as

@@ -30,19 +30,23 @@ Two device programs, each plain PyTorch (the JAX package's are
 `device.counters["scc_screens"]` and `["scc_extractions"]` count the
 calls of each program.  `check_cycles_device` is one "elle" profile
 record (telemetry/profile.py), whose cost is the closures' and the
-extraction levels' counts (telemetry/roofline.py).  The mesh sharding
-of the screen is not ported.
+extraction levels' counts (telemetry/roofline.py).  With a `mesh`
+(parallel/mesh.py) the screen pads the graphs to a multiple of the mesh
+size with empty graphs and screens one contiguous shard per entry on
+its entry's device, as the reference's `shard_map` over the "keys"
+axis does; the flags come back in graph order.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Union
+from typing import Any, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
 from .. import device as _device
 from .. import telemetry
+from ..parallel.mesh import gather_shards
 from ..telemetry import profile, roofline
 from ..checker.elle.graph import (DepGraph, check_cycles, classify_cycle,
                                   cycle_explanation)
@@ -65,14 +69,17 @@ def closure_dtype(dev: torch.device) -> torch.dtype:
 
 def pack_adjacency(
     graphs: Sequence[DepGraph],
+    *,
+    pad_keys_to: Optional[int] = None,
 ) -> tuple[np.ndarray, list[list[int]]]:
     """Packs graphs into a (K, V, V) bool adjacency tensor (all edge
     types collapsed — the screen only needs reachability) plus each
     graph's dense-index -> vertex mapping (sorted vertices).  K is the
-    number of graphs; V is the largest vertex count, bucketed from 8 by
-    doubling."""
+    number of graphs, or `pad_keys_to` (empty graphs fill the rest); V
+    is the largest vertex count, bucketed from 8 by doubling."""
     V = _bucket(max((len(g.vertices) for g in graphs), default=1), 8)
-    adj = np.zeros((len(graphs), V, V), dtype=bool)
+    K = pad_keys_to or len(graphs)
+    adj = np.zeros((K, V, V), dtype=bool)
     vertex_maps: list[list[int]] = []
     for k, g in enumerate(graphs):
         verts = sorted(g.vertices)
@@ -100,14 +107,16 @@ def has_cycle(adj: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return closure(adj, dtype).diagonal(dim1=1, dim2=2).any(dim=1)
 
 
-def screen_cycles(graphs: Sequence[DepGraph], *,
+def screen_cycles(graphs: Sequence[DepGraph], *, mesh: Any = None,
                   device: DeviceLike = "cuda") -> np.ndarray:
     """(n_graphs,) bool: True where the graph contains a cycle.  Runs
     on `device` (the card by default; raises when CUDA is asked for
-    and missing)."""
+    and missing), or split over `mesh`'s devices when given."""
     dev = _device.resolve(device)
     if not graphs:
         return np.zeros(0, dtype=bool)
+    if mesh is not None:
+        return _screen_mesh(graphs, mesh)
     adj, _ = pack_adjacency(graphs)
     _device.count("scc_screens")
     with telemetry.span("elle.screen.block"):
@@ -116,6 +125,30 @@ def screen_cycles(graphs: Sequence[DepGraph], *,
     if profile.cost_hooked():
         profile.note_cost(roofline.closure_cost(adj.shape[0], adj.shape[1]))
     return out
+
+
+def _screen_mesh(graphs: Sequence[DepGraph], mesh: Any) -> np.ndarray:
+    """`screen_cycles` over `mesh`: the graphs padded to a multiple of
+    its size, one contiguous shard per entry, this rank's shards
+    screened side by side and read back together, every shard's flags
+    gathered in shard order."""
+    n = len(graphs)
+    shards = mesh.size
+    K = ((n + shards - 1) // shards) * shards
+    per = K // shards
+    adj, _ = pack_adjacency(graphs, pad_keys_to=K)
+    devs = mesh.shard_devices()
+    _device.count("scc_screens")
+    with telemetry.span("elle.screen.block"):
+        flags = {i: has_cycle(torch.from_numpy(adj[i * per:(i + 1) * per])
+                              .to(d), closure_dtype(d))
+                 for i, d in enumerate(devs) if d is not None}
+        local = {i: np.asarray(_device.host(f), dtype=bool)
+                 for i, f in flags.items()}
+    if profile.cost_hooked():
+        profile.note_cost(roofline.closure_cost(K, adj.shape[1]))
+    got = gather_shards(mesh, local)
+    return np.concatenate([got[i] for i in range(shards)])[:n]
 
 
 def extract_batch(adj_all: torch.Tensor, adj_req: torch.Tensor,
@@ -335,6 +368,7 @@ def check_cycles_layered_device(graph: DepGraph, *,
 
 def check_cycles_device(
     graphs: Sequence[DepGraph], *,
+    mesh: Any = None,
     device: DeviceLike = "cuda",
     max_device_vertices: int = 1024,
     device_extract_min_vertices: int = 256,
@@ -346,19 +380,20 @@ def check_cycles_device(
     (check_cycles_layered_device_batch), all in one batch.  Graphs too
     large for a dense (V, V) matrix go to the host entirely.  The
     device is resolved first, so a missing card raises whatever the
-    route."""
+    route.  With a `mesh` the screen splits the graphs over its devices
+    (`screen_cycles`); the extraction stays on `device`."""
     dev = _device.resolve(device)
     with profile.capture("elle", device=dev, graphs=len(graphs)) as cap:
         out = _check_cycles_device(graphs, dev, max_device_vertices,
-                                   device_extract_min_vertices)
+                                   device_extract_min_vertices, mesh)
         cap.outcome = {"flagged": sum(1 for recs in out if recs)}
     return out
 
 
 def _check_cycles_device(graphs: Sequence[DepGraph], dev: torch.device,
                          max_device_vertices: int,
-                         device_extract_min_vertices: int
-                         ) -> list[list[dict]]:
+                         device_extract_min_vertices: int,
+                         mesh: Any = None) -> list[list[dict]]:
     big = {
         i for i, g in enumerate(graphs)
         if len(g.vertices) > max_device_vertices
@@ -367,7 +402,8 @@ def _check_cycles_device(graphs: Sequence[DepGraph], dev: torch.device,
     out: list[list[dict]] = [[] for _ in graphs]
     device_bound: list[int] = []
     if small_idx:
-        flags = screen_cycles([graphs[i] for i in small_idx], device=dev)
+        flags = screen_cycles([graphs[i] for i in small_idx], mesh=mesh,
+                              device=dev)
         for i, flagged in zip(small_idx, flags):
             if not flagged:
                 continue

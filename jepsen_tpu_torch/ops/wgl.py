@@ -29,13 +29,23 @@ level-synchronous frontier BFS below settles the verdict:
 The JAX package runs each block as one jitted while-loop; here the
 level loop runs on the host with one device read per level
 (`device.counters["host_syncs"]`).
+
+With a `mesh` (parallel/mesh.py) the BFS frontier of this one search
+is split over the mesh's devices (`_run_block_sharded`, the reference's
+`_make_block_fn_sharded`): each device expands its B/n rows into its
+Cmax/n candidate slots, the candidates are gathered on the first
+entry's device for the stable hash sort and the exact dedup, and the
+new frontier is split again.  The verdicts are the single-device
+search's; candidate overflow is counted per shard, so a lopsided level
+can take the (sound) wider-beam retry where the single search would
+not.  The witness tier stays on `device`.
 """
 
 from __future__ import annotations
 
 import os
 import time
-from typing import Optional, Union
+from typing import Any, Optional, Union
 
 import numpy as np
 import torch
@@ -279,6 +289,21 @@ def _dedup_sort(child, new_states, live_c, h1, h2):
     return child_s, states_s, uniq, uniq.sum()
 
 
+def _note_level(W: int, SW: int, B: int, Cmax: int,
+                rows: Optional[tuple] = None) -> None:
+    """The accounting of one BFS level after its host read: with `rows`
+    (alive rows, live candidates, kept rows; read for packed levels
+    with telemetry on) the bytes and operations this data needs, then
+    the level count and the level's cost record."""
+    if rows is not None:
+        cost = roofline.packed_level_cost(W, SW, *rows)
+        telemetry.count("wgl.bfs.packed_bytes", cost["bytes_accessed"])
+        telemetry.count("wgl.bfs.packed_ops", cost["flops"])
+    _device.count("bfs_levels")
+    if profile.cost_hooked():
+        profile.note_cost(roofline.bfs_level_cost(W, B, SW, Cmax))
+
+
 def _run_block(member, states, alive, iters: int, tables, B: int,
                Cmax: int, pm: PackedModel, packed_on: bool = False):
     """Up to `iters` BFS levels from one frontier: the reference's
@@ -313,15 +338,8 @@ def _run_block(member, states, alive, iters: int, tables, B: int,
         alive = torch.arange(B, device=dev) < n_keep
         read = _device.host(torch.stack(flags))
         acc_h, inc_h, n_keep_h = read[:3]
-        if count_rows:
-            cost = roofline.packed_level_cost(W, states.shape[1], read[3],
-                                              read[4], n_keep_h)
-            telemetry.count("wgl.bfs.packed_bytes", cost["bytes_accessed"])
-            telemetry.count("wgl.bfs.packed_ops", cost["flops"])
-        _device.count("bfs_levels")
-        if profile.cost_hooked():
-            profile.note_cost(roofline.bfs_level_cost(
-                W, B, states.shape[1], Cmax))
+        _note_level(W, states.shape[1], B, Cmax,
+                    (read[3], read[4], n_keep_h) if count_rows else None)
         it += 1
         explored += n_keep_h
         accepted = accepted or bool(acc_h)
@@ -329,6 +347,72 @@ def _run_block(member, states, alive, iters: int, tables, B: int,
         if accepted or n_keep_h == 0:
             break
     return member, states, alive, accepted, incomplete, explored, it
+
+
+def _run_block_sharded(member, states, alive, iters: int, tables: dict,
+                       B: int, Cmax: int, pm: PackedModel,
+                       packed_on: bool, shards: list):
+    """`_run_block` with the frontier split over `shards` (one device
+    per mesh entry; `tables` maps each device to its copy of the
+    block's tables).  The frontier arrives and leaves whole on the
+    first shard's device; inside the block shard d holds rows
+    [d*B/n, (d+1)*B/n).  Per level each shard expands its rows into
+    Cmax/n slots, the candidates are gathered in shard order for the
+    dedup sort (the reference's all_gather), and the kept rows are
+    split again, as the reference's per-device slice of the new
+    frontier."""
+    n = len(shards)
+    if B % n or Cmax % n:
+        raise ValueError(f"mesh size {n} must evenly divide the beam {B} "
+                         f"and its candidate budget {Cmax}")
+    B_l, C_l = B // n, Cmax // n
+    home = shards[0]
+    expand = _expand_level_packed if packed_on else _expand_level
+    W = tables[home]["ret_w"].shape[0]
+
+    def split(x):
+        return [x[d * B_l:(d + 1) * B_l].to(dev)
+                for d, dev in enumerate(shards)]
+
+    def gather(xs):
+        return torch.cat([x.to(home) for x in xs])
+
+    mem, st, al = split(member), split(states), split(alive)
+    accepted = incomplete = False
+    explored = it = 0
+    count_rows = packed_on and telemetry.enabled()
+    while it < iters:
+        outs = [expand(mem[d], st[d], al[d], tables[dev], C_l, pm)
+                for d, dev in enumerate(shards)]
+        child, new_states, live_c, h1, h2 = (
+            gather([o[j] for o in outs]) for j in range(5))
+        child_s, states_s, uniq, n_uniq = _dedup_sort(
+            child, new_states, live_c, h1, h2)
+        n_keep = torch.clamp(n_uniq, max=B)
+        # Each shard's acceptance and overflow go to the host as they
+        # are, in the level's one read: [acc x n, overflow x n, beam
+        # overflow, kept rows, (alive rows x n, live candidates)].
+        flags = ([o[5].to(home) for o in outs]
+                 + [o[6].to(home) for o in outs] + [n_uniq > B, n_keep])
+        if count_rows:
+            flags += [a.sum().to(home) for a in al] + [live_c.sum()]
+        sel = nonzero_static(uniq, B, 0)
+        mem, st = split(child_s[sel]), split(states_s[sel])
+        al = split(torch.arange(B, device=home) < n_keep)
+        read = _device.host(torch.stack(flags))
+        acc_h, inc_h = any(read[:n]), any(read[n:2 * n + 1])
+        n_keep_h = read[2 * n + 1]
+        _note_level(W, states.shape[1], B, Cmax,
+                    (sum(read[2 * n + 2:-1]), read[-1], n_keep_h)
+                    if count_rows else None)
+        it += 1
+        explored += n_keep_h
+        accepted = accepted or bool(acc_h)
+        incomplete = incomplete or bool(inc_h)
+        if accepted or n_keep_h == 0:
+            break
+    return (gather(mem), gather(st), gather(al), accepted, incomplete,
+            explored, it)
 
 
 def check_wgl_device(
@@ -341,6 +425,7 @@ def check_wgl_device(
     time_limit_s: Optional[float] = None,
     witness: bool = True,
     width_hint: int = 0,
+    mesh: Any = None,
     checkpoint_dir: Optional[str] = None,
     packed_lanes: Optional[bool] = None,
     device: Union[str, torch.device, None] = "cuda",
@@ -364,9 +449,26 @@ def check_wgl_device(
     the block once at half the beam on the same device, when the
     frontier fits in half; the search then stays at most that wide.
     Otherwise it returns "unknown" with reason
-    "device-resource-error"."""
+    "device-resource-error".
+
+    `mesh` (parallel/mesh.py) splits the BFS frontier over its devices
+    (see the module docstring); its size must evenly divide the beam
+    bucket and the candidate budget, checked before any work, and it
+    must hold this process's devices alone."""
     dev = _device.resolve(device)
     t0 = time.monotonic()
+    shards = None
+    if mesh is not None:
+        n_dev = int(mesh.devices.size)
+        b0 = _bucket(beam)
+        if n_dev < 1 or b0 % n_dev or (CAND_FACTOR * b0) % n_dev:
+            raise ValueError(
+                f"mesh size {n_dev} must evenly divide the beam "
+                f"bucket {b0} and its candidate budget")
+        shards = mesh.shard_devices()
+        if any(d is None for d in shards):
+            raise ValueError("frontier sharding needs a mesh of this "
+                             "process's own devices")
     N = packed.n
     if N == 0 or packed.n_ok == 0:
         return WGLResult(valid=True, configs_explored=1,
@@ -410,16 +512,15 @@ def check_wgl_device(
                              reason="time-limit",
                              elapsed_s=time.monotonic() - t0)
 
-    # The BFS pass record: the reference's shape features and knobs
-    # (no mesh here).
+    # The BFS pass record: the reference's shape features and knobs.
     packed_on = packed_enabled(packed_lanes)
     with profile.capture("bfs", device=dev, ops=int(N),
                          ok=int(packed.n_ok)) as _pb:
         _pb.knob(beam=int(_bucket(beam, lo=256)), block=int(block),
                  max_beam=int(max_beam), max_window=int(MAX_WINDOW),
-                 mesh=False, packed=packed_on)
+                 mesh=mesh is not None, packed=packed_on)
         res = _bfs(packed, pm, beam, max_beam, block, t0, timed_out, dev,
-                   packed_on)
+                   packed_on, shards)
         _pb.outcome = (f"unknown:{res.reason}" if res.valid == "unknown"
                        else res.valid)
         _pb.feature(explored=int(res.configs_explored))
@@ -458,10 +559,25 @@ def _block_tables(tab_np: dict, W: int, SW: int, packed_on: bool,
     return tables
 
 
+def _bfs_tables(tab_np: dict, W: int, SW: int, packed_on: bool,
+                dev: torch.device, shards: Optional[list]):
+    """The block's tables on `dev`, or with `shards` a dict of them on
+    each distinct device (read-only, so entries that name one device
+    share them)."""
+    if shards is None:
+        return _block_tables(tab_np, W, SW, packed_on, dev)
+    return {d: _block_tables(tab_np, W, SW, packed_on, d)
+            for d in dict.fromkeys(shards)}
+
+
 def _bfs(packed: PackedOps, pm: PackedModel, beam: int, max_beam: int,
          block: int, t0: float, timed_out, dev: torch.device,
-         packed_on: bool) -> WGLResult:
-    """The frontier BFS of `check_wgl_device`, block by block."""
+         packed_on: bool, shards: Optional[list] = None) -> WGLResult:
+    """The frontier BFS of `check_wgl_device`, block by block; with
+    `shards`, the frontier split over them (`_run_block_sharded`) and
+    kept whole between blocks on the first one."""
+    if shards is not None:
+        dev = shards[0]
     N = packed.n
     SW = pm.state_width
     n0 = 0
@@ -480,7 +596,7 @@ def _bfs(packed: PackedOps, pm: PackedModel, beam: int, max_beam: int,
                              reason="window-overflow",
                              elapsed_s=time.monotonic() - t0)
         active, W, tab_np = win
-        tables = _block_tables(tab_np, W, SW, packed_on, dev)
+        tables = _bfs_tables(tab_np, W, SW, packed_on, dev, shards)
 
         if prev_active is None:
             shape = (B, packing.n_words(W)) if packed_on else (B, W)
@@ -516,10 +632,11 @@ def _bfs(packed: PackedOps, pm: PackedModel, beam: int, max_beam: int,
             try:
                 degrade.maybe_fault("device")
                 with telemetry.span("wgl.bfs.block"):
+                    args = (member, states, alive, iters, tables, B,
+                            CAND_FACTOR * B, pm, packed_on)
                     (member, states, alive, accepted, incomplete, explored,
-                     it_done) = _run_block(member, states, alive, iters,
-                                           tables, B, CAND_FACTOR * B, pm,
-                                           packed_on)
+                     it_done) = (_run_block(*args) if shards is None else
+                                 _run_block_sharded(*args, shards))
             except Exception as e:  # noqa: BLE001 — only resource errors
                 if not degrade.is_resource_error(e):
                     raise
@@ -531,7 +648,7 @@ def _bfs(packed: PackedOps, pm: PackedModel, beam: int, max_beam: int,
                     packed_on = False
                     degrade.record("device", "packed-fallback", e)
                     telemetry.count("wgl.packed.fallbacks")
-                    tables = _block_tables(tab_np, W, SW, False, dev)
+                    tables = _bfs_tables(tab_np, W, SW, False, dev, shards)
                     snap = (packing.unpack_bits(snap[0], W),) + snap[1:]
                     member, states, alive = snap
                     continue

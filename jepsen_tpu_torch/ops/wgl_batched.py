@@ -1,8 +1,7 @@
 """Batched per-key Wing–Gong–Lowe search: every key's frontier BFS at
-once, on one device.
+once, on one device or with the keys split over a mesh.
 
-The port of `jepsen_tpu/ops/wgl_batched.py` (one card; the mesh
-sharding is left out).  By default (`JEPSEN_WGL_PACKED`) the member
+The port of `jepsen_tpu/ops/wgl_batched.py`.  By default (`JEPSEN_WGL_PACKED`) the member
 bitsets ride as 32-bit lane words between levels, with the reference's
 word-OR children, packed cover test and uint32 dedup hashes
 (ops/packing.py, ops/wgl.py); `JEPSEN_WGL_PACKED=0` gives bool rows.
@@ -13,6 +12,14 @@ here one host loop runs the levels, with one device read per level
 (`device.counters["bfs_levels"]` and `"host_syncs"`).  A key whose
 search is over (accepted, dead, or past its op count) keeps its carry
 from then on, as `vmap` of a `while_loop` does.
+
+With a `mesh` (parallel/mesh.py) each retry round's keys are padded
+to a multiple of the mesh size with keys of no ops and split into
+contiguous shards, one per entry; each shard's level loop runs on its
+entry's device, one host read a level for all of them, and the
+verdicts come back in key order (across ranks through
+`mesh.gather_shards`).  No shard waits on another: per-key searches
+share nothing.
 
 Per-key histories are short, so the whole history fits the member
 bitset and no windowing is needed.  This is plain PyTorch: the JAX
@@ -26,6 +33,7 @@ and past `max_beam` reports "unknown" for the exact CPU settle.
 
 from __future__ import annotations
 
+import math
 import time
 from dataclasses import dataclass
 from typing import Any, Optional, Union
@@ -37,6 +45,7 @@ from .. import device as _device
 from .. import telemetry
 from ..history.packed import ST_OK, PackedOps
 from ..models.base import PackedModel
+from ..parallel.mesh import gather_shards
 from ..telemetry import profile, roofline
 from . import degrade, packing
 from .wgl import packed_enabled
@@ -87,19 +96,22 @@ class BatchedPack:
         return int(self.ret.shape[1])
 
 
-def pack_batch(packs: list[PackedOps]) -> BatchedPack:
+def pack_batch(packs: list[PackedOps],
+               pad_keys_to: Optional[int] = None) -> BatchedPack:
     """Stacks per-key PackedOps into padded (K, N) arrays.  Padding ops
     have inv = ret = INF, so they are never order-legal candidates and
-    never block anyone."""
+    never block anyone; padding keys (up to `pad_keys_to`, to fill a
+    mesh) have n_ops = 0 and accept at once."""
     K = len(packs)
+    Kp = pad_keys_to if pad_keys_to and pad_keys_to > K else K
     N = _bucket(max((p.n for p in packs), default=1))
-    ret = np.full((K, N), INF, dtype=np.int32)
-    inv = np.full((K, N), INF, dtype=np.int32)
-    f = np.zeros((K, N), dtype=np.int32)
-    a0 = np.zeros((K, N), dtype=np.int32)
-    a1 = np.zeros((K, N), dtype=np.int32)
-    okv = np.zeros((K, N), dtype=bool)
-    n_ops = np.zeros(K, dtype=np.int32)
+    ret = np.full((Kp, N), INF, dtype=np.int32)
+    inv = np.full((Kp, N), INF, dtype=np.int32)
+    f = np.zeros((Kp, N), dtype=np.int32)
+    a0 = np.zeros((Kp, N), dtype=np.int32)
+    a1 = np.zeros((Kp, N), dtype=np.int32)
+    okv = np.zeros((Kp, N), dtype=bool)
+    n_ops = np.zeros(Kp, dtype=np.int32)
     for k, p in enumerate(packs):
         n = p.n
         n_ops[k] = n
@@ -256,15 +268,14 @@ def _level(carry, t: _Tables, B: int, Cmax: int, pm: PackedModel):
             explored + n_keep.to(torch.int32), it + 1)
 
 
-def _search(t: _Tables, B: int, Cmax: int, pm: PackedModel):
-    """Every key's full frontier search (the reference's `key_fn` under
-    `vmap`) -> (accepted, alive_end, incomplete, explored) as numpy."""
+def _init_carry(t: _Tables, B: int) -> tuple:
+    """Every key's search at its start: one live empty configuration."""
     Kt, N = t.ret.shape
     dev = t.ret.device
     member0 = (torch.zeros((Kt, B, packing.n_words(N)), dtype=torch.int32,
                            device=dev) if t.packed
                else torch.zeros((Kt, B, N), dtype=torch.bool, device=dev))
-    carry = (
+    return (
         member0,
         t.init.expand(Kt, B, -1).clone(),
         (torch.arange(B, device=dev) < 1).expand(Kt, B).clone(),
@@ -274,29 +285,100 @@ def _search(t: _Tables, B: int, Cmax: int, pm: PackedModel):
         torch.zeros(Kt, dtype=torch.int32, device=dev),
     )
 
-    def running(c):
-        _, _, alive, accepted, _, _, it = c
-        return ~accepted & alive.any(dim=1) & (it < t.n_ops)
 
-    live = running(carry)
-    while _device.host(live.any()):
-        nxt = _level(carry, t, B, Cmax, pm)
-        _device.count("bfs_levels")
-        if profile.cost_hooked():
-            profile.note_cost(roofline.batched_level_cost(
-                Kt, N, B, carry[1].shape[2], Cmax))
-        # A finished key keeps its carry, as under vmap.
-        carry = tuple(
-            torch.where(live.reshape((Kt,) + (1,) * (old.dim() - 1)),
-                        new, old)
-            for old, new in zip(carry, nxt))
-        live = running(carry)
+def _running(c: tuple, t: _Tables) -> torch.Tensor:
+    """(Kt,) bool: the keys whose search goes on."""
+    _, _, alive, accepted, _, _, it = c
+    return ~accepted & alive.any(dim=1) & (it < t.n_ops)
+
+
+def _advance(carry: tuple, live: torch.Tensor, t: _Tables, B: int,
+             Cmax: int, pm: PackedModel) -> tuple:
+    """One level of the keys still running; a finished key keeps its
+    carry, as under vmap."""
+    Kt, N = t.ret.shape
+    nxt = _level(carry, t, B, Cmax, pm)
+    _device.count("bfs_levels")
+    if profile.cost_hooked():
+        profile.note_cost(roofline.batched_level_cost(
+            Kt, N, B, carry[1].shape[2], Cmax))
+    return tuple(
+        torch.where(live.reshape((Kt,) + (1,) * (old.dim() - 1)), new, old)
+        for old, new in zip(carry, nxt))
+
+
+def _outcome(carry: tuple) -> torch.Tensor:
+    """(4, Kt) int64: accepted, alive at the end, incomplete, explored."""
     _, _, alive, accepted, incomplete, explored, _ = carry
-    acc, alive_end, inc, expl = _device.host(torch.stack(
+    return torch.stack(
         [accepted.to(torch.int64), alive.any(dim=1).to(torch.int64),
-         incomplete.to(torch.int64), explored.to(torch.int64)]))
+         incomplete.to(torch.int64), explored.to(torch.int64)])
+
+
+def _as_numpy(read) -> tuple:
+    acc, alive_end, inc, expl = read
     return (np.asarray(acc, dtype=bool), np.asarray(alive_end, dtype=bool),
             np.asarray(inc, dtype=bool), np.asarray(expl, dtype=np.int64))
+
+
+def _search(t: _Tables, B: int, Cmax: int, pm: PackedModel):
+    """Every key's full frontier search (the reference's `key_fn` under
+    `vmap`) -> (accepted, alive_end, incomplete, explored) as numpy."""
+    carry = _init_carry(t, B)
+    live = _running(carry, t)
+    while _device.host(live.any()):
+        carry = _advance(carry, live, t, B, Cmax, pm)
+        live = _running(carry, t)
+    return _as_numpy(_device.host(_outcome(carry)))
+
+
+def _search_shards(ts: list, B: int, Cmax: int, pm: PackedModel) -> list:
+    """`_search` of every shard in `ts` (one `_Tables` each, on its own
+    device), their levels interleaved: each round advances every shard
+    still running and reads all their flags in one host read on the
+    first shard's device, so the devices work side by side.  Returns
+    one `_search` tuple per shard."""
+    home = ts[0].ret.device
+    carries = [_init_carry(t, B) for t in ts]
+    lives = [_running(c, t) for c, t in zip(carries, ts)]
+    while True:
+        going = _device.host(torch.stack([lv.any().to(home)
+                                          for lv in lives]))
+        if not any(going):
+            break
+        for i, t in enumerate(ts):
+            if going[i]:
+                carries[i] = _advance(carries[i], lives[i], t, B, Cmax, pm)
+                lives[i] = _running(carries[i], t)
+    outs = _device.host(torch.cat([_outcome(c).to(home) for c in carries],
+                                  dim=1))
+    out, at = [], 0
+    for t in ts:
+        k = t.ret.shape[0]
+        out.append(_as_numpy([row[at:at + k] for row in outs]))
+        at += k
+    return out
+
+
+def _search_mesh(mesh, shard_devs: list, bp: BatchedPack, todo: list,
+                 pad_key: int, pm: PackedModel, B: int,
+                 packed_on: bool) -> tuple:
+    """One retry round of `todo` split over `mesh`: padded with the
+    no-op key `pad_key` to a multiple of the mesh size, one contiguous
+    shard per entry, this rank's shards searched side by side
+    (`_search_shards`), every shard's results gathered in shard order;
+    the padding's are dropped."""
+    n_dev = mesh.size
+    per = math.ceil(len(todo) / n_dev)
+    sel = np.asarray(todo + [pad_key] * (n_dev * per - len(todo)))
+    mine = [i for i, d in enumerate(shard_devs) if d is not None]
+    ts = [_Tables(bp, sel[i * per:(i + 1) * per], pm, shard_devs[i],
+                  packed_on) for i in mine]
+    local = dict(zip(mine, _search_shards(ts, B, CAND_FACTOR * B, pm)
+                     if ts else []))
+    got = gather_shards(mesh, local)
+    return tuple(np.concatenate([got[i][j] for i in range(n_dev)])[:len(todo)]
+                 for j in range(4))
 
 
 @dataclass
@@ -314,6 +396,7 @@ def check_wgl_batched(
     *,
     beam: int = 256,
     max_beam: int = 16384,
+    mesh: Any = None,
     time_limit_s: Optional[float] = None,
     packed_lanes: Optional[bool] = None,
     device: Union[str, torch.device, None] = "cuda",
@@ -327,11 +410,23 @@ def check_wgl_batched(
     device resource error (the `JEPSEN_WGL_FAULT` hook's "batched" tier
     included) first sheds the packed lanes at the same beam, then
     retries once at half the beam on the same device, then reports the
-    unsettled keys "unknown"; any other error raises."""
+    unsettled keys "unknown"; any other error raises.
+
+    With a `mesh` (parallel/mesh.py) the keys split into one contiguous
+    shard per entry, each searched on its entry's device (see the
+    module docstring); `device` then goes unused."""
     dev = _device.resolve(device)
     t0 = time.monotonic()
     K = len(packs)
-    bp = pack_batch(packs)
+    if mesh is None:
+        bp = pack_batch(packs)
+        shard_devs = None
+    else:
+        n_dev = mesh.size
+        shard_devs = mesh.shard_devices()
+        # One spare key of no ops at least: the rounds pad with it.
+        bp = pack_batch(packs, pad_keys_to=max(
+            n_dev * math.ceil(K / n_dev), K + 1))
 
     verdict: list[Any] = [None] * K
     explored = np.zeros(K, dtype=np.int64)
@@ -340,21 +435,27 @@ def check_wgl_batched(
     packed_on = packed_enabled(packed_lanes)
     batch_retried = False
     # One cost record per batched pass: the reference's features and
-    # knobs (no mesh here).
+    # knobs.
     with profile.capture("batched", device=dev, keys=K,
                          ops=int(sum(p.n for p in packs))) as _pb:
         _pb.knob(beam=B, max_beam=int(max_beam), cand_factor=CAND_FACTOR,
-                 mesh=False, packed=packed_on)
+                 mesh=mesh is not None, packed=packed_on)
         while todo:
-            t = _Tables(bp, np.asarray(todo), pm, dev, packed_on)
             if packed_on and telemetry.enabled():
                 telemetry.count("wgl.packed.batched-rounds")
             try:
                 degrade.maybe_fault("batched")
                 with telemetry.span("wgl.batched.block", keys=len(todo),
                                     beam=B):
-                    acc, alive_end, inc, expl = _search(
-                        t, B, CAND_FACTOR * B, pm)
+                    if mesh is None:
+                        t = _Tables(bp, np.asarray(todo), pm, dev,
+                                    packed_on)
+                        acc, alive_end, inc, expl = _search(
+                            t, B, CAND_FACTOR * B, pm)
+                    else:
+                        acc, alive_end, inc, expl = _search_mesh(
+                            mesh, shard_devs, bp, todo, K, pm, B,
+                            packed_on)
             except Exception as e:  # noqa: BLE001 — only resource errors
                 if not degrade.is_resource_error(e):
                     raise

@@ -30,8 +30,12 @@ failure of the plan layer, raises out of `check` (see checker/core.py
 
 With a store directory (`opts["dir"]`) each key's verdict and
 subhistory go to `independent/<key>/` there, as the reference writes
-them.  Left out: mesh sharding.  The result adds "tiers": how many keys
-each tier settled.
+them.  The batched BFS splits the cohort's keys over a mesh
+(parallel/mesh.py): the test map's "mesh", else every card when the
+process sees more than one (`checker_mesh`, read by plan/compiler.py
+`run_cohort`); a test map's "search-mesh" instead splits the frontier
+of each key that runs alone (over 2,000 ops).  The result adds "tiers":
+how many keys each tier settled.
 """
 
 from __future__ import annotations

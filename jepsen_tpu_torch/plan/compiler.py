@@ -153,7 +153,12 @@ def run_cohort(
 ) -> dict:
     """Compiles and executes the cohort plan on `device`: everything
     after the packing partition of `IndependentChecker`.  The keys each
-    tier decided are added to `tiers` (a Counter) when given."""
+    tier decided are added to `tiers` (a Counter) when given.  The
+    batched tier splits its keys over `checker_mesh(test, device)`:
+    the test map's "mesh", else every card when there is more than one
+    (parallel/mesh.py)."""
+    from ..parallel.mesh import checker_mesh
+
     n_ops = int(sum(packs[k].n for k in packable))
     plan, entry = compile_cohort_plan(
         checker, test, lin, pm, len(packable), n_ops,
@@ -163,7 +168,7 @@ def run_cohort(
     ctx = ExecContext(
         test=test, subs=subs, packs=packs, model=model, pm=pm, lin=lin,
         opts=opts, device=device, bound=getattr(checker, "bound", None),
-        checker=checker, mode="cohort",
+        mesh=checker_mesh(test, device), checker=checker, mode="cohort",
         identity=_identity(lin, pm, "cohort"))
     if tiers is not None:
         ctx.tiers = tiers

@@ -66,6 +66,9 @@ class ExecContext:
     device: torch.device = dataclasses.field(
         default_factory=lambda: torch.device("cuda"))
     bound: Optional[int] = None
+    #: The mesh (parallel/mesh.py) the batched tier splits keys over,
+    #: or None for `device` alone.
+    mesh: Any = None
     checker: Any = None
     #: "cohort" (IndependentChecker), "packs" (wire-packed
     #: submissions), or "single" (one Linearizable history).
@@ -328,7 +331,7 @@ def _run_batched(ctx: ExecContext, node: PassNode, keys: list):
     beam = node.knobs.get("beam") or min(lin.beam, 32)
     batch = check_wgl_batched(
         [ctx.packs[k] for k in keys], ctx.pm, beam=beam,
-        max_beam=max(lin.max_beam, lin.beam),
+        max_beam=max(lin.max_beam, lin.beam), mesh=ctx.mesh,
         time_limit_s=ctx.budget_left(), device=ctx.device)
     decided: dict = {}
     refuted, unknown = [], []
@@ -436,9 +439,11 @@ def _run_packs_exact(ctx: ExecContext, node: PassNode, keys: list):
 def _run_device_ladder(ctx: ExecContext, node: PassNode, keys: list):
     """The whole single-history device-first ladder of
     `Linearizable._device_first` (screens, witness, frontier BFS, the
-    halved retry, exact settling) as one exact pass."""
+    halved retry, exact settling) as one exact pass; the test map's
+    "search-mesh" splits each search's BFS frontier."""
+    mesh = (ctx.test or {}).get("search-mesh")
     return {k: ctx.lin._device_first(ctx.packs[k], ctx.pm, ctx.device,
-                                     ctx.opts)
+                                     ctx.opts, mesh=mesh)
             for k in keys}, {}
 
 

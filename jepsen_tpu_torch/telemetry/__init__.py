@@ -454,6 +454,12 @@ def adopt_remote_events(events: Any, pid: Any = None) -> None:
             _foreign.append(e)
 
 
+def foreign_events() -> list[dict]:
+    """The adopted cross-process events (copies)."""
+    with _lock:
+        return [dict(e) for e in _foreign]
+
+
 def chrome_trace() -> dict:
     """The recorded spans as a Chrome trace-event dict ("X" complete
     events, µs timestamps) — Perfetto / chrome://tracing loadable.

@@ -1,7 +1,7 @@
 """Synthetic concurrent histories for benchmarks and tests.
 
-The port's copy of `jepsen_tpu/utils/histgen.py random_register_history`
-and `random_register_packed`, kept line for line: they draw from
+The port's copy of `jepsen_tpu/utils/histgen.py random_register_history`,
+`stale_read_history` and `random_register_packed`, kept line for line: they draw from
 Python's `random` and numpy's `default_rng`, so one seed gives one
 history in both packages, which the parity tests rely on.
 """
@@ -94,6 +94,50 @@ def random_register_history(
             Op(type="ok", f="read", value=n_values + 73, process=procs),
         ]
     return history(ops)
+
+
+def stale_read_history(
+    n_ops: int,
+    *,
+    procs: int = 16,
+    info_rate: float = 0.05,
+    n_values: int = 5,
+    seed: int = 45100,
+    read_at: float = 0.6,
+) -> History:
+    """A concurrent register history that is not linearizable through
+    the async-replication shape (repkv's violation): a value S is
+    written and acknowledged early, an acknowledged fence write
+    overwrites it, and much later a read still returns S.  Every
+    producer of S completes before the fence begins and the fence
+    completes before the read is invoked, so no linearization can serve
+    S to the read: the stale-read screen of `checker/refute.py` proves
+    it at any scale.
+
+    The body between fence and read is a linearizable-by-construction
+    workload over values 0..n_values-1 < S, so nothing produces S
+    again; info ops are welcome."""
+    S = n_values
+    prologue = [
+        Op(type="invoke", f="write", value=S, process=0),
+        Op(type="ok", f="write", value=S, process=0),
+        # the fence: an acknowledged overwrite, its window disjoint from
+        # the producer above and the stale read below
+        Op(type="invoke", f="write", value=0, process=0),
+        Op(type="ok", f="write", value=0, process=0),
+    ]
+    body = list(
+        random_register_history(
+            n_ops - 3, procs=procs, info_rate=info_rate,
+            n_values=n_values, seed=seed,
+        )
+    )
+    at = max(0, min(len(body), int(read_at * len(body))))
+    body[at:at] = [
+        Op(type="invoke", f="read", value=None, process=procs),
+        Op(type="ok", f="read", value=S, process=procs),
+    ]
+    return history(prologue + body)
 
 
 def random_register_packed(
