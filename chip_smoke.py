@@ -6,10 +6,10 @@
 Needs one CUDA card and the CUDA toolkit (nvcc): the witness sweep
 kernel is built from jepsen_tpu_torch/csrc/ into build/jepsen_tpu_torch/
 at first use.  Exits non-zero, printing no result, when torch sees no
-CUDA device or the package is missing.  Nineteen phases, each raising
+CUDA device or the package is missing.  Twenty phases, each raising
 on failure, run in the order 1, 2, 5, 6, 7, 8, 9, 10, 11, 1b, 12, 13, 14,
-18, 3, 4, 15, 16, 17 (every CUDA-event timing before the profiler first
-runs; phases 15-17, host-clock walls only, after it, since
+18, 3, 4, 15, 16, 17, 19, 20 (every CUDA-event timing before the profiler
+first runs; phases 15-20, host-clock walls only, after it, since
 torch.profiler drops device operations from its windows in a process
 that has run a search).  The searches run with the packed member lanes at their default
 (`JEPSEN_WGL_PACKED`, on), as users run them.  The
@@ -256,7 +256,7 @@ it; phase 9 reads its own parts (JEPSEN_PLAN=0, memo, faults, records):
    SSH nodes (the port's minissh servers) and SshCliRemote through the
    port's `ssh`/`scp` shims: an exec and a 1 MiB scp round trip with
    equal checksums, then tests/test_ssh_localhost.py's kvdb run (kill
-   faults, 6 s, the C++ server compiled on the node through SSH):
+   faults, 4 s, the C++ server compiled on the node through SSH):
    valid or unknown, its stored history's `cli analyze --device cpu`
    the same per-key verdicts, B1 launched, the SSH and analyze seconds
    printed; (16b) where network namespaces work, the repkv kernel
@@ -287,7 +287,7 @@ it; phase 9 reads its own parts (JEPSEN_PLAN=0, memo, faults, records):
    `kvdb monitor --suite kvdb --device cuda` child against the kvdb
    server with kill and pause windows, SIGKILLed between an inject and
    its heal, a torn tail added to its series, and a second monitor on
-   the same store (10 s, the smoke's 20 cut) with its dashboard: both
+   the same store (8 s, the smoke's 20 cut) with its dashboard: both
    families injected and healed, the residue swept, the search resumed
    and advanced, the series continuous, /api/series and the SSE stream
    served, exit 0 with every key proven (or 2 where each unknown key's
@@ -335,8 +335,30 @@ it; phase 9 reads its own parts (JEPSEN_PLAN=0, memo, faults, records):
    (mesh=)` itself and without the mesh: the verdicts, explored counts
    and BFS levels equal.
    No scaling is measured: both entries are one card.
+20. The robustness layer and the differential soak on the card
+   (`phase_soak`, tools/port_fault_matrix.py and tools/port_soak.py).
+   (20a) The fault matrix's wgl-fault cell (JEPSEN_WGL_FAULT=witness:
+   valid, the witness tier the only one degraded, the frontier BFS on
+   the card proving the history; "all": `CardExhausted` out of the run
+   with the card probe's result ok, the history stored) and its
+   hanging-checker cell.  (20b) The fuzz soak's fixed schedule
+   (SOAK_SEED_BASE, one round: every family at its smallest size, then
+   at its next, to the extra sizes; one valid and one corrupt history
+   each) under the SOAK_CAP_S wall cap, checked between histories, each
+   history decided by `check_wgl_device` on the card and by the exact
+   CPU engine: no mismatch, at least SOAK_MIN_VERDICTS decided verdicts
+   of each kind, every family decided SOAK_MIN_FAMILY times, the
+   2,600-op cas-register size decided at least once, and B1 launched.
+   (20c) One round-5 batch (SOAK_R5_SEED): at least one planted
+   violation, each convicted by the exact engine, every True of the
+   stream witness the exact engine's, and three keys' witness verdicts
+   and death ranks equal in the "full", "indices" and "device"
+   transfer modes; B1 launched.
 
-The last lines are the stages line (`{"stages_s": ...}`), the phase-19
+The last lines are the stages line (`{"stages_s": ...}`), the phase-20
+JSON line (`{"soak": ...}`: 20a's cells, 20b's trials, decided and
+unknown counts by family and size, and 20c's batch, each with its B1
+launches and seconds), the phase-19
 JSON line (`{"mesh": ...}`: each sub-phase's verdict gates, shards and
 seconds), the phase-18
 JSON line (`{"transfer": ..., "lint": ...}`: per mode the seconds, H2D
@@ -4315,8 +4337,10 @@ def phase_workloads(torch, dev=None, kafka_ops: int = KAFKA_OPS,
 # The demo suites against their real C++ servers (phase 14).
 
 #: Seconds of each phase-14 run (the reference's suite tests' settings,
-#: tests/test_{kvdb,logd,txnd,repkv,electd}_suite.py, cut to these).
-SUITE_SECONDS = {"a": 5, "b": 5, "c": 6, "d": 6, "e": 6, "f": 6}
+#: tests/test_{kvdb,logd,txnd,repkv,electd}_suite.py, cut to this; 5-6
+#: s before phase 20 took its place).  Every run's first fault falls
+#: inside it (nemesis intervals 1.0-1.5 s).
+SUITE_SECONDS = 3
 #: 14b's op limit: its Kafka graph stays under the screen's 1,024
 #: vertices (1,000 ops made 795 in phase 13a).
 SUITE_KAFKA_OPS = 1000
@@ -4433,7 +4457,7 @@ def phase_suites(torch, dev=None) -> dict:
             server of the run left."""
             store_dir = os.path.join(tmp, what)
             argv = ["test", "--device", dev.type, "--time-limit",
-                    str(SUITE_SECONDS[what[0]]), *args, "--store-dir", store_dir]
+                    str(SUITE_SECONDS), *args, "--store-dir", store_dir]
             r = _cli_readings(torch, dev, lambda: (main or mod.main)(argv),
                               store_dir, f"phase14{what}")
             left = _servers(store_dir)
@@ -5155,9 +5179,11 @@ def phase_search(torch, dev=None) -> dict:
 # Phase 16: Jepsen against real nodes over SSH, and the federated checker.
 # ---------------------------------------------------------------------------
 
-#: 16a: tests/test_ssh_localhost.py's loopback nodes and kvdb settings.
+#: 16a: tests/test_ssh_localhost.py's loopback nodes and kvdb settings
+#: (its 6 s run cut to 4 to pay for phase 20; the first kill falls at
+#: the 2 s interval).
 SSH_NODES = 3
-SSH_SECONDS, SSH_RATE, SSH_INTERVAL, SSH_CONCURRENCY = 6.0, 50.0, 2.0, 4
+SSH_SECONDS, SSH_RATE, SSH_INTERVAL, SSH_CONCURRENCY = 4.0, 50.0, 2.0, 4
 #: 16a's scp round trip: this many random bytes.
 SSH_SCP_BYTES = 1 << 20
 #: 16c: each daemon's batch window, long enough to SIGKILL the daemon
@@ -5934,11 +5960,11 @@ def phase_remote(torch, dev=None, fleet=None) -> dict:
 MON_RATE, MON_SECONDS, MON_INJECT_S, MON_CADENCE_S = 20_000.0, 6.0, 2.0, 0.3
 MON_ROWS_CEILING = 25_000
 #: 17b: tools/live_monitor_smoke.py's monitor at TenantSpec's defaults,
-#: and the resumed monitor's seconds (the smoke's 20, cut to 10: a
-#: resumed window takes ~3 s).
+#: and the resumed monitor's seconds (the smoke's 20, cut to 10, then
+#: to 8 to pay for phase 20: a resumed window takes ~3 s).
 LIVE_ARGS = ["--suite", "kvdb", "--live-faults", "kill,pause", "--rate",
              "50", "--keys", "2", "--procs-per-key", "2", "--cadence", "1"]
-LIVE_RESUME_S = 10.0
+LIVE_RESUME_S = 8.0
 LIVE_SERIES = "monitor.ops-per-s"
 #: How a frontier's death reads in a monitor's log when the witness
 #: could not prove its blocks (at an advance or at the finish).
@@ -7109,6 +7135,112 @@ def phase_mesh(torch, elle_graphs: list, dev=None) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 20: the robustness layer and the differential soak on the card.
+# ---------------------------------------------------------------------------
+
+#: 20b: tools/port_soak.py's fuzz schedule, one round from this seed
+#: base (each family's CI sizes and its extra ones, one valid and one
+#: corrupt history each, size rank by size rank), the wall cap checked
+#: between histories, and each history's budgets: the exact CPU engine
+#: at a CI size and at an extra one (three times as long, the soak
+#: tool's ratio), and the device check (the soak tool's own are 20 s,
+#: 60 s and 60 s; a history either side leaves unknown is skipped).
+#: Fixed, so every run on the card repeats the same histories.
+SOAK_SEED_BASE = 20_000
+SOAK_CAP_S = 40.0
+SOAK_CPU_BUDGETS_S, SOAK_DEVICE_BUDGET_S = (2.0, 6.0), 5.0
+#: 20b's floors: decided verdicts of each kind and decided histories of
+#: each family.  The cas-register family's largest size (2,600 ops in
+#: the generator) must be decided at least once.
+SOAK_MIN_VERDICTS, SOAK_MIN_FAMILY = 3, 2
+#: 20c's batch: its rng seed and seed base.  This one is an 8-key
+#: cas-register batch that plants a violation in key 4, one of the three
+#: keys the transfer modes check, so the gates hold the stream and the
+#: witness to an invalid key as well as to valid ones.
+SOAK_R5_SEED = 20_002
+
+
+def _tools():
+    """tools/'s port scripts, importable."""
+    d = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools")
+    if d not in sys.path:
+        sys.path.insert(0, d)
+    import port_fault_matrix
+    import port_soak
+
+    return port_fault_matrix, port_soak
+
+
+def phase_soak(torch, dev=None) -> dict:
+    """Phase 20 (module doc): 20a two cells of the port's fault matrix
+    on `dev`, 20b the fuzz soak's fixed schedule against the exact CPU
+    engine, 20c one round-5 batch and its transfer-mode check."""
+    import tempfile
+
+    fm, soak = _tools()
+    dev = torch.device("cuda") if dev is None else torch.device(dev)
+    out: dict = {}
+    t_phase = time.perf_counter()
+
+    t0 = time.perf_counter()
+    a: dict = {}
+    with tempfile.TemporaryDirectory(prefix="phase20-") as tmp:
+        for name in ("wgl-fault", "hanging-checker"):
+            t1 = time.perf_counter()
+            detail, launches, _ = counted(torch, dev, lambda: fm.SCENARIOS[
+                name](os.path.join(tmp, name, "store"), dev.type))
+            a[name] = {**detail, "b1_launches": launches.get(
+                "witness_sweep", 0), "wall_s": time.perf_counter() - t1}
+    if (a["wgl-fault"]["all"]["raised"] != "CardExhausted"
+            or a["wgl-fault"]["degraded_tiers"] != ["witness"]
+            or (dev.type == "cuda"
+                and a["wgl-fault"]["all"]["probe_ok"] is not True)):
+        raise AssertionError(f"phase20a: {a}")
+    a["wall_s"] = time.perf_counter() - t0
+    log("phase20a: " + json.dumps(a, default=repr))
+    out["a"] = a
+
+    t0 = time.perf_counter()
+    schedule = soak.fuzz_schedule(SOAK_SEED_BASE, 1)
+    tally, launches, _ = counted(torch, dev, lambda: soak.run_trials(
+        schedule, dev.type, time.monotonic() + SOAK_CAP_S,
+        cpu_budgets_s=SOAK_CPU_BUDGETS_S,
+        device_budget_s=SOAK_DEVICE_BUDGET_S))
+    b = {**tally.summary(), "scheduled": len(schedule),
+         "b1_launches": launches.get("witness_sweep", 0),
+         "cap_s": SOAK_CAP_S, "wall_s": time.perf_counter() - t0}
+    log("phase20b: " + json.dumps(b))
+    families = [c[0] for c in soak.CONFIGS]
+    short = [f for f in families
+             if b["decided_per_family"].get(f, 0) < SOAK_MIN_FAMILY]
+    largest = f"cas-register/{max(soak.sizes_of('cas-register'))}"
+    if (tally.mismatches or b["decided_true"] < SOAK_MIN_VERDICTS
+            or b["decided_false"] < SOAK_MIN_VERDICTS or short
+            or b["decided_per_config"].get(largest, 0) < 1):
+        raise AssertionError(f"phase20b: mismatches {tally.mismatches}, "
+                             f"families under {SOAK_MIN_FAMILY}: {short}, "
+                             f"{b}")
+    need_launches("phase20b", dev, launches)
+    out["b"] = b
+
+    t0 = time.perf_counter()
+    c, launches, _ = counted(torch, dev, lambda: soak.round5_batch(
+        random.Random(SOAK_R5_SEED), SOAK_R5_SEED, 1, dev.type))
+    c["b1_launches"] = launches.get("witness_sweep", 0)
+    c["wall_s"] = time.perf_counter() - t0
+    log("phase20c: " + json.dumps(c))
+    if (c["mismatches"] or not c["keys"] or not c["modes_checked"]
+            or c["bad_planted"] < 1
+            or c["bad_convicted"] != c["bad_planted"]):
+        raise AssertionError(f"phase20c: {c}")
+    need_launches("phase20c", dev, launches)
+    out["c"] = c
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"phase20: {out['wall_s']:.3f} s")
+    return out
+
+
 class Stages:
     """The script's wall seconds by stage, for its time budget: each
     call closes the stage it names, logs it and keeps it in
@@ -7323,6 +7455,9 @@ def main() -> int:
     stage("17")
     mesh_r = phase_mesh(torch, list(elle_r["graphs"].values()))
     stage("19")
+    soak_r = phase_soak(torch)
+    entry["launches_soak"] = {k: soak_r[k]["b1_launches"] for k in "bc"}
+    stage("20")
 
     log(f"phase4 done; main path {main_r['ops_per_s']:.1f} ops/s, "
         f"invalid path {bad_r['wall_s']:.3f} s; many-key mixed "
@@ -7358,8 +7493,11 @@ def main() -> int:
             for m, r in transfer_r["modes"].items())
         + f"; lint phase 18b {lint_r['duration_s']} s over "
         f"{lint_r['files']} files; mesh phase 19 "
-        f"{mesh_r['wall_s']:.3f} s")
+        f"{mesh_r['wall_s']:.3f} s; soak phase 20 "
+        f"{soak_r['wall_s']:.3f} s (20b {soak_r['b']['trials']} trials, "
+        f"{soak_r['b']['mismatches']} mismatches)")
     print(json.dumps({"stages_s": stage.seconds}))
+    print(json.dumps({"soak": soak_r}, default=repr))
     print(json.dumps({"mesh": mesh_r}))
     print(json.dumps({"transfer": transfer_r, "lint": lint_r}))
     print(json.dumps({"standing": standing_r}))

@@ -497,10 +497,9 @@ class FleetSupervisor:
         telemetry.count("fleet.tenants-parked")
         log.error("fleet: parking tenant %s after %d crash-loops",
                   ch.spec.name, ch.crash_loops)
-        try:
-            self.registry.set_state(ch.spec.name, "parked")
-        except ValueError:
-            pass  # tenant was removed out from under us
+        # The dossier goes first: whoever reads "parked" in the registry
+        # finds it on disk (the reference writes it after the state, so
+        # a reader between the two finds none).
         store = tenant_store_dir(self.root, ch.spec.name)
         _write_dossier(store, f"fleet-parked-{int(time.time())}", {
             "kind": "fleet-parked", "tenant": ch.spec.name,
@@ -508,6 +507,10 @@ class FleetSupervisor:
             "last-uptime-s": round(uptime, 3),
             "generation": ch.generation, "t": time.time(),
         })
+        try:
+            self.registry.set_state(ch.spec.name, "parked")
+        except ValueError:
+            pass  # tenant was removed out from under us
 
     # -- reconcile ------------------------------------------------------
 

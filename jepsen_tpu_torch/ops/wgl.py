@@ -305,12 +305,15 @@ def _note_level(W: int, SW: int, B: int, Cmax: int,
 
 
 def _run_block(member, states, alive, iters: int, tables, B: int,
-               Cmax: int, pm: PackedModel, packed_on: bool = False):
+               Cmax: int, pm: PackedModel, packed_on: bool, timed_out):
     """Up to `iters` BFS levels from one frontier: the reference's
     jitted `block` while-loop, driven from the host with one device
     read per level.  An overflow does not stop the block: a truncated
     frontier that reaches acceptance still proves the history valid.
-    With `packed_on`, member is (B, ceil(W/32)) int32 words.
+    With `packed_on`, member is (B, ceil(W/32)) int32 words.  Where the
+    reference's block can stop only at its end, this one also stops
+    after the level at which `timed_out()` turns true, so a time limit
+    binds within one level.
 
     Returns (member, states, alive, accepted, incomplete, explored,
     levels)."""
@@ -346,12 +349,14 @@ def _run_block(member, states, alive, iters: int, tables, B: int,
         incomplete = incomplete or bool(inc_h)
         if accepted or n_keep_h == 0:
             break
+        if timed_out():
+            break
     return member, states, alive, accepted, incomplete, explored, it
 
 
 def _run_block_sharded(member, states, alive, iters: int, tables: dict,
                        B: int, Cmax: int, pm: PackedModel,
-                       packed_on: bool, shards: list):
+                       packed_on: bool, timed_out, shards: list):
     """`_run_block` with the frontier split over `shards` (one device
     per mesh entry; `tables` maps each device to its copy of the
     block's tables).  The frontier arrives and leaves whole on the
@@ -410,6 +415,8 @@ def _run_block_sharded(member, states, alive, iters: int, tables: dict,
         accepted = accepted or bool(acc_h)
         incomplete = incomplete or bool(inc_h)
         if accepted or n_keep_h == 0:
+            break
+        if timed_out():
             break
     return (gather(mem), gather(st), gather(al), accepted, incomplete,
             explored, it)
@@ -633,7 +640,7 @@ def _bfs(packed: PackedOps, pm: PackedModel, beam: int, max_beam: int,
                 degrade.maybe_fault("device")
                 with telemetry.span("wgl.bfs.block"):
                     args = (member, states, alive, iters, tables, B,
-                            CAND_FACTOR * B, pm, packed_on)
+                            CAND_FACTOR * B, pm, packed_on, timed_out)
                     (member, states, alive, accepted, incomplete, explored,
                      it_done) = (_run_block(*args) if shards is None else
                                  _run_block_sharded(*args, shards))

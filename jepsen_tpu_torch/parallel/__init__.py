@@ -2,7 +2,8 @@
 devices of a mesh, and the mesh helpers."""
 
 from .independent import (KV, IndependentChecker, clear_settle_memo,
-                          history_keys, is_kv, kv, subhistories)
+                          history_keys, independent_checker, is_kv, kv,
+                          subhistories, tuple_gen)
 from .mesh import Mesh, checker_mesh, default_mesh, multihost_init
 
 __all__ = [
@@ -10,9 +11,11 @@ __all__ = [
     "IndependentChecker",
     "clear_settle_memo",
     "history_keys",
+    "independent_checker",
     "is_kv",
     "kv",
     "subhistories",
+    "tuple_gen",
     "Mesh",
     "checker_mesh",
     "default_mesh",

@@ -82,6 +82,11 @@ def is_kv(v: Any) -> bool:
     return isinstance(v, KV)
 
 
+def tuple_gen(key: Any, value: Any) -> KV:
+    """Alias mirroring `independent/tuple`."""
+    return KV(key, value)
+
+
 # ---------------------------------------------------------------------------
 # Settle-verdict memo
 # ---------------------------------------------------------------------------

@@ -352,18 +352,23 @@ def phases(prefix: str) -> dict[str, float]:
 
 #: Counter families recording robustness events: the checking paths'
 #: degradation steps (`wgl.degrade.<tier>.<action>`) and blown checker
-#: budgets; a run's watchdog op timeouts and drain stragglers, fault
-#: ledger events (nemesis.*), node health (node.*), transport flapping
-#: (net.*) and client open failures.
+#: budgets; a run's watchdog op timeouts and drain stragglers, daemon
+#: start retries, fault ledger events (nemesis.*), node health (node.*),
+#: transport flapping (net.*), client open failures, and remote checking
+#: that fell back in-process or blew its server-side budget.  The
+#: reference's tuple, in its order.
 RESILIENCE_COUNTER_PREFIXES = (
     "interpreter.op-timeouts",
     "interpreter.drain-timeouts",
     "checker.budget-exceeded",
     "wgl.degrade.",
+    "daemon.start-retries",
     "nemesis.",
     "node.",
     "net.",
     "client.open.",
+    "checkerd.fallback",
+    "checkerd.budget-exceeded",
 )
 
 

@@ -242,3 +242,37 @@ def test_a_childs_uptime_ends_when_it_exits(tmp_path):
     sup._reap(ch)
     assert ch.last_exit == 3
     assert ch.crash_loops == 1
+
+
+# -- a parked tenant's dossier is on disk before its state -------------------
+
+
+def test_parked_state_follows_its_dossier(tmp_path, monkeypatch):
+    """`_park` writes the tenant's dossier before the registry says
+    "parked", so a reader that sees the state finds the dossier.  The
+    crash-loop case reads the dossier directory once the registry says
+    parked; with the reference's order (state, then dossier) it found
+    none under load."""
+    root = str(tmp_path)
+    pfleet.FleetRegistry(root).add(pfleet.TenantSpec(name="bad"))
+    sup = pfleet.FleetSupervisor(root, device="cpu", park_after=2,
+                                 spawn=lambda spec, store, ep: None)
+    ddir = os.path.join(pfleet.tenant_store_dir(root, "bad"), "forensics",
+                        "monitor")
+    seen = []
+    set_state = sup.registry.set_state
+
+    def spy(name, state):
+        if state == "parked":
+            seen.append(sorted(os.listdir(ddir)) if os.path.isdir(ddir)
+                        else [])
+        return set_state(name, state)
+
+    monkeypatch.setattr(sup.registry, "set_state", spy)
+    ch = pfleet._Child(sup.registry.load()["bad"], sup.clock, sup.rng,
+                       0.05, 0.2, 2)
+    ch.crash_loops = 2
+    sup._park(ch, 3, 0.1)
+    assert sup.registry.load()["bad"].state == "parked"
+    assert len(seen) == 1
+    assert [f for f in seen[0] if f.startswith("fleet-parked-")], seen

@@ -4,8 +4,9 @@ fault and history layers they use, through the port on the CPU.
 The JAX package's own tests (tests/test_forensics.py, test_linviz.py,
 test_nemesis_search.py, test_env_layers.py, test_history_fold.py) run
 through `jepsen_tpu_torch` (tests/torch_ported.py rewrites their
-imports); then the port's functions against the JAX package's on the
-same inputs, made from seeds: `forensics.minimize` / `assemble`
+imports, test_nemesis_search.py's `fault_matrix` to the port's
+tools/port_fault_matrix.py); then the port's functions against the JAX
+package's on the same inputs, made from seeds: `forensics.minimize` / `assemble`
 (the same kept ops, byte-identical counterexample.json),
 `linviz.render_analysis` (byte-identical SVG), the schedule genome
 (`seed_schedule`, `mutate`, `crossover`, `evolve`, `materialize`,
@@ -50,7 +51,8 @@ from jepsen_tpu_torch.utils.histgen import random_register_history
 
 FORENSICS = torch_ported.load("test_forensics")
 LINVIZ = torch_ported.load("test_linviz")
-SEARCH = torch_ported.load("test_nemesis_search")
+SEARCH = torch_ported.load(
+    "test_nemesis_search", imports={"fault_matrix": "port_fault_matrix"})
 ENV = torch_ported.load("test_env_layers")
 FOLD = torch_ported.load("test_history_fold")
 

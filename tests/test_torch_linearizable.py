@@ -45,6 +45,19 @@ BFS_INVALID = [
 ]
 
 
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """The parity cases run the CPU device search under a checker
+    budget: one torch thread.  With the default eight, six test workers
+    oversubscribe the cores, and the port's 96-op invalid check took
+    128.9 s under the tier-1 run's load (past its 120 s budget, so
+    "unknown" where the reference said False) against ~1-2 s alone."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 #: One model per package for the device-search tests: the JAX package
 #: caches compiled programs by the model's step function.  Both sides
 #: pack the same histories in the same order, so the interners agree.
@@ -216,8 +229,8 @@ def test_nonzero_static_pads_like_jnp(size):
 
 def test_import_guard_no_jax_no_reference_package():
     """Importing every module of the port, and loading its ssh and scp
-    shims, with jax blocked loads neither jax nor any jepsen_tpu
-    module."""
+    shims and its tools/port_fault_matrix.py and tools/port_soak.py,
+    with jax blocked loads neither jax nor any jepsen_tpu module."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
 
@@ -270,6 +283,11 @@ def test_import_guard_no_jax_no_reference_package():
             g = runpy.run_path(os.path.join(minissh.BIN_DIR, shim),
                                run_name="shim")
             assert callable(g["main"]), shim
+        # The port's robustness tools, loaded as modules (not run).
+        for tool in ("port_fault_matrix", "port_soak"):
+            g = runpy.run_path(os.path.join("tools", tool + ".py"),
+                               run_name="tool")
+            assert callable(g["main"]), tool
         bad = sorted(n for n in sys.modules
                      if n.split(".")[0] in ("jax", "jaxlib", "jepsen_tpu"))
         assert not bad, bad

@@ -9,6 +9,9 @@ of the port resolves its `device` there, so its checkers, searches and
 a test map's "device", "cuda" by default, run on the CPU (the port runs
 on the card unless asked otherwise; these tests run on the CPU).
 
+`load(name, imports={...})` also points the file's imports of a tool
+or a sibling test file at their port counterparts.
+
 `cases(mod)` lists its tests ("test_x" or "TestClass.test_y", with one
 entry per parametrized case; `cases(mod, slow=True)` its `slow`-marked
 ones), `run(mod, case, request)` runs one, with pytest fixtures
@@ -21,22 +24,32 @@ import inspect
 import itertools
 import pathlib
 import re
+import sys
 import types
+from typing import Optional
 
 HERE = pathlib.Path(__file__).resolve().parent
 
 _loaded: dict = {}
 
 
-def load(name: str) -> types.ModuleType:
+def load(name: str, imports: Optional[dict] = None) -> types.ModuleType:
+    """`imports` maps a module the file imports by name (a tool under
+    tools/, a sibling test file) to the one its ported copy imports
+    instead, e.g. {"fault_matrix": "port_fault_matrix"}.  A loaded file
+    is importable as `ported_<name>`."""
     mod = _loaded.get(name)
     if mod is not None:
         return mod
     path = HERE / f"{name}.py"
     src = re.sub(r"\bjepsen_tpu\b(?!_torch)", "jepsen_tpu_torch",
                  path.read_text())
+    for old, new in (imports or {}).items():
+        src = re.sub(rf"^(\s*)(from|import) {old}\b", rf"\1\2 {new}",
+                     src, flags=re.M)
     mod = types.ModuleType(f"ported_{name}")
     mod.__file__ = str(path)
+    sys.modules[mod.__name__] = mod
     exec(compile(src, f"<{path.name} through jepsen_tpu_torch>", "exec"),
          mod.__dict__)
     _loaded[name] = mod
