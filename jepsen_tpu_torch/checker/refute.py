@@ -53,6 +53,7 @@ from typing import Optional
 
 import numpy as np
 
+from .. import telemetry
 from ..history.packed import NIL, ST_OK, PackedOps
 from ..models.base import PackedModel
 from .wgl_cpu import WGLResult
@@ -121,7 +122,15 @@ def check_refute(
     report_configs: int = 10,
 ) -> Optional[WGLResult]:
     """Runs the screens; WGLResult(valid=False, ...) with a certificate
-    when a violation is proven, else None (no opinion — NOT "valid")."""
+    when a violation is proven, else None (no opinion — NOT "valid").
+    Timed in a `checker.refute` span."""
+    with telemetry.span("checker.refute"):
+        return _screens(packed, pm, time_limit_s, report_configs)
+
+
+def _screens(packed: PackedOps, pm: PackedModel,
+             time_limit_s: Optional[float],
+             report_configs: int) -> Optional[WGLResult]:
     if pm.refute_view is None or packed.n == 0:
         return None
     t0 = time.monotonic()

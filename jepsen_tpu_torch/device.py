@@ -13,28 +13,44 @@ search loops; it counts the reads that had to wait for the card
 loops cost.  `count` adds to the counters under a lock: the many-key
 checker runs searches from worker threads.  `exact_float32` pins
 full-precision float32 products around the search's dedup hashes.
+
+While telemetry is on, `host` also adds the nanoseconds it waited to
+`counters["sync_ns"]`, and `timed(name)` adds the host nanoseconds of a
+block, less those waits, to `counters[name]`.  They are counters, not
+spans, for parts of a check that run thousands of times: a span each
+would be a trace event each.
 """
 
 from __future__ import annotations
 
 import threading
+import time
 from collections import Counter
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from typing import Any, Iterator, Union
 
 import torch
 
+from . import telemetry
+
 #: Event counts of the host-driven loops: "host_syncs" (device reads
-#: that waited for the card), "heavy_rounds" (witness chain searches),
+#: that waited for the card), "heavy_rounds" (witness chain searches,
+#: one per death barrier, whatever the name says), "chain_rounds" (the
+#: rounds of those searches, at most the chain depth each),
 #: "bfs_levels" (frontier and batched BFS levels), the many-key
 #: path's "stream_passes", "stream_restarts" and "stream_keys_proven",
 #: online checking's "online_advances", "online_chunks",
 #: "frontier_deaths", "online_rechecks" and "online_consumed", and the
 #: Elle cycle search's "scc_screens", "scc_extractions",
-#: "scc_bfs_levels" and "scc_bfs_graph_levels" (ops/scc.py).
-#: Process-wide: callers reset by `.clear()`.
+#: "scc_bfs_levels" and "scc_bfs_graph_levels" (ops/scc.py).  With
+#: telemetry on, host nanoseconds besides: "sync_ns" (waiting in
+#: `host`) and the witness's "sweep_ns" and "chain_ns"
+#: (ops/wgl_witness.py, through `timed`).  Process-wide: callers reset
+#: by `.clear()`.
 counters: Counter = Counter()
 _counters_lock = threading.Lock()
+#: Per thread, the nanoseconds `host` has waited (telemetry on).
+_waited = threading.local()
 
 
 def count(name: str, n: int = 1) -> None:
@@ -112,7 +128,41 @@ def exact_float32() -> Iterator[None]:
 
 def host(t: torch.Tensor) -> Any:
     """`t` as Python scalars (`.tolist()`), counting a host sync when
-    `t` lives on the card."""
-    if t.device.type != "cpu":
-        count("host_syncs")
-    return t.tolist()
+    `t` lives on the card (and, telemetry on, the wait's ns)."""
+    if t.device.type == "cpu":
+        return t.tolist()
+    count("host_syncs")
+    if not telemetry.enabled():
+        return t.tolist()
+    t0 = time.perf_counter_ns()
+    out = t.tolist()
+    ns = time.perf_counter_ns() - t0
+    count("sync_ns", ns)
+    _waited.ns = getattr(_waited, "ns", 0) + ns
+    return out
+
+
+class _Timed:
+    __slots__ = ("name", "t0", "w0")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self) -> None:
+        self.w0 = getattr(_waited, "ns", 0)
+        self.t0 = time.perf_counter_ns()
+
+    def __exit__(self, *exc: Any) -> bool:
+        ns = time.perf_counter_ns() - self.t0
+        count(self.name, ns - (getattr(_waited, "ns", 0) - self.w0))
+        return False
+
+
+_UNTIMED = nullcontext()
+
+
+def timed(name: str) -> Any:
+    """Context manager adding the host nanoseconds of its block, less
+    this thread's waits in `host` inside it, to `counters[name]` while
+    telemetry is on; one shared no-op otherwise."""
+    return _Timed(name) if telemetry.enabled() else _UNTIMED

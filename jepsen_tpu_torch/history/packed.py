@@ -558,8 +558,9 @@ def pack_history(h: History, encode: OpEncoderFn) -> PackedOps:
     ops in journal order, so values intern in the order the reference's
     pack_history interns them (`append_many` encodes in another order).
     """
-    b = PackedBuilder(encode)
-    for o in h:
-        if o.is_client_op:
-            b._append_client(o)
-    return b.finish()
+    with telemetry.span("ingest.pack"):
+        b = PackedBuilder(encode)
+        for o in h:
+            if o.is_client_op:
+                b._append_client(o)
+        return b.finish()

@@ -37,6 +37,11 @@ blocks as (W, ceil(B/32)) 32-bit words (ops/packing.py), re-gathered
 as words; each block unpacks it on entry and packs it on exit, so the
 sweep and the chain search see the bool window either way.  Each read
 of a device value is a host sync (`device.counters["host_syncs"]`).
+With telemetry on, each chunk's span (`wgl.witness.chunk`) holds a
+`wgl.witness.table` span for its block tables, built and uploaded, and
+the host's nanoseconds in the sweeps with their death reads and in the
+chain searches, their reads left out, add up in
+`device.counters["sweep_ns"]` and `["chain_ns"]`.
 
 A one-shot search given a `checkpoint_dir` saves its carry there
 between chunks once it has run `CKPT_MIN_ELAPSED_S`, or when its
@@ -377,21 +382,23 @@ class _Block:
         cols = None if bars_h is None else bars_h[0]
         k = 0
         while k < K:
-            s2, al2, dk = sweep(self.pm, k, bars_d, member, states, alive,
-                                self.init)
-            if profile.cost_hooked():
-                if cols is None:
-                    cols = _device.host(bars_d[0])
-                profile.note_cost(roofline.sweep_cost(
-                    k, dk, K, cols, self.B, states.shape[1],
-                    self.init is not None))
-            if dk >= K:
-                return member, s2, al2, False, NO_BAR
-            col = (bars_h[:, dk] if bars_h is not None
-                   else _device.host(bars_d[:, dk]))
-            a, r, _, bf, ba0, ba1 = (int(x) for x in col)
-            member, states, alive, done = self.heavy(
-                member, s2, al2, a, r, bf, ba0, ba1, k0 + dk)
+            with _device.timed("sweep_ns"):
+                s2, al2, dk = sweep(self.pm, k, bars_d, member, states,
+                                    alive, self.init)
+                if profile.cost_hooked():
+                    if cols is None:
+                        cols = _device.host(bars_d[0])
+                    profile.note_cost(roofline.sweep_cost(
+                        k, dk, K, cols, self.B, states.shape[1],
+                        self.init is not None))
+                if dk >= K:
+                    return member, s2, al2, False, NO_BAR
+                col = (bars_h[:, dk] if bars_h is not None
+                       else _device.host(bars_d[:, dk]))
+                a, r, _, bf, ba0, ba1 = (int(x) for x in col)
+            with _device.timed("chain_ns"):
+                member, states, alive, done = self.heavy(
+                    member, s2, al2, a, r, bf, ba0, ba1, k0 + dk)
             if not done:
                 return member, states, alive, True, k0 + dk
             k = dk + 1
@@ -400,13 +407,15 @@ class _Block:
     def heavy(self, member, states, alive, a, r, bf, ba0, ba1, k_rank):
         """Chain search at one barrier: direct -> targeted h·a ->
         expand-any, bounded by `depth` rounds.  Two host syncs per
-        round."""
+        round.  Counts the search (`heavy_rounds`) and each round
+        (`chain_rounds`)."""
         _device.count("heavy_rounds")
         pm = self.pm
         # Membership of ops whose barrier already passed is implied.
         implied = self.rank_w < k_rank
         base_avail = (~implied & (self.inv_w < r) & (self.col != a))[:, None]
         for _ in range(self.depth):
+            _device.count("chain_rounds")
             # try_direct
             ns, legal = pm.torch_step(states, bf, ba0, ba1)
             has = member[a]
@@ -780,19 +789,20 @@ def run_chunks(pm: PackedModel, packed: PackedOps, plan, blocks: list,
         chunk = blocks[c0 : c0 + NB]
         nblk = len(chunk)
         bars_np = None
-        if transfer == "full":
-            bars_np, tab_np, perm_np, present_np, prev_active = \
-                _chunk_tables(packed, plan, chunk, prev_active, K, W)
-            up = [bars_np, tab_np, perm_np, present_np]
-        elif transfer == "indices":
-            bar_np, act_np, perm_np, present_np, prev_active = \
-                _chunk_indices(packed, chunk, prev_active, K, W)
-            up = [bar_np, act_np, perm_np, present_np]
-        else:
-            prev_active = chunk[-1][2]
-            up = []
-        count_h2d(sum(int(a.nbytes) for a in up))
-        up_d = [torch.from_numpy(a).to(dev) for a in up]
+        with telemetry.span("wgl.witness.table"):
+            if transfer == "full":
+                bars_np, tab_np, perm_np, present_np, prev_active = \
+                    _chunk_tables(packed, plan, chunk, prev_active, K, W)
+                up = [bars_np, tab_np, perm_np, present_np]
+            elif transfer == "indices":
+                bar_np, act_np, perm_np, present_np, prev_active = \
+                    _chunk_indices(packed, chunk, prev_active, K, W)
+                up = [bar_np, act_np, perm_np, present_np]
+            else:
+                prev_active = chunk[-1][2]
+                up = []
+            count_h2d(sum(int(a.nbytes) for a in up))
+            up_d = [torch.from_numpy(a).to(dev) for a in up]
         if transfer != "device":
             perm_d, present_d = up_d[2], up_d[3]
 
@@ -801,17 +811,19 @@ def run_chunks(pm: PackedModel, packed: PackedOps, plan, blocks: list,
             if transfer == "full":
                 bars_b, tab_b = up_d[0][bi], up_d[1][bi]
             elif transfer == "indices":
-                bars_b, tab_b = _card_tables(
-                    rows, up_d[0][bi], up_d[1][bi], len(chunk[bi][1]),
-                    len(chunk[bi][2]), K, W)
+                with telemetry.span("wgl.witness.table"):
+                    bars_b, tab_b = _card_tables(
+                        rows, up_d[0][bi], up_d[1][bi], len(chunk[bi][1]),
+                        len(chunk[bi][2]), K, W)
             else:
                 # Every block here is real (nb > 0): nothing pads the
                 # carried window rows away.
                 k0, er, lo, nb, cut, _ = scal[c0 + bi]
-                act, nw, perm_b, present_b = _card_window(
-                    rows, prev_act, k0, er, lo, cut, S, W)
-                bars_b, tab_b = _card_tables(
-                    rows, rows.bars[k0:k0 + K], act, nb, nw, K, W)
+                with telemetry.span("wgl.witness.table"):
+                    act, nw, perm_b, present_b = _card_window(
+                        rows, prev_act, k0, er, lo, cut, S, W)
+                    bars_b, tab_b = _card_tables(
+                        rows, rows.bars[k0:k0 + K], act, nb, nw, K, W)
                 prev_act = act
             if transfer != "device":
                 perm_b, present_b = perm_d[bi], present_d[bi]
